@@ -1,0 +1,211 @@
+"""The host side of the codec: the GXTC v4 container, the byte loop, the flush.
+
+Port of `gmix_tpu.core.codec` (compress/decompress only). The input is split
+into `num_streams` contiguous blocks, each coded by an independent model
+replica (one lane of every batched state tensor). Streams are padded to a
+common length that is a multiple of `chunk`; the port runs eagerly, so
+`chunk` only sets that padding, which keeps the container identical to
+gmix_tpu's.
+"""
+from __future__ import annotations
+
+import struct
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..config import EnsembleSpec
+from ..ops import coder as coder_ops
+from ..state import init_state
+from .meta import Meta, build_meta
+from .step import CODER_WIN, StepPlan, _byte_step
+
+MAGIC = b"GXTC"
+# the container version of gmix_tpu.core.codec (v4: deterministic polynomial
+# transcendentals); archives of the two packages share it
+VERSION = 4
+# worst-case output bytes per input byte (4 renorm bytes * 8 bits + slack)
+_WORST_PER_BYTE = 33
+
+
+class Predictor:
+    """Owns the batched model state of S streams on one device."""
+
+    def __init__(
+        self,
+        spec: EnsembleSpec,
+        num_streams: int = 1,
+        seed: int = 0xDEADBEEF,
+        device="cpu",
+        analysis: bool = True,
+    ):
+        self.spec = spec
+        self.meta: Meta = build_meta(spec)
+        self.num_streams = num_streams
+        self.seed = seed
+        self.device = torch.device(device)
+        # analysis=False runs no per-column entropy-EMA ops
+        self.analysis = analysis
+        self.plan = StepPlan(self.meta, num_streams, self.device)
+        self.state = init_state(self.meta, num_streams, seed, self.device)
+
+
+def _pad_streams(data: bytes, num_streams: int, chunk: int):
+    orig = len(data)
+    per = -(-max(orig, 1) // num_streams)  # ceil, >=1
+    per = -(-per // chunk) * chunk  # round up to chunk multiple
+    arr = np.zeros((num_streams, per), np.uint8)
+    flat = np.frombuffer(data, np.uint8)
+    for s in range(num_streams):
+        seg = flat[s * per : (s + 1) * per]
+        arr[s, : len(seg)] = seg
+    return arr, per
+
+
+def _compact_emits(win: np.ndarray, nw: np.ndarray, S: int):
+    """Per-stream code bytes from the per-byte (win, nw) outputs: stream s's
+    bytes are the concatenation over input bytes t of win[t, s, :nw[t, s]]."""
+    mask = np.arange(win.shape[2])[None, None, :] < nw[:, :, None]
+    return [win[:, s][mask[:, s]].tobytes() for s in range(S)]
+
+
+def run_chunks(
+    pred: Predictor,
+    data_buf: torch.Tensor,
+    code_buf: torch.Tensor,
+    n_bytes: int,
+    decode: bool,
+    learn: bool = True,
+    t0: int = 0,
+    chunk: int = 4096,
+):
+    """Run the byte step over [t0, t0+n_bytes). The buffers stay on the
+    predictor's device; the encoder's per-byte renorm bytes come back to the
+    host once per chunk. Returns (data_buf, code_buf, payloads), payloads
+    being the per-stream code bytes emitted by this call (encode; empty byte
+    strings for decode)."""
+    if n_bytes % chunk:
+        raise ValueError("n_bytes must be a chunk multiple")
+    S = data_buf.shape[0]
+    wins, nws = [], []
+    for c0 in range(t0, t0 + n_bytes, chunk):
+        cw, cn = [], []
+        for t in range(c0, c0 + chunk):
+            win, nw = _byte_step(pred.state, data_buf, code_buf, t, decode, pred.plan,
+                                 learn=learn, analysis=pred.analysis)
+            if not decode:
+                cw.append(win)
+                cn.append(nw)
+        if not decode:
+            wins.append(torch.stack(cw).cpu().numpy())
+            nws.append(torch.stack(cn).cpu().numpy())
+    if decode:
+        return data_buf, code_buf, [b""] * S
+    win = np.concatenate(wins) if wins else np.zeros((0, S, CODER_WIN), np.uint8)
+    nw = np.concatenate(nws) if nws else np.zeros((0, S), np.uint8)
+    return data_buf, code_buf, _compact_emits(win, nw, S)
+
+
+def _header(spec: EnsembleSpec, S: int, orig: int, per: int) -> bytes:
+    return MAGIC + struct.pack("<BBHQQQQ", VERSION, 0, S, orig, per, spec.stable_hash(), 0)
+
+
+def compress_bytes(
+    data: bytes,
+    spec: EnsembleSpec,
+    num_streams: int = 1,
+    chunk: int = 4096,
+    pred: Optional[Predictor] = None,
+    device="cpu",
+) -> bytes:
+    """Full-file compression into the GXTC container. The model runs on
+    `pred.device`, or on `device` when no predictor is given."""
+    orig = len(data)
+    if orig == 0:
+        return _header(spec, num_streams, 0, 0)
+    arr, per = _pad_streams(data, num_streams, chunk)
+    S = num_streams
+    if pred is None:
+        pred = Predictor(spec, S, device=device)
+    dev = pred.device
+    data_buf = torch.as_tensor(arr, device=dev)
+    # encode never reads the code buffer
+    code_buf = torch.zeros((S, 1), dtype=torch.uint8, device=dev)
+    data_buf, code_buf, bodies = run_chunks(
+        pred, data_buf, code_buf, per, decode=False, chunk=chunk
+    )
+    coder = {k: v.cpu().numpy() for k, v in pred.state["coder"].items()}
+    tails = coder_ops.flush_bytes(coder["x1"], coder["x2"])
+    for s in range(S):
+        if len(bodies[s]) != int(coder["wpos"][s]):
+            raise RuntimeError("emitted byte count disagrees with the coder's write cursor")
+    payloads = [bodies[s] + tails[s] for s in range(S)]
+    sizes = struct.pack(f"<{S}Q", *[len(p) for p in payloads])
+    return _header(spec, S, orig, per) + sizes + b"".join(payloads)
+
+
+def decompress_bytes(
+    blob: bytes,
+    spec: EnsembleSpec,
+    chunk: int = 4096,
+    pred: Optional[Predictor] = None,
+    device="cpu",
+) -> bytes:
+    if len(blob) < 40 or blob[:4] != MAGIC:
+        raise ValueError("not a GXTC archive (bad magic or truncated header)")
+    ver, _flags, S, orig, per, spec_hash, _rsv = struct.unpack("<BBHQQQQ", blob[4:40])
+    if ver != VERSION:
+        raise ValueError(f"unsupported GXTC container version {ver}")
+    if spec_hash != spec.stable_hash():
+        raise ValueError("spec mismatch: wrong profile for this archive")
+    if orig == 0:
+        return b""
+    # every size must be provable from the blob before any allocation is
+    # sized from it
+    if S == 0 or per == 0 or per % chunk != 0:
+        raise ValueError(f"malformed GXTC header: streams={S} per={per} chunk={chunk}")
+    if orig > S * per:
+        raise ValueError(f"malformed GXTC header: orig {orig} > streams*per {S * per}")
+    off = 40
+    if len(blob) < off + 8 * S:
+        raise ValueError("truncated GXTC size table")
+    sizes = struct.unpack(f"<{S}Q", blob[off : off + 8 * S])
+    off += 8 * S
+    if sum(sizes) != len(blob) - off:
+        raise ValueError(
+            f"malformed GXTC size table: payloads claim {sum(sizes)} bytes, "
+            f"{len(blob) - off} present"
+        )
+    # the same capacity bound as gmix_tpu's codec
+    cap = int(per + per // 2 + _WORST_PER_BYTE * chunk + 4096)
+    if max(sizes) + 8 > cap:
+        raise ValueError(
+            f"malformed GXTC payload: stream size {max(sizes)} exceeds the "
+            f"coder's worst-case bound {cap - 8} for per={per}"
+        )
+    if pred is None:
+        pred = Predictor(spec, S, device=device)
+    dev = pred.device
+    # code bytes past a payload read as 0, as in gmix_tpu's zero-filled
+    # buffer (the step masks reads past the buffer's end)
+    codes = np.zeros((S, max(max(sizes), 4)), np.uint8)
+    for s, sz in enumerate(sizes):
+        codes[s, :sz] = np.frombuffer(blob, np.uint8, count=sz, offset=off)
+        off += sz
+    # prime the decoder window with the first 4 code bytes (decoder.cpp:5-8)
+    x0 = np.zeros((S,), np.int64)
+    for i in range(4):
+        x0 = (x0 << 8) | codes[:, i]
+    pred.state["coder"]["x"] = torch.as_tensor(x0, device=dev)
+    pred.state["coder"]["rpos"] = torch.full((S,), 4, dtype=torch.int64, device=dev)
+    data_buf = torch.zeros((S, per), dtype=torch.uint8, device=dev)
+    code_buf = torch.as_tensor(codes, device=dev)
+    data_buf, code_buf, _ = run_chunks(
+        pred, data_buf, code_buf, per, decode=True, chunk=chunk
+    )
+    return data_buf.cpu().numpy().reshape(-1)[:orig].tobytes()
+
+
+def entropy_bits(pred: Predictor) -> float:
+    return float(pred.state["metrics"]["ent"].double().sum())

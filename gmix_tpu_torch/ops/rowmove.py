@@ -1,0 +1,97 @@
+"""Batched arena-row movers: gather/scatter rows of (S, N, W) tables.
+
+Port of `gmix_tpu.ops.rowmove`. The byte step moves a few dozen rows per
+stream per byte between the arenas and its working sets (indirect blocks,
+mixer rows, position blocks, APM rows; see core/step.py). On a CUDA tensor
+each mover launches its hand-written kernel (csrc/rowmove.cu, built by
+utils/build.py) or raises; on a CPU tensor it runs the plain torch version
+beside it. The kernels only move bytes, so both give the same bits.
+
+Row indices must be unique within a stream (each model family owns a
+disjoint offset range of its arena; core/meta.py builds them that way), so
+no two scattered rows race.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..utils.build import check_launch, load_kernels
+
+
+def gather_rows_plain(tbl: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """(S, N, W)[s, idx[s, m]] -> (S, M, W)."""
+    s_ix = torch.arange(tbl.shape[0], device=tbl.device)[:, None]
+    return tbl[s_ix, idx]
+
+
+def scatter_rows_plain(tbl: torch.Tensor, idx: torch.Tensor, upd: torch.Tensor) -> torch.Tensor:
+    """tbl[s, idx[s, m]] = upd[s, m] in place; returns tbl."""
+    s_ix = torch.arange(tbl.shape[0], device=tbl.device)[:, None]
+    tbl[s_ix, idx] = upd
+    return tbl
+
+
+def _check_cuda(what: str, tbl: torch.Tensor, idx: torch.Tensor, rows: torch.Tensor) -> None:
+    """Validate what the kernel takes; raise on anything else."""
+    if tbl.device.type != "cuda":
+        raise ValueError(f"{what}: table on {tbl.device}, expected a CUDA or CPU tensor")
+    if idx.device != tbl.device or rows.device != tbl.device:
+        raise ValueError(f"{what}: table, indices and rows must share one device")
+    if idx.dtype != torch.int32:
+        raise ValueError(f"{what}: indices must be int32, got {idx.dtype}")
+    if rows.dtype != tbl.dtype:
+        raise ValueError(f"{what}: rows are {rows.dtype}, table is {tbl.dtype}")
+    if tbl.dim() != 3 or idx.dim() != 2 or idx.shape[0] != tbl.shape[0]:
+        raise ValueError(f"{what}: expected tbl (S, N, W) and idx (S, M), got {tuple(tbl.shape)} / {tuple(idx.shape)}")
+    S, M, W = tbl.shape[0], idx.shape[1], tbl.shape[2]
+    if tuple(rows.shape) != (S, M, W):
+        raise ValueError(f"{what}: rows {tuple(rows.shape)} != {(S, M, W)}")
+    for name, t in (("table", tbl), ("indices", idx), ("rows", rows)):
+        if not t.is_contiguous():
+            raise ValueError(f"{what}: {name} must be contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{what}: {name} must be 16-byte aligned")
+    if (W * tbl.element_size()) % 16:
+        raise ValueError(f"{what}: row width {W * tbl.element_size()} B is not a multiple of 16")
+
+
+def gather_rows(tbl: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """(S, N, W)[s, idx[s, m]] -> (S, M, W): the kernel on CUDA, plain on CPU."""
+    if tbl.device.type == "cpu":
+        return gather_rows_plain(tbl, idx)
+    S, N, W = tbl.shape
+    M = idx.shape[1]
+    out = torch.empty((S, M, W), dtype=tbl.dtype, device=tbl.device)
+    _check_cuda("gather_rows", tbl, idx, out)
+    lib = load_kernels()
+    rc = lib.gmix_gather_rows(
+        tbl.data_ptr(), idx.data_ptr(), out.data_ptr(), S, N, M,
+        W * tbl.element_size(), torch.cuda.current_stream(tbl.device).cuda_stream,
+    )
+    check_launch(lib, rc, "gather_rows")
+    gather_rows.launches += 1
+    return out
+
+
+def scatter_rows(tbl: torch.Tensor, idx: torch.Tensor, upd: torch.Tensor) -> torch.Tensor:
+    """tbl[s, idx[s, m]] = upd[s, m] in place, idx unique per stream; returns
+    tbl. The kernel on CUDA, plain on CPU."""
+    if tbl.device.type == "cpu":
+        return scatter_rows_plain(tbl, idx, upd)
+    _check_cuda("scatter_rows", tbl, idx, upd)
+    S, N, W = tbl.shape
+    M = idx.shape[1]
+    lib = load_kernels()
+    rc = lib.gmix_scatter_rows(
+        tbl.data_ptr(), idx.data_ptr(), upd.data_ptr(), S, N, M,
+        W * tbl.element_size(), torch.cuda.current_stream(tbl.device).cuda_stream,
+    )
+    check_launch(lib, rc, "scatter_rows")
+    scatter_rows.launches += 1
+    return tbl
+
+
+# kernel launch counters: one per launch of the CUDA kernel, none for the
+# plain CPU path
+gather_rows.launches = 0
+scatter_rows.launches = 0

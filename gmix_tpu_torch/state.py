@@ -1,0 +1,174 @@
+"""Codec state as a nested dict of batched tensors.
+
+Port of `gmix_tpu.state`: the same leaf names, shapes and initial values,
+with a leading stream axis S. Dtypes follow what torch can compute with:
+
+- u32 registers and small u32 arrays are int64 tensors holding [0, 2^32)
+  (torch's uint32 has no add or shift on the CPU);
+- the two large u32 arenas (`ltm.match_tbl`, `stm.ih_tbl`) are int32
+  tensors with the same bits, so that they take no more memory than in
+  gmix_tpu;
+- the u16 indirect arena `ltm.ind.st` is int16 with the same bits;
+- u8, int32 and float32 leaves keep their dtype.
+
+`state_to_numpy` restores gmix_tpu's dtypes and `state_from_numpy` takes them
+back, so a state moves between the two packages leaf for leaf. The port
+updates the arenas in place rather than copying them every byte.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+import torch
+
+from .core.meta import APM_BINS, APM_SPAN, Meta
+
+DEFAULT_SEED = 0xDEADBEEF
+
+# u32 leaves stored as int32 bit patterns (the large arenas)
+U32_AS_I32 = frozenset({"match_tbl", "ih_tbl"})
+
+
+def init_state(meta: Meta, num_streams: int, seed: int = DEFAULT_SEED, device="cpu") -> Dict:
+    """Fresh state for `num_streams` streams on `device`. `seed` only seeds
+    the LSTM in gmix_tpu; specs with an LSTM or PPM are not ported yet."""
+    spec = meta.spec
+    if spec.ppm is not None or spec.lstm is not None:
+        raise NotImplementedError("the torch port runs specs without PPM and LSTM only")
+    S = num_streams
+    f32, i32, i64 = torch.float32, torch.int32, torch.int64
+
+    def zeros(shape, dtype=i64):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    def full(shape, value, dtype):
+        return torch.full(shape, value, dtype=dtype, device=device)
+
+    stm: Dict = {
+        "bits_seen": zeros((S,)),
+        "new_bit": zeros((S,)),
+        "acc": zeros((S,)),  # bits of the in-flight byte (MSB-first value)
+        "last_byte": zeros((S,)),
+        # recent[:, i] = byte i-ago (i=0: last)
+        "recent": zeros((S, meta.recent_size)),
+        "ctx": zeros((S, meta.n_ctx)),
+        "hist_n": zeros((S,)),
+        "ppm_probs": full((S, 256), 1.0 / 256, f32),
+    }
+    if spec.matches:
+        nm = len(spec.matches)
+        stm["match_ptr"] = zeros((S, nm))
+        stm["match_byte"] = zeros((S, nm))
+        stm["match_len"] = zeros((S, nm), i32)
+    if spec.ihash_ctxs:
+        nih = len(spec.ihash_ctxs)
+        stm["ih_outer_ctx"] = zeros((S, nih))
+        stm["ih_outer_hash"] = zeros((S, nih))
+
+    ltm: Dict = {}
+    # indirect models: ONE block arena of (ns | rm<<8) u16 pairs, ns init 255
+    # (never seen), rm init 0 -> word 0x00FF (long-term-memory.h:11-16), and
+    # the shared state->logit tables (rows [ns models | rm models])
+    M = len(spec.indirects)
+    ltm["ind"] = {
+        "st": full((S, meta.ind_nblocks, 256), 255, torch.int16),
+        "p": zeros((S, 2 * M, 256), f32),
+    }
+    # mixers: three arenas by placement class (core/meta.py); the per-row
+    # steps counters live bitcast in lane meta.mix_step_lane
+    K = meta.mix_n0 + meta.mix_n1 + 1
+    WP = meta.mix_width_pad
+    if meta.mix_total_rows:
+        ltm["mix_w"] = zeros((S, meta.mix_total_rows, WP), f32)
+    if meta.mix_pos_groups:
+        ltm["mix_pos"] = zeros((S, meta.mix_pos_groups, 8 * WP), f32)
+    if meta.mix_dense_total:
+        ltm["mix_dense"] = zeros((S, meta.mix_dense_total, WP), f32)
+    ltm["mix_max_steps"] = full((S, K), 1, i64)  # mixer.cpp:8
+
+    if spec.matches:
+        nm = len(spec.matches)
+        ltm["match_tbl"] = zeros((S, meta.match_total), i32)
+        # predictions[i] = 0.5 + (i+0.5)/512, counts = 1 (match.cpp:19-23)
+        pred0 = 0.5 + (np.arange(256, dtype=np.float32) + 0.5) / 512.0
+        ltm["match_pred"] = torch.as_tensor(pred0, device=device).expand(S, nm, 256).clone()
+        ltm["match_cnt"] = full((S, nm, 256), 1, i32)
+
+    if spec.ihash_ctxs:
+        stm["ih_tbl"] = zeros((S, meta.ih_total), i32)
+
+    ltm["hist"] = zeros((S, meta.history_size), torch.uint8)
+
+    # SSE/APM rows initialised to the identity map p(bin k) = logistic(bin
+    # centre), computed on the host exactly as gmix_tpu does
+    if spec.apm:
+        centers = -APM_SPAN + np.arange(APM_BINS) * (2 * APM_SPAN / (APM_BINS - 1))
+        ident = 1.0 / (1.0 + np.exp(-centers))
+        row = np.tile(ident.astype(np.float32), 8)
+        ltm["apm"] = torch.as_tensor(row, device=device).expand(S, meta.apm_total, 8 * APM_BINS).clone()
+
+    coder = {
+        "x1": zeros((S,)),
+        "x2": full((S,), 0xFFFFFFFF, i64),
+        "x": zeros((S,)),
+        "wpos": zeros((S,)),
+        "rpos": zeros((S,)),
+    }
+    # cumulative cross-entropy (bits) + per-column analysis EMA
+    n_cols = meta.n_pred + meta.mix_n0 + meta.mix_n1 + 1
+    metrics = {
+        "ent": zeros((S,), f32),
+        "ema": full((S, n_cols), 1.0, f32),
+    }
+    return {"stm": stm, "ltm": ltm, "coder": coder, "metrics": metrics}
+
+
+def _leaves(tree, prefix=()):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _leaves(v, prefix + (k,))
+        else:
+            yield prefix + (k,), v
+
+
+def state_bytes(state) -> int:
+    """Total size of the state's tensors in bytes."""
+    return sum(t.numel() * t.element_size() for _, t in _leaves(state))
+
+
+def _map(tree, fn, prefix=()):
+    return {
+        k: _map(v, fn, prefix + (k,)) if isinstance(v, dict) else fn(prefix + (k,), v)
+        for k, v in tree.items()
+    }
+
+
+def _to_torch(path, a, device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype == np.uint32:
+        a = a.view(np.int32) if path[-1] in U32_AS_I32 else a.astype(np.int64)
+    elif a.dtype == np.uint16:
+        a = a.view(np.int16)
+    return torch.tensor(a, device=device)  # always a copy
+
+
+def _to_numpy(path, t) -> np.ndarray:
+    a = t.detach().cpu().numpy()
+    if t.dtype == torch.int64:
+        return a.astype(np.uint32)
+    if t.dtype == torch.int32 and path[-1] in U32_AS_I32:
+        return a.view(np.uint32)
+    if t.dtype == torch.int16:
+        return a.view(np.uint16)
+    return a
+
+
+def state_from_numpy(tree, device="cpu") -> Dict:
+    """gmix_tpu's state as numpy arrays (`jax.device_get`) -> the port's state."""
+    return _map(tree, lambda p, a: _to_torch(p, a, device))
+
+
+def state_to_numpy(state) -> Dict:
+    """The port's state -> numpy arrays with gmix_tpu's dtypes."""
+    return _map(state, _to_numpy)

@@ -1,0 +1,93 @@
+"""gmix_tpu_torch.state against gmix_tpu.state: the same leaves (names,
+shapes, values, and dtypes once converted back), and a lossless trip
+between the two packages' representations."""
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+
+import gmix_tpu.config as j_cfg
+import gmix_tpu_torch.config as t_cfg
+from gmix_tpu.core.meta import build_meta as j_build_meta
+from gmix_tpu.state import init_state as j_init_state
+from gmix_tpu_torch.core.meta import build_meta as t_build_meta
+from gmix_tpu_torch.state import init_state, state_bytes, state_from_numpy, state_to_numpy
+
+torch.set_num_threads(1)
+
+S = 2
+SPECS = {
+    "tiny": lambda c: c.tiny_spec(False),
+    "reference_noppm_scaled8": lambda c: c.scale_tables(
+        dataclasses.replace(c.reference_spec(), ppm=None, lstm=None, roll_ctxs=()), 8, history_bits=10),
+}
+
+
+def _flat(tree, prefix=""):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _flat(v, f"{prefix}{k}.")
+        else:
+            yield f"{prefix}{k}", v
+
+
+def _assert_same(a_tree, b_tree):
+    a, b = dict(_flat(a_tree)), dict(_flat(b_tree))
+    assert sorted(a) == sorted(b)
+    for k in a:
+        x, y = np.asarray(a[k]), np.asarray(b[k])
+        assert (x.shape, x.dtype) == (y.shape, y.dtype), k
+        assert np.array_equal(x.view(np.uint8), y.view(np.uint8)), k
+
+
+@pytest.mark.parametrize("name", sorted(SPECS))
+def test_init_state_matches_gmix_tpu(name):
+    j_state = jax.device_get(j_init_state(j_build_meta(SPECS[name](j_cfg)), S))
+    t_state = init_state(t_build_meta(SPECS[name](t_cfg)), S)
+    _assert_same(j_state, state_to_numpy(t_state))
+    # the arenas take the bytes they take in gmix_tpu; only the small u32
+    # registers are widened to int64
+    big = {"ltm.ind.st", "ltm.ind.p", "ltm.mix_w", "ltm.mix_pos", "ltm.hist", "ltm.match_tbl",
+           "stm.ih_tbl", "ltm.apm"}
+    j_big = sum(v.nbytes for k, v in _flat(j_state) if k in big)
+    t_big = sum(t.numel() * t.element_size() for k, t in _flat(t_state) if k in big)
+    assert t_big == j_big
+    assert state_bytes(t_state) >= j_big
+
+
+def test_numpy_round_trip_is_identity():
+    # a state whose leaves hold arbitrary bits, including u32 values >= 2^31
+    # and u16 values >= 2^15
+    template = jax.device_get(j_init_state(j_build_meta(j_cfg.tiny_spec(False)), S))
+    rng = np.random.default_rng(7)
+
+    def scramble(tree):
+        out = {}
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                out[k] = scramble(v)
+            elif v.dtype == np.float32:
+                out[k] = rng.standard_normal(v.shape).astype(np.float32)
+            else:
+                info = np.iinfo(v.dtype)
+                out[k] = rng.integers(info.min, info.max, v.shape, dtype=np.int64, endpoint=True).astype(v.dtype)
+        return out
+
+    tree = scramble(template)
+    back = state_to_numpy(state_from_numpy(tree))
+    _assert_same(tree, back)
+
+
+def test_state_from_numpy_copies():
+    tree = jax.device_get(j_init_state(j_build_meta(j_cfg.tiny_spec(False)), S))
+    st = state_from_numpy(tree)
+    st["ltm"]["ind"]["p"] += 1.0
+    assert not tree["ltm"]["ind"]["p"].any()
+
+
+def test_unported_specs_raise():
+    with pytest.raises(NotImplementedError):
+        init_state(t_build_meta(t_cfg.tiny_spec(True)), S)

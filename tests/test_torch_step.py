@@ -1,0 +1,102 @@
+"""The port's byte step against gmix_tpu's, run eagerly, from a warm state.
+
+gmix_tpu's jitted programs let XLA:CPU contract a*b+c into one fused
+multiply-add, so they round differently from a program whose ops round one
+by one. The port keeps every op separate, as gmix_tpu does when run under
+`jax.disable_jit()`, and is held bitwise against that.
+"""
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+import gmix_tpu as g
+from gmix_tpu.core import step as j_step
+from gmix_tpu.core.codec import Predictor as JPredictor
+from gmix_tpu.core.codec import _pad_streams, run_chunks as j_run_chunks
+import gmix_tpu_torch as gt
+from gmix_tpu_torch.core import step as t_step
+from gmix_tpu_torch.core.codec import Predictor as TPredictor
+from gmix_tpu_torch.state import state_from_numpy, state_to_numpy
+
+torch.set_num_threads(1)
+
+S = 2
+WARM = 160
+CHUNK = 40
+
+
+def _flat(tree, prefix=""):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _flat(v, f"{prefix}{k}.")
+        else:
+            yield f"{prefix}{k}", np.asarray(v)
+
+
+@pytest.fixture(scope="module")
+def warm():
+    """gmix_tpu's state after WARM bytes of corpus_100k, coded by its jitted
+    chunk program, and the padded input."""
+    with open("data/corpus_100k.bin", "rb") as f:
+        data = f.read(S * (WARM + CHUNK))
+    arr, _ = _pad_streams(data, S, CHUNK)
+    jp = JPredictor(g.tiny_spec(False), S)
+    j_run_chunks(jp, jnp.asarray(arr), jnp.zeros((S, 64), jnp.uint8), WARM, decode=False, chunk=CHUNK)
+    return jp.meta, jax.device_get(jp.state), arr
+
+
+def test_byte_steps_match_eager_gmix_tpu(warm):
+    meta, state_np, arr = warm
+    j_state = jax.tree_util.tree_map(jnp.asarray, state_np)
+    j_data = jnp.asarray(arr)
+    tp = TPredictor(gt.tiny_spec(False), S)
+    tp.state = state_from_numpy(state_np)
+    t_data = torch.tensor(arr)
+    code = np.random.default_rng(3).integers(0, 256, (S, 512), dtype=np.uint8)
+    # two bytes in encode mode, then one in decode mode on arbitrary code bytes
+    for t, decode in ((WARM, False), (WARM + 1, False), (WARM + 2, True)):
+        code_buf = code if decode else np.zeros_like(code)
+        with jax.disable_jit():
+            stm, ltm, coder, metrics, j_data, _, j_win, j_nw = j_step._byte_step(
+                j_state["stm"], j_state["ltm"], j_state["coder"], j_state["metrics"], j_data,
+                jnp.asarray(code_buf), j_step._code_words(jnp.asarray(code_buf)), jnp.int32(t),
+                jnp.asarray(decode), meta, True, "cond", bit_scan=False, analysis=True,
+            )
+        j_state = {"stm": stm, "ltm": ltm, "coder": coder, "metrics": metrics}
+        t_win, t_nw = t_step._byte_step(tp.state, t_data, torch.tensor(code_buf), t, decode, tp.plan)
+
+        want = dict(_flat(jax.device_get(j_state)))
+        got = dict(_flat(state_to_numpy(tp.state)))
+        assert sorted(got) == sorted(want)
+        for k in want:
+            a, b = want[k], got[k]
+            assert (a.shape, a.dtype) == (b.shape, b.dtype), k
+            if k.startswith("metrics."):
+                # the entropy metrics go through jnp.log2, XLA's own log
+                # approximation (its vector path differs with the host's
+                # ISA); they never reach an archive
+                np.testing.assert_array_max_ulp(b, a, maxulp=2)
+            else:
+                assert np.array_equal(a.view(np.uint8), b.view(np.uint8)), f"byte {t}: {k} differs"
+        np.testing.assert_array_equal(t_win.numpy(), np.asarray(j_win))
+        np.testing.assert_array_equal(t_nw.numpy(), np.asarray(j_nw))
+        np.testing.assert_array_equal(t_data.numpy(), np.asarray(j_data))
+
+
+@pytest.mark.parametrize("n", [6, 24])
+def test_tri_solve_matches_eager_gmix_tpu(n):
+    rng = np.random.default_rng(n)
+    lmat = (rng.standard_normal((3, n, n)) * 0.3).astype(np.float32)
+    d = rng.standard_normal((3, n)).astype(np.float32)
+    with jax.disable_jit():
+        want = np.asarray(j_step._tri_solve(jnp.asarray(lmat), jnp.asarray(d)))
+    got = t_step._tri_solve(torch.tensor(lmat), torch.tensor(d)).numpy()
+    np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+
+
+def test_unported_specs_raise():
+    with pytest.raises(NotImplementedError):
+        TPredictor(gt.tiny_spec(True), S)

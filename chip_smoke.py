@@ -7,21 +7,38 @@ Phases; any failure ends the run with a non-zero exit:
 
 0. require a CUDA device (there is no CPU fallback) and print the card's
    name and power limit as nvidia-smi reports them;
-1. build the CUDA kernels from gmix_tpu_torch/csrc/ (nvcc, sm_90a);
-2. hold each kernel against its plain torch version, bitwise, on the live
-   arenas of a Predictor at full width (ref-noppm, 16 streams; arenas filled
-   with seeded random bits), and time both with CUDA events;
+1. build the CUDA kernels from gmix_tpu_torch/csrc/ (nvcc, sm_90a) and print
+   what ptxas says of each (registers, spills, shared memory);
+2. hold each kernel against its plain torch version on the card, at full
+   width (ref-noppm, 16 streams), and time both with CUDA events (`ms`: the
+   device time of one launch, launches run back to back; `call_ms`: one call
+   on an idle device, the wrapper's host work included):
+   - the fused 8-sub-step kernel on the packed inputs of a live Predictor
+     warmed over some tens of corpus bytes, encode and decode, learn on and
+     off, and once at reference_spec()'s full layout with the PPM and LSTM
+     heads on seeded valid inputs: every output that can reach an archive
+     bitwise (`ent` within 16 ulp over the byte, `ema` within 1e-6 relative:
+     they go through log2f / torch.log2);
+   - the row movers, bitwise, on the four live arenas filled with seeded
+     random bits;
 3. the main path at full width: compress_bytes then decompress_bytes of the
    first 16 KB of data/corpus_1m.bin on the GPU (ref-noppm, 16 streams,
-   1 KB per stream); the output must equal the input, and the row-mover
-   kernels must have launched exactly 4 + 4 times per byte step;
+   1 KB per stream); the output must equal the input, and per byte step and
+   direction the fused kernel must have launched exactly once and the row
+   movers 4 + 4 times. Then a short torch.profiler window of byte steps:
+   wall ms, CUDA kernels, aten ops, device busy ms and idle share per step;
 4. GPU against CPU: at scale_tables(ref-noppm, 12, history_bits=16), 2
-   streams, 1 KB, the GPU archive must equal the CPU archive byte for byte,
-   and each device must decode the other's archive.
+   streams, 1 KB, the GPU archive (kernels) must equal the CPU archive
+   (plain versions) byte for byte, and each device must decode the other's.
 
 ref-noppm is gmix_tpu's reference wiring at its published table sizes with
 the two SSE/APM stages of bench.py and without PPM, LSTM and the rolling
 contexts that only PPM reads.
+
+Each kernel's `bound_ms` is the least time the card could take for the same
+work: the larger of its bytes (each input read once, each output written
+once) over 3.35 TB/s and its float operations over 67 TFLOP/s (float32
+outside the tensor cores), the published peaks of an H100 SXM.
 
 The line before the last is a JSON object describing each kernel; the last
 line is {"ok": true, "device": {...}}.
@@ -40,25 +57,39 @@ import torch
 
 import gmix_tpu_torch as gt
 from gmix_tpu_torch.config import ApmStage, reference_spec, scale_tables
-from gmix_tpu_torch.core.codec import Predictor, compress_bytes, decompress_bytes, entropy_bits
+from gmix_tpu_torch.core import fused
+from gmix_tpu_torch.core import step as step_mod
+from gmix_tpu_torch.core.codec import Predictor, compress_bytes, decompress_bytes, entropy_bits, run_chunks
+from gmix_tpu_torch.core.meta import build_meta
 from gmix_tpu_torch.ops import rowmove
 from gmix_tpu_torch.state import state_bytes
 from gmix_tpu_torch.utils.build import build
+from gmix_tpu_torch.utils.fused_inputs import random_inputs
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 STREAMS = 16
 MAIN_BYTES = 16 * 1024
 CHUNK = 1024
 SEED = 1234
-KERNEL_SOURCE = "gmix_tpu_torch/csrc/rowmove.cu"
+WARM_BYTES = 48  # byte steps before the fused kernel's inputs are taken
+PROFILE_STEPS = 10
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_F32_OPS_PER_S = 67e12
+SOURCES = {
+    "gather_rows": "gmix_tpu_torch/csrc/rowmove.cu",
+    "scatter_rows": "gmix_tpu_torch/csrc/rowmove.cu",
+    "fused_substeps": "gmix_tpu_torch/csrc/fused.cu",
+}
 REPLACES = {
     "gather_rows": "gmix_tpu/ops/rowmove.py:85",
     "scatter_rows": "gmix_tpu/ops/rowmove.py:116",
+    "fused_substeps": "gmix_tpu/core/fused.py:249",
 }
 # the four arenas the byte step moves rows of, and how many rows per stream
 # per byte it moves in each (indirect models, stable mixers, position-gated
 # mixers, APM stages)
 ARENAS = (("ind.st", ("ind", "st")), ("mix_w", ("mix_w",)), ("mix_pos", ("mix_pos",)), ("apm", ("apm",)))
+WRAPPERS = (rowmove.gather_rows, rowmove.scatter_rows, fused.fused_substeps)
 
 
 def ref_noppm_spec():
@@ -96,9 +127,11 @@ def corpus(n: int) -> bytes:
     return data
 
 
-def time_ms(fn, reps: int = 30, warmup: int = 3) -> float:
-    """Median of `reps` single-launch times, CUDA events around each;
-    `fn(i)` takes the repetition index so each launch can move other rows."""
+def call_ms(fn, reps: int = 30, warmup: int = 3) -> float:
+    """Median time of one call as its caller sees it on an idle device: CUDA
+    events around each single call, so the host's work inside the call (the
+    wrapper, or the dispatch of a plain version's many small kernels) counts.
+    `fn(i)` takes the repetition index so each call can move other rows."""
     for i in range(warmup):
         fn(i)
     times = []
@@ -110,6 +143,31 @@ def time_ms(fn, reps: int = 30, warmup: int = 3) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return float(np.median(times))
+
+
+def device_ms(fn, reps: int = 30, warmup: int = 3) -> float:
+    """Device time of one call: `reps` calls run back to back between two
+    CUDA events. The device first spins (torch.cuda._sleep) for twice as long
+    as the host needs to enqueue them all, so no host gap is counted. The
+    warm-up and the enqueue rehearsal call fn with indices from `reps` up
+    (below 2 * reps + warmup), the timed pass with 0 .. reps - 1, so a caller
+    can keep the timed calls on rows no earlier call has touched."""
+    for i in range(warmup):
+        fn(2 * reps + i)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(reps):
+        fn(reps + i)
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(2 * host_s * 2e9) + 4_000_000)  # cycles, at under 2 GHz
+    a.record()
+    for i in range(reps):
+        fn(i)
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / reps
 
 
 def unique_rows(rng, S: int, N: int, M: int, device) -> torch.Tensor:
@@ -125,10 +183,145 @@ def fill_random_(t: torch.Tensor, gen: torch.Generator) -> None:
         t.random_(generator=gen)
 
 
-def phase_kernels(spec, dev):
-    """Each kernel against its plain version on the arenas of a live
+def reset_launches() -> None:
+    for w in WRAPPERS:
+        w.launches = 0
+
+
+def read_launches():
+    return tuple(w.launches for w in WRAPPERS)
+
+
+def tensor_bytes(tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+# ---------------------------------------------------------------------------
+# phase 2a: the fused sub-step kernel
+# ---------------------------------------------------------------------------
+
+
+def fused_float_ops(meta, S: int, learn: bool, analysis: bool) -> int:
+    """Float operations of one launch, counted from the shapes: per sub-step
+    the three layers' dots (2 per lane), the triangular solves (squarings of
+    2 n^3 and matrix-vector products of 2 n^2), ~60 per logistic/logit/log2
+    of a prediction column, the heads' interval sums, the SGD pass (3 per
+    lane), and per byte the dense deferred passes (2 per lane and level)."""
+    d = fused._dims(meta)
+    M2, NM, K, WP = 2 * d["M"], d["NM"], d["K"], d["WP"]
+    per_sub = 2 * K * WP + 60 * (NM + 2 * d["NA"] + 1) + 2 * 256 * (d["ppm"] + d["lstm"])
+    for n in (d["n0"], d["n1"]):
+        if n > 1:
+            squarings = max(int(np.ceil(np.log2(n))) - 1, 0)
+            per_sub += squarings * 2 * n**3 + (squarings + 1) * 2 * n * n
+    if analysis:
+        per_sub += 60 * d["nc"]
+    if learn:
+        per_sub += 3 * K * WP + 60 * (M2 + K) + 16 * (M2 + NM) + 3 * 33 * d["NA"]
+    per_byte = 8 * per_sub + (16 * (M2 + NM) * 256 if learn else 0)
+    return S * per_byte
+
+
+def compare_fused(what: str, meta, consts, fin, learn: bool, analysis: bool) -> float:
+    """Kernel against plain version on the same inputs, on the card. Raises
+    on a difference; returns the largest absolute difference of any float
+    output (0.0 but for `ent` and `ema`)."""
+    got = fused.fused_substeps(meta, consts, fin, learn, analysis)
+    torch.cuda.synchronize()
+    want = fused.fused_substeps_plain(meta, consts, fin, learn, analysis)
+    torch.cuda.synchronize()
+    if sorted(got) != sorted(want):
+        raise RuntimeError(f"{what}: outputs {sorted(got)} != {sorted(want)}")
+    err = 0.0
+    for name, a in want.items():
+        b = got[name]
+        if a.shape != b.shape or a.dtype != b.dtype:
+            raise RuntimeError(f"{what}: {name} is {tuple(b.shape)} {b.dtype}, plain {tuple(a.shape)} {a.dtype}")
+        if not (torch.isfinite(b).all() if b.is_floating_point() else True):
+            raise RuntimeError(f"{what}: {name} is not finite")
+        if b.is_floating_point():
+            err = max(err, (a.double() - b.double()).abs().max().item())
+        if name == "ent":
+            np.testing.assert_array_max_ulp(b.cpu().numpy(), a.cpu().numpy(), maxulp=16)
+        elif name == "ema":
+            torch.testing.assert_close(b, a, rtol=1e-6, atol=0)
+        elif not torch.equal(a.contiguous().view(torch.uint8), b.view(torch.uint8)):
+            bad = (a != b).sum().item()
+            raise RuntimeError(f"{what}: {name} differs from the plain version in {bad} of {a.numel()} elements")
+    return err
+
+
+def decode_variant(fin, seed: int):
+    """The same byte as a decode step: direction flag set, a seeded window of
+    code bytes, and the decoder's code value inside [x1, x2]."""
+    out = {k: v.clone() for k, v in fin.items()}
+    out["sc"][:, fused.SC_DECODE] = 1
+    gen = torch.Generator(device=fin["sc"].device).manual_seed(seed)
+    out["win_r"][:, : fused.CODER_WIN] = torch.randint(
+        0, 256, (fin["sc"].shape[0], fused.CODER_WIN), generator=gen, device=fin["sc"].device)
+    x1, x2 = out["coder"][:, fused.CR_X1], out["coder"][:, fused.CR_X2]
+    out["coder"][:, fused.CR_X] = x1 + (x2 - x1) // 3
+    return out
+
+
+def phase_fused(pred, dev):
+    """The fused kernel against its plain version at ref-noppm on live
+    inputs, and at the reference layout with both heads on seeded inputs."""
+    meta, plan, S = pred.meta, pred.plan, pred.num_streams
+    data = np.frombuffer(corpus(S * 2 * WARM_BYTES), np.uint8).reshape(S, 2 * WARM_BYTES)
+    data_buf = torch.as_tensor(data.copy(), device=dev)
+    code_buf = torch.zeros((S, 1), dtype=torch.uint8, device=dev)
+    run_chunks(pred, data_buf, code_buf, WARM_BYTES, decode=False, chunk=WARM_BYTES)
+    fin, _, _ = step_mod._byte_inputs(pred.state, data_buf, code_buf, WARM_BYTES, False, plan, True)
+    cases = {"encode": fin, "decode": decode_variant(fin, SEED)}
+    err = 0.0
+    for direction, f_in in cases.items():
+        for learn in (True, False):
+            err = max(err, compare_fused(f"phase 2 fused ref-noppm {direction} learn={learn}", meta, plan.fused, f_in, learn, True))
+    n_cmp = fused.fused_substeps.launches
+    # timing, at the main path's flags (encode, learn, analysis)
+    ins, outs = fused.io_layout(meta, True, True)
+    t = {
+        "ms": device_ms(lambda i: fused.fused_substeps(meta, plan.fused, fin, True, True), reps=50),
+        "call_ms": call_ms(lambda i: fused.fused_substeps(meta, plan.fused, fin, True, True), reps=50),
+        # the plain version is thousands of small kernels, bound by the
+        # host's dispatch: its time is what a caller waits for
+        "plain_ms": call_ms(lambda i: fused.fused_substeps_plain(meta, plan.fused, fin, True, True), reps=5, warmup=1),
+        "decode_ms": device_ms(lambda i: fused.fused_substeps(meta, plan.fused, cases["decode"], True, True), reps=50),
+        "nolearn_ms": device_ms(lambda i: fused.fused_substeps(meta, plan.fused, fin, False, True), reps=50),
+    }
+    got = fused.fused_substeps(meta, plan.fused, fin, True, True)
+    moved = tensor_bytes([(fin if kind == "s" else plan.fused)[n] for n, _, _, kind in ins])
+    moved += tensor_bytes([plan.fused["desc_i"], plan.fused["desc_f"]]) + tensor_bytes(got.values())
+    ops = fused_float_ops(meta, S, True, True)
+    bytes_ms, ops_ms = 1e3 * moved / PEAK_BYTES_PER_S, 1e3 * ops / PEAK_F32_OPS_PER_S
+    row = {"spec": "ref-noppm", "streams": S, "warm_bytes": WARM_BYTES, "compared": n_cmp, "max_abs_err": err,
+           "bytes_moved": moved, "float_ops": ops, "bound_ms": max(bytes_ms, ops_ms),
+           "bound_by": "bytes" if bytes_ms >= ops_ms else "operations", **t}
+    log(f"phase 2: fused_substeps {json.dumps(row)}")
+
+    # the full reference layout: PPM and LSTM heads, the skip column, no APM
+    meta_h = build_meta(reference_spec())
+    consts_h = fused.const_inputs(meta_h, True, dev)
+    head_err = 0.0
+    for decode in (False, True):
+        inp = random_inputs(meta_h, S, SEED + int(decode), decode=decode, not_first=True)
+        fin_h = {n: torch.as_tensor(inp[n], device=dev) for n, _, _, kind in fused.io_layout(meta_h, True, True)[0] if kind == "s"}
+        head_err = max(head_err, compare_fused(f"phase 2 fused reference+heads decode={decode}", meta_h, consts_h, fin_h, True, True))
+    heads_ms = device_ms(lambda i: fused.fused_substeps(meta_h, consts_h, fin_h, True, True), reps=50)
+    log(f"phase 2: fused_substeps {json.dumps({'spec': 'reference (PPM and LSTM heads)', 'streams': S, 'max_abs_err': head_err, 'ms': heads_ms})}")
+    row["max_abs_err"] = max(err, head_err)
+    return row
+
+
+# ---------------------------------------------------------------------------
+# phase 2b: the row movers
+# ---------------------------------------------------------------------------
+
+
+def phase_rowmovers(pred, dev):
+    """Each mover against its plain version on the arenas of a live
     Predictor, at the shapes the byte step gives it."""
-    pred = Predictor(spec, STREAMS, device=dev)
     rng = np.random.default_rng(SEED)
     gen = torch.Generator(device=dev).manual_seed(SEED)
     per_arena = []
@@ -159,22 +352,91 @@ def phase_kernels(spec, dev):
             raise RuntimeError(f"scatter_rows differs from its plain version on {name}")
         s_err = (rowmove.gather_rows_plain(tbl, idx).double() - upd.double()).abs().max().item()
         del ref
-        # timing: a fresh set of random rows per launch, as each byte step
-        # moves other rows out of an arena far larger than the L2 cache
-        idxs = [unique_rows(rng, S, N, M, dev) for _ in range(40)]
+        # timing: fresh random rows for every launch of every measurement, as
+        # each byte step moves other rows out of an arena far larger than
+        # the L2 cache. The library call is the one torch indexing op of the
+        # plain version.
+        s_ix = torch.arange(S, device=dev)[:, None]
+
+        def timed(timer, op):
+            ix = [unique_rows(rng, S, N, M, dev) for _ in range(64)]
+            return timer(lambda i: op(ix[i]))
+
+        def lib_scatter(ix):
+            tbl[s_ix, ix] = upd
+
         t = {
-            "gather_ms": time_ms(lambda i: rowmove.gather_rows(tbl, idxs[i])),
-            "gather_plain_ms": time_ms(lambda i: rowmove.gather_rows_plain(tbl, idxs[i])),
-            "scatter_ms": time_ms(lambda i: rowmove.scatter_rows(tbl, idxs[i], upd)),
-            "scatter_plain_ms": time_ms(lambda i: rowmove.scatter_rows_plain(tbl, idxs[i], upd)),
+            "gather_ms": timed(device_ms, lambda ix: rowmove.gather_rows(tbl, ix)),
+            "gather_call_ms": timed(call_ms, lambda ix: rowmove.gather_rows(tbl, ix)),
+            "gather_plain_ms": timed(device_ms, lambda ix: rowmove.gather_rows_plain(tbl, ix)),
+            "gather_library_ms": timed(device_ms, lambda ix: tbl[s_ix, ix]),
+            "scatter_ms": timed(device_ms, lambda ix: rowmove.scatter_rows(tbl, ix, upd)),
+            "scatter_call_ms": timed(call_ms, lambda ix: rowmove.scatter_rows(tbl, ix, upd)),
+            "scatter_plain_ms": timed(device_ms, lambda ix: rowmove.scatter_rows_plain(tbl, ix, upd)),
+            "scatter_library_ms": timed(device_ms, lib_scatter),
         }
+        # indices and rows read once, rows written once; no arithmetic
+        moved = tensor_bytes([idx]) + 2 * tensor_bytes([upd])
         row = {"arena": name, "shape": [S, N, W], "dtype": str(tbl.dtype).replace("torch.", ""),
-               "rows": M, "row_bytes": W * tbl.element_size(), "gather_err": g_err, "scatter_err": s_err, **t}
+               "rows": M, "row_bytes": W * tbl.element_size(), "gather_err": g_err, "scatter_err": s_err,
+               "bytes_moved": moved, "bound_ms": 1e3 * moved / PEAK_BYTES_PER_S, **t}
         log(f"phase 2: {json.dumps(row)}")
         per_arena.append(row)
-    del pred
-    torch.cuda.empty_cache()
     return per_arena
+
+
+# ---------------------------------------------------------------------------
+# phase 3: the main path
+# ---------------------------------------------------------------------------
+
+
+def profile_steps(pred, dev):
+    """Wall time of PROFILE_STEPS byte steps untraced, then the same number
+    under torch.profiler: CUDA kernels, aten ops and device busy time per
+    byte step, and the device's idle share of the traced window."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    S = pred.num_streams
+    n = PROFILE_STEPS
+    data = np.frombuffer(corpus(MAIN_BYTES + S * 3 * n)[MAIN_BYTES:], np.uint8).reshape(S, 3 * n)
+    data_buf = torch.as_tensor(data.copy(), device=dev)
+    code_buf = torch.zeros((S, 1), dtype=torch.uint8, device=dev)
+
+    def steps(t0):
+        for t in range(t0, t0 + n):
+            step_mod._byte_step(pred.state, data_buf, code_buf, t, False, pred.plan)
+        torch.cuda.synchronize()
+
+    steps(1)  # warm-up (t > 0: not the stream's first bit)
+    t0 = time.perf_counter()
+    steps(1 + n)
+    wall = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        steps(2 * n)
+        traced = time.perf_counter() - t0
+    kernels = aten = 0
+    busy_us = 0.0
+    own_us = {}  # device us per launch of each hand-written kernel, in place
+    for ka in prof.key_averages():
+        if ka.device_type == DeviceType.CUDA:
+            us = getattr(ka, "self_device_time_total", None) or getattr(ka, "self_cuda_time_total", 0.0)
+            kernels += ka.count
+            busy_us += us
+            for own in ("fused_substeps_kernel", "gather_rows_kernel", "scatter_rows_kernel"):
+                if own in ka.key:
+                    own_us[own] = us / ka.count
+        elif ka.key.startswith("aten::"):
+            aten += ka.count
+    out = {"byte_steps": n, "wall_ms_per_step": 1e3 * wall / n, "traced_wall_ms_per_step": 1e3 * traced / n}
+    if kernels and busy_us > 0:
+        out.update(cuda_kernels_per_step=kernels / n, aten_ops_per_step=aten / n,
+                   device_busy_ms_per_step=busy_us / 1e3 / n, device_idle_share=1.0 - (busy_us / 1e6) / traced,
+                   own_kernel_us_per_launch=own_us)
+    else:
+        out["device_trace"] = "not measured: the profiler recorded no device time"
+    return out
 
 
 def phase_main(spec, dev):
@@ -185,38 +447,34 @@ def phase_main(spec, dev):
     pred = Predictor(spec, STREAMS, device=dev)
     out["state_gb"] = state_bytes(pred.state) / 1e9
     per = MAIN_BYTES // STREAMS
-    rowmove.gather_rows.launches = 0
-    rowmove.scatter_rows.launches = 0
+    reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     blob = compress_bytes(data, spec, STREAMS, CHUNK, pred=pred)
     torch.cuda.synchronize()
     out["encode_s"] = time.perf_counter() - t0
-    enc_launches = (rowmove.gather_rows.launches, rowmove.scatter_rows.launches)
+    enc_launches = read_launches()
     ent = entropy_bits(pred)
     del pred
     torch.cuda.empty_cache()
     pred = Predictor(spec, STREAMS, device=dev)
-    rowmove.gather_rows.launches = 0
-    rowmove.scatter_rows.launches = 0
+    reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     back = decompress_bytes(blob, spec, CHUNK, pred=pred)
     torch.cuda.synchronize()
     out["decode_s"] = time.perf_counter() - t0
-    dec_launches = (rowmove.gather_rows.launches, rowmove.scatter_rows.launches)
+    dec_launches = read_launches()
     out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
-    del pred
-    torch.cuda.empty_cache()
     if back != data:
         raise RuntimeError("phase 3: decompress_bytes did not reproduce the input")
     if not np.isfinite(ent) or ent <= 0:
         raise RuntimeError(f"phase 3: cross-entropy {ent} is not a positive finite number")
-    expect = (4 * per, 4 * per)
+    expect = (4 * per, 4 * per, per)
     if enc_launches != expect or dec_launches != expect:
         raise RuntimeError(
-            f"phase 3: launches (gather, scatter) encode {enc_launches}, decode "
-            f"{dec_launches}, expected {expect} each (4 + 4 per byte step)"
+            f"phase 3: launches (gather, scatter, fused) encode {enc_launches}, decode "
+            f"{dec_launches}, expected {expect} each (4 + 4 + 1 per byte step)"
         )
     out.update(
         bytes=len(data), archive_bytes=len(blob), bpb=8 * len(blob) / len(data),
@@ -225,6 +483,9 @@ def phase_main(spec, dev):
         launches_encode=list(enc_launches), launches_decode=list(dec_launches),
     )
     log(f"phase 3: {json.dumps(out)}")
+    log(f"phase 3: per byte step after {per} bytes per stream: {json.dumps(profile_steps(pred, dev))}")
+    del pred
+    torch.cuda.empty_cache()
     return out
 
 
@@ -233,11 +494,16 @@ def phase_cross(spec, dev):
     spec12 = scale_tables(spec, 12, history_bits=16)
     data = corpus(1024)
     S, chunk = 2, 512
+    n0 = fused.fused_substeps.launches
     t0 = time.perf_counter()
     blob_gpu = compress_bytes(data, spec12, S, chunk, device=dev)
     t1 = time.perf_counter()
+    if fused.fused_substeps.launches != n0 + chunk:
+        raise RuntimeError("phase 4: the GPU encode did not go through the fused kernel once per byte step")
     blob_cpu = compress_bytes(data, spec12, S, chunk, device="cpu")
     t2 = time.perf_counter()
+    if fused.fused_substeps.launches != n0 + chunk:
+        raise RuntimeError("phase 4: the CPU encode launched a kernel")
     if blob_gpu != blob_cpu:
         diff = next(i for i, (a, b) in enumerate(zip(blob_gpu, blob_cpu)) if a != b) if len(blob_gpu) == len(blob_cpu) else -1
         raise RuntimeError(f"phase 4: GPU and CPU archives differ ({len(blob_gpu)} vs {len(blob_cpu)} bytes, first at {diff})")
@@ -262,33 +528,60 @@ def main() -> int:
     ).stdout.strip().splitlines()[0]
     log(f"python {sys.version.split()[0]}, torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"gmix_tpu_torch {gt.__version__}")
+    log(f"phase 0: {smi}")
 
     res = build()
     log(f"phase 1: built {os.path.relpath(res.path, ROOT)} in {res.seconds:.1f} s (rebuilt={res.rebuilt})")
     for line in res.log.splitlines():
-        if "registers" in line or "spill" in line:
+        if "Compiling entry" in line or "registers" in line or "spill" in line or "smem" in line:
             log(f"  ptxas: {line.strip()}")
 
     spec = ref_noppm_spec()
-    per_arena = phase_kernels(spec, dev)
+    pred = Predictor(spec, STREAMS, device=dev)
+    fused_row = phase_fused(pred, dev)
+    per_arena = phase_rowmovers(pred, dev)
+    del pred
+    torch.cuda.empty_cache()
     main_out = phase_main(spec, dev)
     phase_cross(spec, dev)
+
+    def launches(i):
+        return main_out["launches_encode"][i] + main_out["launches_decode"][i]
 
     kernels = []
     for i, (kname, op) in enumerate((("gather_rows", "gather"), ("scatter_rows", "scatter"))):
         kernels.append({
             "name": kname,
             "route": "cuda",
-            "source": KERNEL_SOURCE,
+            "source": SOURCES[kname],
             "replaces": REPLACES[kname],
-            "launches": main_out["launches_encode"][i] + main_out["launches_decode"][i],
+            "launches": launches(i),
             "max_abs_err": max(r[f"{op}_err"] for r in per_arena),
             # one byte step's launches: the four arena shapes, summed
             "ms": sum(r[f"{op}_ms"] for r in per_arena),
+            "call_ms": sum(r[f"{op}_call_ms"] for r in per_arena),
             "plain_ms": sum(r[f"{op}_plain_ms"] for r in per_arena),
-            "per_arena": [{"arena": r["arena"], "ms": r[f"{op}_ms"], "plain_ms": r[f"{op}_plain_ms"]}
-                          for r in per_arena],
+            "bound_ms": sum(r["bound_ms"] for r in per_arena),
+            "bound_by": "bytes",
+            "library_ms": sum(r[f"{op}_library_ms"] for r in per_arena),
+            "per_arena": [{"arena": r["arena"], "ms": r[f"{op}_ms"], "plain_ms": r[f"{op}_plain_ms"],
+                           "bound_ms": r["bound_ms"], "library_ms": r[f"{op}_library_ms"]} for r in per_arena],
         })
+    kernels.append({
+        "name": "fused_substeps",
+        "route": "cuda",
+        "source": SOURCES["fused_substeps"],
+        "replaces": REPLACES["fused_substeps"],
+        "launches": launches(2),
+        "max_abs_err": fused_row["max_abs_err"],
+        "ms": fused_row["ms"],
+        "call_ms": fused_row["call_ms"],
+        "plain_ms": fused_row["plain_ms"],
+        "bound_ms": fused_row["bound_ms"],
+        "bound_by": fused_row["bound_by"],
+        # no single PyTorch call computes the 8 sub-steps
+        "library_ms": None,
+    })
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

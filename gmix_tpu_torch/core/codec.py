@@ -29,22 +29,35 @@ VERSION = 4
 _WORST_PER_BYTE = 33
 
 
+def default_device() -> torch.device:
+    """The device the entry points run on unless the caller names one: the
+    current CUDA device. Without one they raise; the CPU is never a silent
+    substitute (pass device="cpu" to ask for it)."""
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "gmix_tpu_torch runs on a CUDA device by default and found none; "
+            'pass device="cpu" to run the plain torch path on the CPU'
+        )
+    return torch.device("cuda", torch.cuda.current_device())
+
+
 class Predictor:
-    """Owns the batched model state of S streams on one device."""
+    """Owns the batched model state of S streams on one device (the current
+    CUDA device unless `device` says otherwise)."""
 
     def __init__(
         self,
         spec: EnsembleSpec,
         num_streams: int = 1,
         seed: int = 0xDEADBEEF,
-        device="cpu",
+        device=None,
         analysis: bool = True,
     ):
         self.spec = spec
         self.meta: Meta = build_meta(spec)
         self.num_streams = num_streams
         self.seed = seed
-        self.device = torch.device(device)
+        self.device = default_device() if device is None else torch.device(device)
         # analysis=False runs no per-column entropy-EMA ops
         self.analysis = analysis
         self.plan = StepPlan(self.meta, num_streams, self.device)
@@ -117,10 +130,11 @@ def compress_bytes(
     num_streams: int = 1,
     chunk: int = 4096,
     pred: Optional[Predictor] = None,
-    device="cpu",
+    device=None,
 ) -> bytes:
     """Full-file compression into the GXTC container. The model runs on
-    `pred.device`, or on `device` when no predictor is given."""
+    `pred.device`, or, when no predictor is given, on `device` (default: the
+    current CUDA device)."""
     orig = len(data)
     if orig == 0:
         return _header(spec, num_streams, 0, 0)
@@ -150,7 +164,7 @@ def decompress_bytes(
     spec: EnsembleSpec,
     chunk: int = 4096,
     pred: Optional[Predictor] = None,
-    device="cpu",
+    device=None,
 ) -> bytes:
     if len(blob) < 40 or blob[:4] != MAGIC:
         raise ValueError("not a GXTC archive (bad magic or truncated header)")

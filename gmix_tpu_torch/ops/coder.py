@@ -3,7 +3,7 @@
 Port of `gmix_tpu.ops.coder` (reference: src/coder/encoder.cpp:8-34,
 src/coder/decoder.cpp:17-39). Registers are (S,) int64 tensors holding u32
 values, one lane per stream. Encode and decode share one function; `decode`
-is a Python bool here, since the port runs eagerly. The renormalisation loop
+is a Python bool or, as in gmix_tpu, one bool lane per stream. The renormalisation loop
 (0-4 iterations per bit, monotone) is unrolled to 4 masked steps.
 """
 from __future__ import annotations
@@ -34,7 +34,7 @@ def coder_bit(
     p16: torch.Tensor,
     enc_bit: torch.Tensor,
     in_bytes,
-    decode: bool,
+    decode,
 ):
     """One coder bit for all streams.
 
@@ -44,7 +44,8 @@ def coder_bit(
       enc_bit: the known bit in encode mode, (S,) in {0, 1}.
       in_bytes: (S, 4) lookahead bytes of the code stream at the current
         read positions (decode mode; ignored, and may be None, for encode).
-      decode: False: encode, True: decode.
+      decode: False: encode, True: decode; a bool, or an (S,) bool tensor
+        giving each stream its direction.
 
     Returns:
       (bit (S,), new_state, emit_bytes (S, 4), n_renorm (S,) int32). The
@@ -52,9 +53,10 @@ def coder_bit(
       decoder advances its read position by n_renorm.
     """
     x1, x2, x = st
+    dec = decode if torch.is_tensor(decode) else torch.full(x1.shape, bool(decode), dtype=torch.bool, device=x1.device)
     d = (x2 - x1) & MASK32
     xmid = (x1 + (d >> 16) * p16 + (((d & 0xFFFF) * p16) >> 16)) & MASK32
-    bit = (x <= xmid).to(torch.int64) if decode else enc_bit
+    bit = torch.where(dec, (x <= xmid).to(torch.int64), enc_bit)
     take = bit.to(torch.bool)
     x2 = torch.where(take, xmid, x2)  # bit==1 keeps [x1, xmid]
     x1 = torch.where(take, x1, (xmid + 1) & MASK32)  # bit==0 keeps [xmid+1, x2]
@@ -66,8 +68,8 @@ def coder_bit(
         emits.append(torch.where(cond, x2 >> 24, 0))
         x1 = torch.where(cond, (x1 << 8) & MASK32, x1)
         x2 = torch.where(cond, ((x2 << 8) & MASK32) | 255, x2)
-        if decode:
-            x = torch.where(cond, ((x << 8) & MASK32) | in_bytes[:, i], x)
+        if in_bytes is not None:
+            x = torch.where(cond & dec, ((x << 8) & MASK32) | in_bytes[:, i], x)
         counts = counts + cond.to(torch.int32)
 
     return bit, CoderState(x1, x2, x), torch.stack(emits, dim=1), counts

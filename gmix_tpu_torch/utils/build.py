@@ -1,10 +1,11 @@
 """Build the port's CUDA kernels and load them through ctypes.
 
-`gmix_tpu_torch/csrc/*.cu` compile with `nvcc` for `sm_90a` into one shared
-library with a plain C interface, `build/libgmix_kernels.so` at the root of
-the checkout. Nothing includes PyTorch's headers, so a build takes seconds.
-The library is rebuilt when the sources or flags change (a digest sits beside
-it) and is built on first use, never at import.
+`gmix_tpu_torch/csrc/*.cu` compile with `nvcc` for `sm_90a`, one process per
+source and all at once, and link into one shared library with a plain C
+interface, `build/libgmix_kernels.so` at the root of the checkout. Nothing
+includes PyTorch's headers, so a build takes seconds. The library is rebuilt
+when any file under csrc/ or the flags change (a digest sits beside it) and
+is built on first use, never at import.
 """
 from __future__ import annotations
 
@@ -23,10 +24,12 @@ BUILD_DIR = _PKG.parent / "build"
 LIB_PATH = BUILD_DIR / "libgmix_kernels.so"
 _DIGEST_PATH = BUILD_DIR / "libgmix_kernels.sha256"
 
+_ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-    # the kernels move bytes only; no float op may ever be contracted
+    *_ARCH,
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+    # no float op may ever be contracted: the codec's archives depend on
+    # every rounding (the kernels also pin each op with an intrinsic)
     "--fmad=false",
     "-Xptxas", "-v",
 )
@@ -51,33 +54,52 @@ def nvcc_path() -> str:
     return str(nvcc)
 
 
-def _digest(sources) -> str:
+def _digest() -> str:
+    """Over the flags and every file under csrc/ (sources and headers)."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
-        h.update(src.name.encode())
+    for src in sorted(p for p in CSRC_DIR.rglob("*") if p.is_file()):
+        h.update(str(src.relative_to(CSRC_DIR)).encode())
         h.update(src.read_bytes())
     return h.hexdigest()
 
 
 def build() -> BuildResult:
-    """Compile csrc/*.cu unless the library on disk matches the sources."""
-    sources = sorted(CSRC_DIR.glob("*.cu"))
-    digest = _digest(sources)
+    """Compile csrc/*.cu unless the library on disk matches csrc/."""
+    digest = _digest()
     if LIB_PATH.exists() and _DIGEST_PATH.exists() and _DIGEST_PATH.read_text() == digest:
         return BuildResult(LIB_PATH, 0.0, False, "")
+    sources = sorted(CSRC_DIR.glob("*.cu"))
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = LIB_PATH.with_name(f"{LIB_PATH.name}.{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+    nvcc = nvcc_path()
+    tag = f"{os.getpid()}.tmp"
+    objs = [BUILD_DIR / f"{src.stem}.{tag}.o" for src in sources]
+    tmp = LIB_PATH.with_name(f"{LIB_PATH.name}.{tag}")
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{log}")
-    os.replace(tmp, LIB_PATH)
+    try:
+        procs = [
+            subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for src, obj in zip(sources, objs)
+        ]
+        log = ""
+        failed = []
+        for src, proc in zip(sources, procs):
+            out, _ = proc.communicate()
+            log += out
+            if proc.returncode != 0:
+                failed.append(src.name)
+        if failed:
+            raise RuntimeError(f"nvcc failed on {', '.join(failed)}:\n{log}")
+        link = subprocess.run([nvcc, *_ARCH, "-shared", "-o", str(tmp), *map(str, objs)], capture_output=True, text=True)
+        log += link.stdout + link.stderr
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc failed to link ({link.returncode}):\n{log}")
+        os.replace(tmp, LIB_PATH)
+    finally:
+        for f in (*objs, tmp):
+            f.unlink(missing_ok=True)
     _DIGEST_PATH.write_text(digest)
-    return BuildResult(LIB_PATH, seconds, True, log)
+    return BuildResult(LIB_PATH, time.perf_counter() - t0, True, log)
 
 
 _lib: Optional[ctypes.CDLL] = None
@@ -93,6 +115,10 @@ def load_kernels() -> ctypes.CDLL:
             fn = getattr(lib, name)
             fn.argtypes = [ptr, ptr, ptr, i64, i64, i64, i64, ptr]
             fn.restype = ctypes.c_int
+        # (FusedDims* of int64 sizes, FusedIO* of device pointers, stream);
+        # core/fused.py declares the two structures
+        lib.gmix_fused_substeps.argtypes = [ptr, ptr, ptr]
+        lib.gmix_fused_substeps.restype = ctypes.c_int
         lib.gmix_cuda_error_string.argtypes = [ctypes.c_int]
         lib.gmix_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib

@@ -26,21 +26,21 @@ def corpus():
 
 @pytest.fixture(scope="module")
 def port_run(corpus):
-    pred = Predictor(gt.tiny_spec(False), S)
+    pred = Predictor(gt.tiny_spec(False), S, device="cpu")
     blob = gt.compress_bytes(corpus, gt.tiny_spec(False), S, CHUNK, pred=pred)
     return blob, gt.entropy_bits(pred)
 
 
 def test_roundtrip_exact(port_run, corpus):
     blob, _ = port_run
-    assert gt.decompress_bytes(blob, gt.tiny_spec(False), CHUNK) == corpus
+    assert gt.decompress_bytes(blob, gt.tiny_spec(False), CHUNK, device="cpu") == corpus
 
 
 @pytest.mark.parametrize("data", [b"", b"x"])
 def test_roundtrip_empty_and_one_byte(data):
     spec = gt.tiny_spec(False)
-    blob = gt.compress_bytes(data, spec, S, CHUNK)
-    assert gt.decompress_bytes(blob, spec, CHUNK) == data
+    blob = gt.compress_bytes(data, spec, S, CHUNK, device="cpu")
+    assert gt.decompress_bytes(blob, spec, CHUNK, device="cpu") == data
 
 
 def test_size_and_entropy_close_to_jitted_gmix_tpu(port_run, corpus):
@@ -71,3 +71,15 @@ def test_bad_magic_and_spec_mismatch_raise(port_run):
     other = gt.scale_tables(gt.tiny_spec(False), 4)
     with pytest.raises(ValueError, match="spec mismatch"):
         gt.decompress_bytes(blob, other, CHUNK)
+
+
+def test_entry_points_default_to_cuda_and_raise_without_it():
+    """The port runs on the card unless the caller asks for the CPU: with no
+    `device` and no CUDA device it raises instead of running on the CPU."""
+    if torch.cuda.is_available():
+        assert Predictor(gt.tiny_spec(False), S).device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        Predictor(gt.tiny_spec(False), S)
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        gt.compress_bytes(b"abc", gt.tiny_spec(False), S, CHUNK)

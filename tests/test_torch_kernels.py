@@ -1,4 +1,5 @@
-"""The CUDA row-mover kernels against their plain torch versions, on a GPU.
+"""The CUDA kernels (row movers, the fused 8-sub-step kernel) against their
+plain torch versions, on a GPU.
 
 Imports torch and gmix_tpu_torch only, so it runs on a GPU machine that has
 no JAX: `python -m pytest tests/test_torch_kernels.py -q`. Without a CUDA
@@ -18,7 +19,7 @@ S, N, M = 5, 300, 41
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the row-mover kernels have no CPU mode")
+        pytest.skip("needs a CUDA device: the CUDA kernels have no CPU mode")
     return torch.device("cuda")
 
 
@@ -69,3 +70,86 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
         rowmove.scatter_rows(tbl, idx.cpu(), upd)
     with pytest.raises(ValueError, match="multiple of 16"):
         rowmove.gather_rows(torch.zeros((S, N, 6), device=cuda), idx)
+
+
+# ---------------------------------------------------------------------------
+# the fused 8-sub-step kernel (csrc/fused.cu) against its plain version
+# ---------------------------------------------------------------------------
+
+
+def _ref_noppm_spec():
+    import dataclasses
+
+    from gmix_tpu_torch.config import ApmStage, reference_spec
+
+    return dataclasses.replace(
+        reference_spec(),
+        apm=(ApmStage("apm_lb", "last_byte", 8, lr=0.010, weight=0.50),
+             ApmStage("apm_h2", "h2", 16, lr=0.010, weight=0.25)),
+        ppm=None, lstm=None, roll_ctxs=(),
+    )
+
+
+def _fused_spec(name):
+    import gmix_tpu_torch as gt
+
+    return {"tiny": lambda: gt.tiny_spec(False), "tiny-heads": lambda: gt.tiny_spec(True),
+            "ref-noppm": _ref_noppm_spec, "reference": gt.reference_spec}[name]()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("learn,analysis", [(True, True), (True, False), (False, True), (False, False)])
+@pytest.mark.parametrize("decode", [False, True])
+@pytest.mark.parametrize("spec_name", ["tiny", "tiny-heads", "ref-noppm", "reference"])
+def test_fused_kernel_matches_plain(cuda, spec_name, decode, learn, analysis):
+    """Bitwise on every output that can reach an archive; `ent` and `ema` go
+    through log2f / torch.log2, which need not agree to the bit: 16 ulp over
+    the byte's 8 sub-steps and 1e-6 relative. Inputs are finite valid states."""
+    from gmix_tpu_torch.core import fused
+    from gmix_tpu_torch.core.meta import build_meta
+    from gmix_tpu_torch.utils.fused_inputs import random_inputs
+
+    meta = build_meta(_fused_spec(spec_name))
+    streams = 5
+    consts = fused.const_inputs(meta, learn, cuda)
+    inputs = random_inputs(meta, streams, 7 + int(decode), decode=decode, not_first=not decode)
+    fin = {n: torch.as_tensor(inputs[n], device=cuda)
+           for n, _, _, kind in fused.io_layout(meta, learn, analysis)[0] if kind == "s"}
+    kept = {n: v.clone() for n, v in fin.items()}
+    n0 = fused.fused_substeps.launches
+    got = fused.fused_substeps(meta, consts, fin, learn, analysis)
+    torch.cuda.synchronize()
+    assert fused.fused_substeps.launches == n0 + 1
+    want = fused.fused_substeps_plain(meta, consts, fin, learn, analysis)
+    assert sorted(got) == sorted(want) == sorted(n for n, _, _, _ in fused.io_layout(meta, learn, analysis)[1])
+    for name in want:
+        a, b = want[name], got[name]
+        assert (a.shape, a.dtype) == (b.shape, b.dtype), name
+        if name == "ent":
+            np.testing.assert_array_max_ulp(b.cpu().numpy(), a.cpu().numpy(), maxulp=16)
+        elif name == "ema":
+            torch.testing.assert_close(b, a, rtol=1e-6, atol=0)
+        else:
+            assert torch.equal(a.contiguous().view(torch.uint8), b.view(torch.uint8)), f"{name} differs"
+    for n, v in fin.items():  # the kernel writes no input
+        assert torch.equal(v, kept[n]), n
+
+
+@pytest.mark.cuda
+def test_fused_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    import gmix_tpu_torch as gt
+    from gmix_tpu_torch.core import fused
+    from gmix_tpu_torch.core.meta import build_meta
+    from gmix_tpu_torch.utils.fused_inputs import random_inputs
+
+    meta = build_meta(gt.tiny_spec(False))
+    consts = fused.const_inputs(meta, True, cuda)
+    fin = {n: torch.as_tensor(v, device=cuda) for n, v in random_inputs(meta, 2, 1).items()}
+    with pytest.raises(ValueError, match="p_tbl is"):
+        fused.fused_substeps(meta, consts, {**fin, "p_tbl": fin["p_tbl"].double()}, True, True)
+    with pytest.raises(ValueError, match="rows_st has shape"):
+        fused.fused_substeps(meta, consts, {**fin, "rows_st": fin["rows_st"][:, :1]}, True, True)
+    with pytest.raises(ValueError, match="mt_pred on cpu"):
+        fused.fused_substeps(meta, consts, {**fin, "mt_pred": fin["mt_pred"].cpu()}, True, True)
+    with pytest.raises(ValueError, match="contiguous"):
+        fused.fused_substeps(meta, consts, {**fin, "sc": fin["sc"].T.contiguous().T}, True, True)

@@ -52,7 +52,7 @@ def test_byte_steps_match_eager_gmix_tpu(warm):
     meta, state_np, arr = warm
     j_state = jax.tree_util.tree_map(jnp.asarray, state_np)
     j_data = jnp.asarray(arr)
-    tp = TPredictor(gt.tiny_spec(False), S)
+    tp = TPredictor(gt.tiny_spec(False), S, device="cpu")
     tp.state = state_from_numpy(state_np)
     t_data = torch.tensor(arr)
     code = np.random.default_rng(3).integers(0, 256, (S, 512), dtype=np.uint8)
@@ -99,4 +99,4 @@ def test_tri_solve_matches_eager_gmix_tpu(n):
 
 def test_unported_specs_raise():
     with pytest.raises(NotImplementedError):
-        TPredictor(gt.tiny_spec(True), S)
+        TPredictor(gt.tiny_spec(True), S, device="cpu")

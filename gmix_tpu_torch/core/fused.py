@@ -9,22 +9,23 @@ arithmetic coder, the entropy metrics, the mixer SGD, and applies the
 deferred per-bit write stacks at byte end. Gathers and scatters of arena
 rows and all byte-boundary work stay outside, in `core/step.py`.
 
-The kernel (csrc/fused.cu, `fused_substeps_kernel`) replaces
-`gmix_tpu/core/fused.py:_kernel_body`. What bounds it on an H100: at the
-reference widths without PPM and LSTM, 16 streams, one launch moves 5.1 MB
-(0.32 MB per stream; 1.5 us at 3.35 TB/s) and does about 26 MFLOP (0.4 us at
-67 TFLOP/s), so neither bytes nor operations are the floor: the dependent
-chain of 8 sub-steps is, each a chain of block-wide stages (predict, three
-mixer layers with a triangular solve, APM, coder, learn). The design keeps
-one thread block per stream with every working row in shared memory, so a
-stage costs a `__syncthreads()` and not a kernel launch; tables that are
-read one lane per model per sub-step (`p_tbl`, `ind_blk`, `mt_pred`,
-`mt_cnt`) stay in global memory. Measured there (NVIDIA H100 80GB HBM3,
-700 W, chip_smoke.py): 0.24 ms of device time per launch, 0.41 ms per call
-through this wrapper on an idle device, against about 200 ms per call of
-the plain version, which the host's dispatch bounds. A block per stream leaves most of the card's SMs idle at 16
-streams; spreading one stream over more threads or a cluster, and
-overlapping the global-memory passes, is for a later change.
+The kernel (csrc/fused_kernel.cuh, `fused_substeps_kernel`; its C interface
+in csrc/fused.cu) replaces `gmix_tpu/core/fused.py:_kernel_body`. What
+bounds it on an H100: at the reference widths without PPM and LSTM, 16
+streams, one launch moves 5.1 MB (1.5 us at 3.35 TB/s) and does about 26
+MFLOP (0.4 us at 67 TFLOP/s), so neither bytes nor operations are the floor:
+the dependent chain of 8 sub-steps is, each a chain of block-wide stages
+(predict, three mixer layers with a triangular solve, APM, coder, learn) on
+one thread block per stream. The kernel's source note says what the design
+does about it (lane-count instantiations, tables and rows in shared memory
+by bulk asynchronous copy, the squarings of the solves on warps beside the
+chain, the one-thread tail beside the learn stage) and PERF.md holds the
+measured stage table. The launcher picks the instantiation from the sizes
+(`fused_instantiation` reports it); this wrapper keeps what does not change
+between bytes (sizes, checked constants, the io struct) on `consts`, so that
+a call checks and sets only the per-stream pointers.
+`fused_substeps_clocks` runs the same kernel with `clock64()` stored at
+every stage boundary, for measurement.
 
 `fused_substeps_plain` is the same function in eager torch, every float op
 its own torch op in the order of gmix_tpu's `sub_step`; it is what runs on
@@ -75,7 +76,7 @@ SC_DATA, SC_LB, SC_R1, SC_DECODE, SC_NOTFIRST = 0, 1, 2, 3, 4
 # coder-regs lane indices
 CR_X1, CR_X2, CR_X, CR_WPOS, CR_RPOS, CR_ACC, CR_BITS, CR_NEWBIT = range(8)
 
-# the widest mixer row the kernel takes (csrc/fused.cu)
+# the widest mixer row the kernel takes (csrc/fused_kernel.cuh: kMaxQ)
 _MAX_WP = 512
 
 
@@ -162,7 +163,16 @@ def io_layout(meta: Meta, learn: bool, analysis: bool) -> Tuple[List, List]:
     return ins, outs
 
 
-def const_inputs(meta: Meta, learn: bool, device="cpu") -> Dict[str, torch.Tensor]:
+class FusedConsts(dict):
+    """The constants of a spec by name, and what the kernel's wrapper keeps
+    with them between launches (`launch_plans`)."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.launch_plans: Dict = {}
+
+
+def const_inputs(meta: Meta, learn: bool, device="cpu") -> FusedConsts:
     """The constants of a spec, built once and kept on `device`.
 
     `mix_lrs`, `ind_lrs`, `ns_next`, `rm_next` and `match_limits` are
@@ -179,7 +189,7 @@ def const_inputs(meta: Meta, learn: bool, device="cpu") -> Dict[str, torch.Tenso
     def t(a, dtype):
         return torch.as_tensor(np.ascontiguousarray(a), device=dev).to(dtype)
 
-    out: Dict[str, torch.Tensor] = {"mix_lrs": t(meta.mix_lrs, F32)[None, :]}
+    out = FusedConsts(mix_lrs=t(meta.mix_lrs, F32)[None, :])
     if spec.indirects:
         out["ind_lrs"] = t(meta.ind_lrs, F32)[None, :]
         if learn:
@@ -739,7 +749,7 @@ def fused_substeps_plain(meta: Meta, consts: Dict[str, torch.Tensor], fin: Dict[
 # the kernel's wrapper
 # ---------------------------------------------------------------------------
 
-# pointer slots of the C struct FusedIO (csrc/fused.cu), in its order
+# pointer slots of the C struct FusedIO (csrc/fused_kernel.cuh), in its order
 _IN_SLOTS = (
     "sc", "coder", "win_r", "ent", "mix_lrs", "ind_blk", "ind_rot", "p_tbl", "ind_lrs", "ns_next", "rm_next",
     "rows_st", "rows_pos", "rows_cd", "blocks_pd", "lm_tbl", "max_steps", "apm_rows", "ppm_probs", "ppm_regs",
@@ -749,20 +759,40 @@ _IN_SLOTS = (
 _OUT_SLOTS = (
     "coder", "win_w", "bitregs", "ent", "ind_blk", "p_tbl", "rows_st", "rows_pos", "rows_cd", "blocks_pd",
     "lm_tbl", "max_steps", "apm_rows", "ppm_regs", "lstm_regs", "match_len", "mt_pred", "mt_cnt", "ema",
+    "clocks",
 )
 # int64 fields of the C struct FusedDims, in its order
 _DIM_SLOTS = (
     "S", "M", "NM", "n0", "n1", "WP", "SL", "n_pred", "pl0", "pl12", "nskip", "Kst", "Kp", "Kcd", "Kpd",
     "Klm", "Tlm", "NA", "ppm", "lstm", "nc", "learn", "analysis",
 )
+_IN_AT = {n: i for i, n in enumerate(_IN_SLOTS)}
+_OUT_AT = {n: len(_IN_SLOTS) + i for i, n in enumerate(_OUT_SLOTS)}
 
-
-class _FusedIO(ctypes.Structure):
-    _fields_ = [(f"in_{n}", ctypes.c_void_p) for n in _IN_SLOTS] + [(f"out_{n}", ctypes.c_void_p) for n in _OUT_SLOTS]
+# FusedIO is all pointers, so an array of them has its layout and takes a
+# pointer by index
+_FusedIO = ctypes.c_void_p * (len(_IN_SLOTS) + len(_OUT_SLOTS))
 
 
 class _FusedDims(ctypes.Structure):
     _fields_ = [(n, ctypes.c_int64) for n in _DIM_SLOTS]
+
+
+# the stage clocks of the kernel's clocks instantiation (csrc/fused_kernel.cuh,
+# ClockCol): columns of its (S, 8, len(CLOCK_COLS)) int64 output, in SM
+# cycles. Thread 0 reads the clock where it leaves each stage of each
+# sub-step (CLOCK_SUBSTEP, in order) and at the launch's own boundaries
+# (CLOCK_LAUNCH, row 0 only). CLOCK_SIDE are read by the warps that work
+# beside thread 0: the first thread of those that prepare the triangular
+# solves (row offsets ready, squarings done) and of those that learn while
+# thread 0 runs the tail (per-model steps done, rows updated).
+CLOCK_SUBSTEP = (
+    "predict", "rows_wait", "layer0_dots", "squarings_wait", "layer0_solve", "layer1_dots", "layer1_solve",
+    "final_dot", "tail_apm_learn", "learn_wait",
+)
+CLOCK_LAUNCH = ("start", "loaded", "deferred", "writeback", "end")
+CLOCK_SIDE = ("prep_rows", "prep_done", "learn_models_done", "learn_rows_done")
+CLOCK_COLS = CLOCK_SUBSTEP + CLOCK_LAUNCH + CLOCK_SIDE
 
 
 def _check_tensor(name: str, t: torch.Tensor, shape, dtype, dev) -> None:
@@ -778,42 +808,110 @@ def _check_tensor(name: str, t: torch.Tensor, shape, dtype, dev) -> None:
         raise ValueError(f"fused_substeps: {name} must be 16-byte aligned")
 
 
+class _LaunchPlan:
+    """What a launch needs that does not change from byte to byte, for one
+    (consts, learn, analysis, S, device): the sizes, the io struct with the
+    checked constants' pointers in it, and the per-stream slots that each
+    call checks and fills."""
+
+    def __init__(self, meta: Meta, consts: Dict[str, torch.Tensor], learn: bool, analysis: bool, S: int, dev):
+        d = _dims(meta)
+        if d["WP"] > _MAX_WP or d["WP"] % 32:
+            raise ValueError(f"fused_substeps: the kernel takes mixer rows of up to {_MAX_WP} lanes, a multiple of 32; got {d['WP']}")
+        ins, outs = io_layout(meta, learn, analysis)
+        self.io = _FusedIO()
+        self.stream_ins = []  # (slot, name, shape, dtype)
+        for name, tail, dtype, kind in ins:
+            if kind == "s":
+                self.stream_ins.append((_IN_AT[name], name, torch.Size((S,) + tail), dtype))
+            else:
+                _check_tensor(name, consts[name], tail, dtype, dev)
+                self.io[_IN_AT[name]] = consts[name].data_ptr()
+        for name, dtype in (("desc_i", I32), ("desc_f", F32)):
+            t = consts[name]
+            _check_tensor(name, t, t.shape, dtype, dev)
+            self.io[_IN_AT[name]] = t.data_ptr()
+        self.outs = [(_OUT_AT[name], name, (S,) + tail, dtype) for name, tail, dtype, _ in outs]
+        self.dims = _FusedDims(S=S, learn=int(learn), analysis=int(analysis), **{n: d[n] for n in _DIM_SLOTS if n in d})
+        self.dims_ref, self.io_ref = ctypes.byref(self.dims), ctypes.byref(self.io)
+        self.dev = dev
+        self.lib = load_kernels()
+        # which of the kernel's instantiations these sizes take
+        picked = (ctypes.c_int64 * 3)()
+        check_launch(self.lib, self.lib.gmix_fused_substeps_plan(self.dims_ref, picked), "fused_substeps")
+        self.instantiation = {"lane_groups": int(picked[0]), "tables_in_shared_memory": bool(picked[1]),
+                              "shared_bytes": int(picked[2])}
+
+
+def _launch_plan(meta, consts, learn: bool, analysis: bool, S: int, dev) -> _LaunchPlan:
+    plans = consts.launch_plans  # `consts` is const_inputs()'s FusedConsts
+    key = (learn, analysis, S, dev)
+    if key not in plans:
+        plans[key] = _LaunchPlan(meta, consts, learn, analysis, S, dev)
+    return plans[key]
+
+
+def _launch(meta, consts, fin, learn: bool, analysis: bool, clocks: bool):
+    dev = fin["sc"].device
+    if dev.type != "cuda":
+        raise ValueError(f"fused_substeps: inputs on {dev}, expected a CUDA or CPU tensor")
+    plan = _launch_plan(meta, consts, learn, analysis, fin["sc"].shape[0], dev)
+    io = plan.io
+    for slot, name, shape, dtype in plan.stream_ins:
+        t = fin[name]
+        ptr = t.data_ptr()
+        if t.device != dev or t.dtype != dtype or t.shape != shape or ptr % 16 or not t.is_contiguous():
+            _check_tensor(name, t, shape, dtype, dev)  # names what is wrong
+        io[slot] = ptr
+    fo: Dict[str, torch.Tensor] = {}
+    for slot, name, shape, dtype in plan.outs:
+        fo[name] = t = torch.empty(shape, dtype=dtype, device=dev)
+        io[slot] = t.data_ptr()
+    clk = None
+    if clocks:
+        clk = torch.zeros((fin["sc"].shape[0], 8, len(CLOCK_COLS)), dtype=I64, device=dev)
+        io[_OUT_AT["clocks"]] = clk.data_ptr()
+    fn = plan.lib.gmix_fused_substeps_clocks if clocks else plan.lib.gmix_fused_substeps
+    with torch.cuda.device(dev):
+        rc = fn(plan.dims_ref, plan.io_ref, torch.cuda.current_stream(dev).cuda_stream)
+    io[_OUT_AT["clocks"]] = None
+    check_launch(plan.lib, rc, "fused_substeps")
+    return fo, clk
+
+
 def fused_substeps(meta: Meta, consts: Dict[str, torch.Tensor], fin: Dict[str, torch.Tensor],
                    learn: bool, analysis: bool) -> Dict[str, torch.Tensor]:
     """The 8 bit sub-steps of one byte for every stream: the CUDA kernel on
     CUDA tensors, the plain version on CPU tensors. `consts` is
     `const_inputs(meta, learn, device)`, `fin` the per-stream inputs of
-    `io_layout`; returns its outputs."""
-    dev = fin["sc"].device
-    if dev.type == "cpu":
+    `io_layout`; returns its outputs. What a launch needs beyond the
+    per-stream pointers is made at the first call and kept on `consts`."""
+    if fin["sc"].device.type == "cpu":
         return fused_substeps_plain(meta, consts, fin, learn, analysis)
-    if dev.type != "cuda":
-        raise ValueError(f"fused_substeps: inputs on {dev}, expected a CUDA or CPU tensor")
-    d = _dims(meta)
-    S = fin["sc"].shape[0]
-    if d["WP"] > _MAX_WP or d["WP"] % 32:
-        raise ValueError(f"fused_substeps: the kernel takes mixer rows of up to {_MAX_WP} lanes, a multiple of 32; got {d['WP']}")
-    ins, outs = io_layout(meta, learn, analysis)
-    io = _FusedIO()
-    for name, tail, dtype, kind in ins:
-        t = (fin if kind == "s" else consts)[name]
-        _check_tensor(name, t, ((S,) + tail) if kind == "s" else tail, dtype, dev)
-        setattr(io, f"in_{name}", t.data_ptr())
-    for name in ("desc_i", "desc_f"):
-        t = consts[name]
-        _check_tensor(name, t, t.shape, I32 if name == "desc_i" else F32, dev)
-        setattr(io, f"in_{name}", t.data_ptr())
-    fo: Dict[str, torch.Tensor] = {}
-    for name, tail, dtype, _ in outs:
-        fo[name] = torch.empty((S,) + tail, dtype=dtype, device=dev)
-        setattr(io, f"out_{name}", fo[name].data_ptr())
-    dims = _FusedDims(S=S, learn=int(learn), analysis=int(analysis), **{n: d[n] for n in _DIM_SLOTS if n in d})
-    lib = load_kernels()
-    with torch.cuda.device(dev):
-        rc = lib.gmix_fused_substeps(ctypes.byref(dims), ctypes.byref(io), torch.cuda.current_stream(dev).cuda_stream)
-    check_launch(lib, rc, "fused_substeps")
+    fo, _ = _launch(meta, consts, fin, learn, analysis, clocks=False)
     fused_substeps.launches += 1
     return fo
+
+
+def fused_substeps_clocks(meta: Meta, consts: Dict[str, torch.Tensor], fin: Dict[str, torch.Tensor],
+                          learn: bool, analysis: bool):
+    """(outputs, clocks): the kernel's clocks instantiation on CUDA tensors,
+    for measurement. It computes what `fused_substeps` computes while thread
+    0 of every block stores `clock64()` at every stage boundary; `clocks` is
+    (S, 8, len(CLOCK_COLS)) int64 SM cycles. The codec never calls it, and
+    it does not count as a launch of the main path's kernel."""
+    return _launch(meta, consts, fin, learn, analysis, clocks=True)
+
+
+def fused_instantiation(meta: Meta, consts: Dict[str, torch.Tensor], learn: bool, analysis: bool, S: int, device) -> Dict:
+    """Which instantiation of the kernel a launch at these sizes takes: the
+    32-lane groups of a mixer row it is unrolled for, whether the byte's
+    look-up tables have room in shared memory beside the working rows (else
+    they stay in global memory), and the block's shared memory in bytes."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dict(_launch_plan(meta, consts, learn, analysis, S, dev).instantiation)
 
 
 # kernel launch counter: one per launch of the CUDA kernel, none for the

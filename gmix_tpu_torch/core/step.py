@@ -7,9 +7,9 @@ LSTM. The 8 sub-steps and the deferred per-bit writes are one function,
 `core/fused.py:fused_substeps`: one hand-written CUDA kernel on a CUDA
 device, the eager torch loop on the CPU. This module keeps what surrounds
 them, in eager torch, with the arena rows moved by the kernels of
-`ops/rowmove.py`. On a GPU a byte step is therefore 9 hand-written launches
-(4 gathers, the sub-steps, 4 scatters) plus the eager boundary, packing and
-byte-end ops.
+`ops/rowmove.py`. On a GPU a byte step is therefore 6 hand-written launches
+(one gather of all four arenas, the sub-steps, 4 scatters) plus the eager
+boundary, packing and byte-end ops.
 
 The JAX function is the reference; the port keeps its expression order op
 for op, because the decoder must replay the encoder's float updates bit for
@@ -37,7 +37,7 @@ import numpy as np
 import torch
 
 from ..ops.murmur import MASK32, murmur3_u32, murmur3_u64
-from ..ops.rowmove import gather_rows, scatter_rows
+from ..ops.rowmove import gather_rows_many, scatter_rows
 from .fused import (  # noqa: F401  (_tri_solve: held against gmix_tpu's by the step tests)
     CODER_WIN,
     _onehot_rows,
@@ -190,24 +190,33 @@ def _byte_inputs(state: Dict, data_buf: torch.Tensor, code_buf: torch.Tensor, t:
         mbyte = torch.where((stm["hist_n"] > 0)[:, None], hb.to(I64), stm["match_byte"])
         stm.update(match_ptr=mptr, match_byte=mbyte, match_len=mlen)
 
-    # ---- gather the per-byte working sets (byte-stable gating contexts) ----
+    # ---- gather the per-byte working sets (byte-stable gating contexts):
+    # all row indices first, then every arena's rows in one launch ----
     ctx_byte = stm["ctx"]
     work: Dict = {"max_steps": ltm["mix_max_steps"]}
+    Kst, Kp = len(meta.mix_st_ix), len(meta.mix_pos_ix)
+    Kcd, Kpd, Klm = len(meta.mix_cd_ix), len(meta.mix_pd_ix), len(meta.mix_lm_ix)
+    arenas = []  # (working-set name, table, row indices)
     if M:
         ind_ctx_vals = ctx_byte[:, plan.ind_ctx_slots]  # (S, M)
         blk_ix = ((ind_ctx_vals & plan.ind_blk_masks) + plan.ind_blk_offsets).to(I32)
         # hash-derived lane rotation (gmix_tpu step.py:709-716)
         work["ind_rot"] = ((ind_ctx_vals >> 16) & 255) * plan.ind_rotate  # (S, M)
-        work["ind_blk"] = gather_rows(ltm["ind"]["st"], blk_ix)  # (S, M, 256) int16 bits
         work["p_tbl"] = ltm["ind"]["p"]  # (S, 2M, 256)
-    Kst, Kp = len(meta.mix_st_ix), len(meta.mix_pos_ix)
-    Kcd, Kpd, Klm = len(meta.mix_cd_ix), len(meta.mix_pd_ix), len(meta.mix_lm_ix)
+        arenas.append(("ind_blk", ltm["ind"]["st"], blk_ix))  # (S, M, 256) int16 bits
     if Kst:
         rowix_st = ((ctx_byte[:, plan.mix_st_slots] & plan.mix_st_masks) + plan.mix_st_offsets).to(I32)
-        work["rows_st"] = gather_rows(ltm["mix_w"], rowix_st)  # (S, Kst, WP)
+        arenas.append(("rows_st", ltm["mix_w"], rowix_st))  # (S, Kst, WP)
     if Kp:
         posix = ((ctx_byte[:, plan.mix_pos_slots] & plan.mix_pos_masks) + plan.mix_pos_offsets).to(I32)
-        work["rows_pos"] = gather_rows(ltm["mix_pos"], posix).view(S, Kp, 8, WP)
+        arenas.append(("rows_pos", ltm["mix_pos"], posix))  # (S, Kp, 8 * WP)
+    if NA:
+        apm_ix = ((ctx_byte[:, plan.apm_ctx_slots] & plan.apm_masks) + plan.apm_offsets).to(I32)
+        arenas.append(("apm_rows", ltm["apm"], apm_ix))  # (S, NA, 8*APM_BINS)
+    for (name, _, _), rows in zip(arenas, gather_rows_many([(tbl, idx) for _, tbl, idx in arenas])):
+        work[name] = rows
+    if Kp:
+        work["rows_pos"] = work["rows_pos"].view(S, Kp, 8, WP)
     dense0 = ltm.get("mix_dense")
     cd_oh = []
     if Kcd:
@@ -226,9 +235,6 @@ def _byte_inputs(state: Dict, data_buf: torch.Tensor, code_buf: torch.Tensor, t:
             dense0[:, int(meta.mix_lm_offsets[i]) : int(meta.mix_lm_offsets[i]) + int(meta.mix_lm_sizes[i])]
             for i in range(Klm)
         ]
-    if NA:
-        apm_ix = ((ctx_byte[:, plan.apm_ctx_slots] & plan.apm_masks) + plan.apm_offsets).to(I32)
-        work["apm_rows"] = gather_rows(ltm["apm"], apm_ix)  # (S, NA, 8*APM_BINS)
     if NM:
         work["mt_pred"], work["mt_cnt"] = ltm["match_pred"], ltm["match_cnt"]
 

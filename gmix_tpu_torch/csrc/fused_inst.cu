@@ -1,0 +1,31 @@
+// One instantiation set of the fused sub-step kernel: the kernel for
+// GMIX_Q lane groups (a mixer row of up to 32 * GMIX_Q lanes) with the
+// byte's look-up tables in shared memory (GMIX_TABLES=1) or left in global
+// memory (0), with and without stage clocks. utils/build.py compiles this
+// file once per pair, all at the same time; fused.cu picks among them at
+// launch.
+#include "fused_kernel.cuh"
+
+#if !defined(GMIX_Q) || !defined(GMIX_TABLES)
+#error "compile with -DGMIX_Q=1, 2, 4, 8 or 16 and -DGMIX_TABLES=0 or 1"
+#endif
+
+namespace gmix {
+
+template <>
+int launch_fused_variant<GMIX_Q, GMIX_TABLES != 0>(const Dims& d, const FusedIO& io, size_t smem_bytes, bool clocks,
+                                                   cudaStream_t stream) {
+  // the dynamic shared-memory limit is raised once per instantiation
+  static bool raised[2] = {false, false};
+  auto kernel = clocks ? fused_substeps_kernel<GMIX_Q, GMIX_TABLES != 0, true>
+                       : fused_substeps_kernel<GMIX_Q, GMIX_TABLES != 0, false>;
+  if (!raised[clocks]) {
+    cudaError_t rc = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+    if (rc != cudaSuccess) return static_cast<int>(rc);
+    raised[clocks] = true;
+  }
+  kernel<<<static_cast<unsigned int>(d.S), kThreads, smem_bytes, stream>>>(d, io);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace gmix

@@ -7,21 +7,39 @@ each mover launches its hand-written kernel (csrc/rowmove.cu, built by
 utils/build.py) or raises; on a CPU tensor it runs the plain torch version
 beside it. The kernels only move bytes, so both give the same bits.
 
+A launch costs more than the bytes it moves (csrc/rowmove.cu), so the gather
+takes a list of arenas in one launch: `gather_rows_many`. `gather_rows` is a
+list of one through the same kernel.
+
 Row indices must be unique within a stream (each model family owns a
 disjoint offset range of its arena; core/meta.py builds them that way), so
 no two scattered rows race.
 """
 from __future__ import annotations
 
+import ctypes
+from typing import List, Sequence, Tuple
+
 import torch
 
 from ..utils.build import check_launch, load_kernels
+
+# the most arenas one grouped launch takes (csrc/rowmove.cu: kMaxArenas)
+MAX_ARENAS = 8
+# GmixRowArena of csrc/rowmove.cu: tbl, idx, rows, S, N, M, row_bytes, each 8
+# bytes wide
+_ARENA_FIELDS = 7
 
 
 def gather_rows_plain(tbl: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """(S, N, W)[s, idx[s, m]] -> (S, M, W)."""
     s_ix = torch.arange(tbl.shape[0], device=tbl.device)[:, None]
     return tbl[s_ix, idx]
+
+
+def gather_rows_many_plain(pairs: Sequence[Tuple[torch.Tensor, torch.Tensor]]) -> List[torch.Tensor]:
+    """[(tbl_a (S, N_a, W_a), idx_a (S, M_a))] -> [tbl_a[s, idx_a[s, m]]]."""
+    return [gather_rows_plain(tbl, idx) for tbl, idx in pairs]
 
 
 def scatter_rows_plain(tbl: torch.Tensor, idx: torch.Tensor, upd: torch.Tensor) -> torch.Tensor:
@@ -55,20 +73,52 @@ def _check_cuda(what: str, tbl: torch.Tensor, idx: torch.Tensor, rows: torch.Ten
         raise ValueError(f"{what}: row width {W * tbl.element_size()} B is not a multiple of 16")
 
 
+def _gather_launch(what: str, pairs) -> List[torch.Tensor]:
+    """One launch of the grouped gather kernel on CUDA tensors."""
+    if not 1 <= len(pairs) <= MAX_ARENAS:
+        raise ValueError(f"{what}: one launch takes 1 to {MAX_ARENAS} arenas, got {len(pairs)}")
+    dev = pairs[0][0].device
+    for tbl, _ in pairs:
+        if tbl.device != dev:
+            raise ValueError(f"{what}: every arena must lie on one device, got {tbl.device} and {dev}")
+    desc = (ctypes.c_int64 * (_ARENA_FIELDS * len(pairs)))()
+    outs = []
+    for a, (tbl, idx) in enumerate(pairs):
+        if tbl.dim() != 3 or idx.dim() != 2:
+            raise ValueError(f"{what}: expected tbl (S, N, W) and idx (S, M), got {tuple(tbl.shape)} / {tuple(idx.shape)}")
+        S, N, W = tbl.shape
+        M = idx.shape[1]
+        out = torch.empty((S, M, W), dtype=tbl.dtype, device=dev)
+        _check_cuda(what, tbl, idx, out)
+        desc[a * _ARENA_FIELDS : (a + 1) * _ARENA_FIELDS] = (
+            tbl.data_ptr(), idx.data_ptr(), out.data_ptr(), S, N, M, W * tbl.element_size())
+        outs.append(out)
+    lib = load_kernels()
+    with torch.cuda.device(dev):
+        rc = lib.gmix_gather_rows_many(desc, len(pairs), torch.cuda.current_stream(dev).cuda_stream)
+    check_launch(lib, rc, what)
+    return outs
+
+
+def gather_rows_many(pairs: Sequence[Tuple[torch.Tensor, torch.Tensor]]) -> List[torch.Tensor]:
+    """[(tbl_a (S, N_a, W_a), idx_a (S, M_a))] -> [tbl_a[s, idx_a[s, m]]], up
+    to 8 arenas of any row widths and dtypes: ONE launch of the kernel on
+    CUDA tensors, the plain version on CPU tensors."""
+    if not pairs:
+        return []
+    if all(tbl.device.type == "cpu" for tbl, _ in pairs):
+        return gather_rows_many_plain(pairs)
+    outs = _gather_launch("gather_rows_many", pairs)
+    gather_rows_many.launches += 1
+    return outs
+
+
 def gather_rows(tbl: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """(S, N, W)[s, idx[s, m]] -> (S, M, W): the kernel on CUDA, plain on CPU."""
+    """(S, N, W)[s, idx[s, m]] -> (S, M, W): the kernel on CUDA (a group of
+    one arena), plain on CPU."""
     if tbl.device.type == "cpu":
         return gather_rows_plain(tbl, idx)
-    S, N, W = tbl.shape
-    M = idx.shape[1]
-    out = torch.empty((S, M, W), dtype=tbl.dtype, device=tbl.device)
-    _check_cuda("gather_rows", tbl, idx, out)
-    lib = load_kernels()
-    rc = lib.gmix_gather_rows(
-        tbl.data_ptr(), idx.data_ptr(), out.data_ptr(), S, N, M,
-        W * tbl.element_size(), torch.cuda.current_stream(tbl.device).cuda_stream,
-    )
-    check_launch(lib, rc, "gather_rows")
+    out = _gather_launch("gather_rows", [(tbl, idx)])[0]
     gather_rows.launches += 1
     return out
 
@@ -94,4 +144,5 @@ def scatter_rows(tbl: torch.Tensor, idx: torch.Tensor, upd: torch.Tensor) -> tor
 # kernel launch counters: one per launch of the CUDA kernel, none for the
 # plain CPU path
 gather_rows.launches = 0
+gather_rows_many.launches = 0
 scatter_rows.launches = 0

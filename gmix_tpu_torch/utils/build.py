@@ -1,8 +1,10 @@
 """Build the port's CUDA kernels and load them through ctypes.
 
 `gmix_tpu_torch/csrc/*.cu` compile with `nvcc` for `sm_90a`, one process per
-source and all at once, and link into one shared library with a plain C
-interface, `build/libgmix_kernels.so` at the root of the checkout. Nothing
+object and all at once, and link into one shared library with a plain C
+interface, `build/libgmix_kernels.so` at the root of the checkout. A source
+listed in `VARIANTS` is compiled once per set of `-D` flags: the fused
+kernel's instantiations build side by side. Nothing
 includes PyTorch's headers, so a build takes seconds. The library is rebuilt
 when any file under csrc/ or the flags change (a digest sits beside it) and
 is built on first use, never at import.
@@ -35,6 +37,12 @@ NVCC_FLAGS = (
 )
 
 
+# source -> {object tag: extra flags}; any other source gives one object
+VARIANTS = {
+    "fused_inst.cu": {f"q{q}t{t}": (f"-DGMIX_Q={q}", f"-DGMIX_TABLES={t}") for q in (1, 2, 4, 8, 16) for t in (0, 1)},
+}
+
+
 @dataclass
 class BuildResult:
     path: Path
@@ -56,7 +64,7 @@ def nvcc_path() -> str:
 
 def _digest() -> str:
     """Over the flags and every file under csrc/ (sources and headers)."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256((" ".join(NVCC_FLAGS) + repr(VARIANTS)).encode())
     for src in sorted(p for p in CSRC_DIR.rglob("*") if p.is_file()):
         h.update(str(src.relative_to(CSRC_DIR)).encode())
         h.update(src.read_bytes())
@@ -72,22 +80,26 @@ def build() -> BuildResult:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = nvcc_path()
     tag = f"{os.getpid()}.tmp"
-    objs = [BUILD_DIR / f"{src.stem}.{tag}.o" for src in sources]
+    units = []  # (source, object, extra flags)
+    for src in sources:
+        for name, flags in VARIANTS.get(src.name, {"": ()}).items():
+            units.append((src, BUILD_DIR / f"{src.stem}{name and '_' + name}.{tag}.o", flags))
+    objs = [obj for _, obj, _ in units]
     tmp = LIB_PATH.with_name(f"{LIB_PATH.name}.{tag}")
     t0 = time.perf_counter()
     try:
         procs = [
-            subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+            subprocess.Popen([nvcc, *NVCC_FLAGS, *flags, "-c", "-o", str(obj), str(src)],
                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-            for src, obj in zip(sources, objs)
+            for src, obj, flags in units
         ]
         log = ""
         failed = []
-        for src, proc in zip(sources, procs):
+        for (src, _, flags), proc in zip(units, procs):
             out, _ = proc.communicate()
             log += out
             if proc.returncode != 0:
-                failed.append(src.name)
+                failed.append(" ".join((src.name, *flags)))
         if failed:
             raise RuntimeError(f"nvcc failed on {', '.join(failed)}:\n{log}")
         link = subprocess.run([nvcc, *_ARCH, "-shared", "-o", str(tmp), *map(str, objs)], capture_output=True, text=True)
@@ -111,14 +123,21 @@ def load_kernels() -> ctypes.CDLL:
     if _lib is None:
         lib = ctypes.CDLL(str(build().path))
         ptr, i64 = ctypes.c_void_p, ctypes.c_int64
-        for name in ("gmix_gather_rows", "gmix_scatter_rows"):
-            fn = getattr(lib, name)
-            fn.argtypes = [ptr, ptr, ptr, i64, i64, i64, i64, ptr]
-            fn.restype = ctypes.c_int
+        lib.gmix_scatter_rows.argtypes = [ptr, ptr, ptr, i64, i64, i64, i64, ptr]
+        lib.gmix_scatter_rows.restype = ctypes.c_int
+        # (GmixRowArena* of 7 8-byte fields per arena, arenas, stream);
+        # ops/rowmove.py fills the array
+        lib.gmix_gather_rows_many.argtypes = [ptr, ctypes.c_int, ptr]
+        lib.gmix_gather_rows_many.restype = ctypes.c_int
         # (FusedDims* of int64 sizes, FusedIO* of device pointers, stream);
         # core/fused.py declares the two structures
-        lib.gmix_fused_substeps.argtypes = [ptr, ptr, ptr]
-        lib.gmix_fused_substeps.restype = ctypes.c_int
+        for name in ("gmix_fused_substeps", "gmix_fused_substeps_clocks"):
+            fn = getattr(lib, name)
+            fn.argtypes = [ptr, ptr, ptr]
+            fn.restype = ctypes.c_int
+        # (FusedDims*, int64[3] out: Q, tables in shared memory, shared bytes)
+        lib.gmix_fused_substeps_plan.argtypes = [ptr, ptr]
+        lib.gmix_fused_substeps_plan.restype = ctypes.c_int
         lib.gmix_cuda_error_string.argtypes = [ctypes.c_int]
         lib.gmix_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib

@@ -59,6 +59,51 @@ def test_scatter_kernel_matches_plain(cuda, dtype, W):
     assert torch.equal(tbl, ref)
 
 
+def _arena(dtype, W, n_rows, m, dev, seed, streams=S):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    tbl = _fill(torch.empty((streams, n_rows, W), dtype=dtype, device=dev), gen)
+    rng = np.random.default_rng(seed)
+    idx = np.stack([rng.choice(n_rows, m, replace=False) for _ in range(streams)]).astype(np.int32)
+    return tbl, torch.as_tensor(idx, device=dev)
+
+
+# (dtype, row width, table rows, rows gathered per stream): the byte step's
+# four shapes, a 4 KB row that takes a whole block, and S * M values (S = 5)
+# that are no multiple of the 8, 4, 2 or 1 rows a block moves
+GROUP_ARENAS = [
+    (torch.int16, 256, 300, 41), (torch.float32, 128, 300, 20), (torch.float32, 1024, 64, 2),
+    (torch.float32, 264, 90, 2), (torch.float32, 256, 50, 3), (torch.int32, 4, 40, 7),
+    (torch.float32, 512, 33, 1), (torch.int16, 2048, 17, 3),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_arenas", [1, 4, 8])
+def test_grouped_gather_kernel_matches_plain(cuda, n_arenas):
+    pairs = [_arena(dt, W, n, m, cuda, 100 + i) for i, (dt, W, n, m) in enumerate(GROUP_ARENAS[:n_arenas])]
+    n0 = rowmove.gather_rows_many.launches
+    got = rowmove.gather_rows_many(pairs)
+    torch.cuda.synchronize()
+    assert rowmove.gather_rows_many.launches == n0 + 1  # one launch, whatever the number of arenas
+    want = rowmove.gather_rows_many_plain(pairs)
+    assert len(got) == n_arenas
+    for a, b in zip(want, got):
+        assert (a.shape, a.dtype) == (b.shape, b.dtype)
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_grouped_gather_rejects_what_the_kernel_does_not_take(cuda):
+    pair = _arena(torch.float32, 128, 50, 3, cuda, 1)
+    with pytest.raises(ValueError, match="1 to 8 arenas"):
+        rowmove.gather_rows_many([pair] * 9)
+    with pytest.raises(ValueError, match="one device"):
+        rowmove.gather_rows_many([pair, (pair[0].cpu(), pair[1].cpu())])
+    with pytest.raises(ValueError, match="int32"):
+        rowmove.gather_rows_many([pair, (pair[0], pair[1].long())])
+    assert rowmove.gather_rows_many([]) == []
+
+
 @pytest.mark.cuda
 def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     tbl, idx, upd = _case(torch.float32, 128, cuda, 7)
@@ -90,11 +135,114 @@ def _ref_noppm_spec():
     )
 
 
+def _more_indirects(spec, times):
+    """The spec with every indirect model `times` times over: a wider mixer
+    row and larger look-up tables."""
+    import dataclasses
+
+    ind = tuple(dataclasses.replace(m, name=f"{m.name}_{r}") for r in range(times) for m in spec.indirects)
+    return dataclasses.replace(spec, indirects=ind)
+
+
 def _fused_spec(name):
     import gmix_tpu_torch as gt
 
     return {"tiny": lambda: gt.tiny_spec(False), "tiny-heads": lambda: gt.tiny_spec(True),
-            "ref-noppm": _ref_noppm_spec, "reference": gt.reference_spec}[name]()
+            "ref-noppm": _ref_noppm_spec, "reference": gt.reference_spec,
+            # 256-lane rows (8 lane groups), layers of 6 and 2 rows, tables in shared memory
+            "tiny-wide": lambda: _more_indirects(gt.tiny_spec(False), 10),
+            # 256-lane rows, layers of 24 and 8 rows, 164 KB of p_tbl: tables stay in global memory
+            "ref-wide": lambda: _more_indirects(_ref_noppm_spec(), 2)}[name]()
+
+
+def _fused_case(spec_name, dev, learn, analysis, decode, streams=5):
+    from gmix_tpu_torch.core import fused
+    from gmix_tpu_torch.core.meta import build_meta
+    from gmix_tpu_torch.utils.fused_inputs import random_inputs
+
+    meta = build_meta(_fused_spec(spec_name))
+    consts = fused.const_inputs(meta, learn, dev)
+    inputs = random_inputs(meta, streams, 7 + int(decode), decode=decode, not_first=not decode)
+    fin = {n: torch.as_tensor(inputs[n], device=dev)
+           for n, _, _, kind in fused.io_layout(meta, learn, analysis)[0] if kind == "s"}
+    return meta, consts, fin
+
+
+def _assert_fused_equal(want, got):
+    """Bitwise on every output that can reach an archive; `ent` and `ema` go
+    through log2f / torch.log2, which need not agree to the bit: 16 ulp over
+    the byte's 8 sub-steps and 1e-6 relative."""
+    assert sorted(got) == sorted(want)
+    for name in want:
+        a, b = want[name], got[name]
+        assert (a.shape, a.dtype) == (b.shape, b.dtype), name
+        if name == "ent":
+            np.testing.assert_array_max_ulp(b.cpu().numpy(), a.cpu().numpy(), maxulp=16)
+        elif name == "ema":
+            torch.testing.assert_close(b, a, rtol=1e-6, atol=0)
+        else:
+            assert torch.equal(a.contiguous().view(torch.uint8), b.view(torch.uint8)), f"{name} differs"
+
+
+# the instantiations of the kernel a spec takes: (32-lane groups of a mixer
+# row, look-up tables in shared memory)
+INSTANTIATIONS = {"tiny": (4, True), "ref-noppm": (4, True), "reference": (4, True), "tiny-wide": (8, True),
+                  "ref-wide": (8, False)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("decode", [False, True])
+@pytest.mark.parametrize("learn", [True, False])
+@pytest.mark.parametrize("spec_name", ["tiny-wide", "ref-wide"])
+def test_fused_kernel_other_instantiations_match_plain(cuda, spec_name, learn, decode):
+    """Specs that take the kernel's other instantiations: 8 lane groups, the
+    layer sizes without unrolled code (6 and 2), and look-up tables too large
+    for shared memory."""
+    from gmix_tpu_torch.core import fused
+
+    meta, consts, fin = _fused_case(spec_name, cuda, learn, True, decode)
+    inst = fused.fused_instantiation(meta, consts, learn, True, 5, cuda)
+    assert (inst["lane_groups"], inst["tables_in_shared_memory"]) == INSTANTIATIONS[spec_name]
+    assert 0 < inst["shared_bytes"] <= 232448
+    got = fused.fused_substeps(meta, consts, fin, learn, True)
+    torch.cuda.synchronize()
+    _assert_fused_equal(fused.fused_substeps_plain(meta, consts, fin, learn, True), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spec_name", ["tiny", "ref-noppm", "reference"])
+def test_fused_instantiation_of_the_reference_specs(cuda, spec_name):
+    from gmix_tpu_torch.core import fused
+
+    meta, consts, _ = _fused_case(spec_name, cuda, True, True, False)
+    inst = fused.fused_instantiation(meta, consts, True, True, 5, cuda)
+    assert (inst["lane_groups"], inst["tables_in_shared_memory"]) == INSTANTIATIONS[spec_name]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("decode", [False, True])
+@pytest.mark.parametrize("spec_name", ["tiny", "ref-noppm", "ref-wide"])
+def test_fused_clocks_instantiation_computes_the_same(cuda, spec_name, decode):
+    """The kernel with stage clocks gives the outputs of the kernel without,
+    bit for bit, `ent` and `ema` included, and does not count as a launch of
+    the main path's kernel; every clock it is meant to store is stored."""
+    from gmix_tpu_torch.core import fused
+
+    meta, consts, fin = _fused_case(spec_name, cuda, True, True, decode)
+    want = fused.fused_substeps(meta, consts, fin, True, True)
+    n0 = fused.fused_substeps.launches
+    got, clk = fused.fused_substeps_clocks(meta, consts, fin, True, True)
+    torch.cuda.synchronize()
+    assert fused.fused_substeps.launches == n0
+    assert sorted(got) == sorted(want)
+    for name in want:
+        assert torch.equal(want[name].view(torch.uint8), got[name].view(torch.uint8)), name
+    assert clk.shape == (5, 8, len(fused.CLOCK_COLS)) and clk.dtype == torch.int64
+    at = {n: i for i, n in enumerate(fused.CLOCK_COLS)}
+    sub = [at[n] for n in fused.CLOCK_SUBSTEP + fused.CLOCK_SIDE]
+    assert (clk[:, :, sub] > 0).all()
+    assert (clk[:, 0, [at[n] for n in fused.CLOCK_LAUNCH]] > 0).all()
+    assert (clk[:, 0, at["end"]] > clk[:, 0, at["start"]]).all()
 
 
 @pytest.mark.cuda

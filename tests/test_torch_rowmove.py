@@ -1,6 +1,6 @@
 """The row movers' plain torch gather/scatter against gmix_tpu's (which
 takes its XLA path on the CPU), bitwise, at the four arena row shapes of the
-byte step. The CUDA kernels are held against the plain versions in
+byte step, one arena at a time and all four in one grouped call. The CUDA kernels are held against the plain versions in
 test_torch_kernels.py, which runs on a GPU machine without JAX."""
 import numpy as np
 import pytest
@@ -59,11 +59,42 @@ def test_plain_scatter_matches_gmix_tpu(dtype, W):
     assert np.array_equal(got.view(np.uint8), want.view(np.uint8))
 
 
+def _group(shapes, seed0=11):
+    """One (table, indices) pair per (dtype, width), as numpy arrays."""
+    return [_case(dtype, W, seed0 + i)[:2] for i, (dtype, W) in enumerate(shapes)]
+
+
+@pytest.mark.parametrize("entry", ["gather_rows_many", "gather_rows_many_plain"])
+def test_grouped_gather_matches_gmix_tpu(entry):
+    """All four arena shapes of the byte step in ONE call, each arena bitwise
+    equal to gmix_tpu's gather of it."""
+    cases = _group(SHAPES)
+    got = getattr(t_rm, entry)([(_t(tbl), torch.tensor(idx)) for tbl, idx in cases])
+    assert len(got) == len(cases)
+    for (dtype, W), (tbl, idx), out in zip(SHAPES, cases, got):
+        want = np.asarray(j_rm.gather_rows(jnp.asarray(tbl), jnp.asarray(idx)))
+        out = _np(out, dtype)
+        assert out.shape == (S, M, W) and out.dtype == want.dtype
+        assert np.array_equal(out.view(np.uint8), want.view(np.uint8)), (dtype, W)
+
+
+@pytest.mark.parametrize("n_arenas", [0, 1, 8])
+def test_grouped_gather_is_the_list_of_single_gathers(n_arenas):
+    cases = _group([SHAPES[i % len(SHAPES)] for i in range(n_arenas)], seed0=31)
+    pairs = [(_t(tbl), torch.tensor(idx)) for tbl, idx in cases]
+    got = t_rm.gather_rows_many(pairs)
+    assert len(got) == n_arenas
+    for (tbl, idx), out in zip(pairs, got):
+        assert torch.equal(out, t_rm.gather_rows(tbl, idx))
+
+
 def test_cpu_tensors_never_launch_a_kernel():
     tbl, idx, upd = _case(np.float32, 128, 5)
-    g0, s0 = t_rm.gather_rows.launches, t_rm.scatter_rows.launches
+    counters = (t_rm.gather_rows, t_rm.gather_rows_many, t_rm.scatter_rows)
+    before = [w.launches for w in counters]
     t_rm.scatter_rows(_t(tbl), torch.tensor(idx), t_rm.gather_rows(_t(tbl), torch.tensor(idx)))
-    assert (t_rm.gather_rows.launches, t_rm.scatter_rows.launches) == (g0, s0)
+    t_rm.gather_rows_many([(_t(tbl), torch.tensor(idx))] * 3)
+    assert [w.launches for w in counters] == before
 
 
 def test_other_devices_raise_instead_of_falling_back():
@@ -75,3 +106,17 @@ def test_other_devices_raise_instead_of_falling_back():
         t_rm.gather_rows(tbl, idx)
     with pytest.raises(ValueError, match="expected a CUDA or CPU tensor"):
         t_rm.scatter_rows(tbl, idx, torch.empty((S, M, 128), device="meta"))
+    with pytest.raises(ValueError, match="expected a CUDA or CPU tensor"):
+        t_rm.gather_rows_many([(tbl, idx), (tbl, idx)])
+
+
+def test_grouped_gather_takes_one_device_only():
+    tbl, idx, _ = _case(np.float32, 128, 9)
+    meta_tbl = torch.empty((S, N, 128), device="meta")
+    meta_idx = torch.zeros((S, M), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="one device"):
+        t_rm.gather_rows_many([(_t(tbl), torch.tensor(idx)), (meta_tbl, meta_idx)])
+    with pytest.raises(ValueError, match="one device"):
+        t_rm.gather_rows_many([(meta_tbl, meta_idx), (_t(tbl), torch.tensor(idx))])
+    with pytest.raises(ValueError, match="1 to 8 arenas"):
+        t_rm.gather_rows_many([(meta_tbl, meta_idx)] * 9)

@@ -86,6 +86,38 @@ def test_byte_steps_match_eager_gmix_tpu(warm):
         np.testing.assert_array_equal(t_data.numpy(), np.asarray(j_data))
 
 
+def test_byte_step_gathers_every_arena_in_one_call(warm, monkeypatch):
+    """The byte step computes all row indices first and hands the four arenas
+    (indirect blocks, stable and position-gated mixer rows, APM rows) to one
+    grouped gather, whose rows are gmix_tpu's gathers of the same indices."""
+    from gmix_tpu.ops import rowmove as j_rm
+
+    _, state_np, arr = warm
+    tp = TPredictor(gt.tiny_spec(False), S, device="cpu")
+    tp.state = state_from_numpy(state_np)
+    calls = []
+    real = t_step.gather_rows_many
+
+    def spy(pairs):
+        outs = real(pairs)
+        calls.append((pairs, outs))
+        return outs
+
+    monkeypatch.setattr(t_step, "gather_rows_many", spy)
+    code = torch.zeros((S, 64), dtype=torch.uint8)
+    _, work, ix = t_step._byte_inputs(tp.state, torch.tensor(arr), code, WARM, False, tp.plan)
+    assert len(calls) == 1
+    pairs, outs = calls[0]
+    ltm = tp.state["ltm"]
+    assert [t.data_ptr() for t, _ in pairs] == [
+        ltm["ind"]["st"].data_ptr(), ltm["mix_w"].data_ptr(), ltm["mix_pos"].data_ptr(), ltm["apm"].data_ptr()]
+    assert [i.data_ptr() for _, i in pairs] == [ix[n].data_ptr() for n in ("blk_ix", "rowix_st", "posix", "apm_ix")]
+    for name, (tbl, idx), out in zip(("ind_blk", "rows_st", "rows_pos", "apm_rows"), pairs, outs):
+        want = np.asarray(j_rm.gather_rows(jnp.asarray(tbl.numpy()), jnp.asarray(idx.numpy())))
+        assert np.array_equal(out.numpy().view(np.uint8), want.view(np.uint8)), name
+        assert work[name].data_ptr() == out.data_ptr(), name
+
+
 @pytest.mark.parametrize("n", [6, 24])
 def test_tri_solve_matches_eager_gmix_tpu(n):
     rng = np.random.default_rng(n)

@@ -13,43 +13,51 @@ Phases; any failure ends the run with a non-zero exit:
 1. build the CUDA kernels from gmix_tpu_torch/csrc/ (nvcc, sm_90a) and print
    what ptxas says of each (registers, spills, shared memory);
 2. hold each kernel against its plain torch version on the card, at full
-   width (ref-noppm, 16 streams), and time both with CUDA events (`ms`: the
-   device time of one launch, launches run back to back; `call_ms`: one call
-   on an idle device, the wrapper's host work included):
+   width (16 streams), and time both with CUDA events (`ms`: the device time
+   of one launch, launches run back to back; `call_ms`: one call on an idle
+   device, the wrapper's host work included):
    - the fused 8-sub-step kernel on the packed inputs of a live Predictor
-     warmed over some tens of corpus bytes, encode and decode, learn on and
-     off, and once at reference_spec()'s full layout with the PPM and LSTM
-     heads on seeded valid inputs: every output that can reach an archive
-     bitwise (`ent` within 16 ulp over the byte, `ema` within 1e-6 relative:
-     they go through log2f / torch.log2). Which instantiation ran (lane
-     groups, tables in shared memory or not, shared bytes) is printed, and
-     the kernel's clocks instantiation gives each stage's share of the
-     launch beside the SM clock;
-   - the row movers, bitwise, on the four live arenas filled with seeded
-     random bits: each arena alone, and the four gathers as the one grouped
-     launch the byte step makes, timed beside the four single launches;
-3. the main path at full width: compress_bytes then decompress_bytes of the
-   first 16 KB of data/corpus_1m.bin on the GPU (ref-noppm, 16 streams,
-   1 KB per stream); the output must equal the input, and per byte step and
-   direction the fused kernel must have launched exactly once, the grouped
-   gather once and the scatter 4 times. Then a short torch.profiler window of byte steps:
-   wall ms, CUDA kernels, aten ops, device busy ms and idle share per step;
-4. GPU against CPU: at scale_tables(ref-noppm, 12, history_bits=16), 2
-   streams, 1 KB, the GPU archive (kernels) must equal the CPU archive
-   (plain versions) byte for byte, and each device must decode the other's.
+     warmed over some tens of corpus bytes, at ref-noppm and at ref-ppm,
+     encode and decode, learn on and off, and once at reference_spec()'s
+     full layout with the PPM and LSTM heads on seeded valid inputs: every
+     output that can reach an archive bitwise (`ent` within 16 ulp over the
+     byte, `ema` within 1e-6 relative: they go through log2f / torch.log2).
+     Which instantiation ran (lane groups, tables in shared memory or not,
+     shared bytes) is printed, and the kernel's clocks instantiation gives
+     each stage's share of the launch beside the SM clock;
+   - the row movers, bitwise, on the five live arenas of ref-ppm (`ppm_tbl`,
+     u16 rows of 272 lanes, among them) filled with seeded random bits: each
+     arena alone, then the gathers and the scatters as the grouped launches
+     the byte step makes (the four arenas of ref-noppm, the five of
+     ref-ppm), each timed beside the single launches of the same rows, the
+     torch indexing calls that compute the same, and an empty kernel
+     launched the same way (`launch_floor_ms`);
+3. the main path at full width, at ref-noppm and at ref-ppm: compress_bytes
+   then decompress_bytes of the first 16 KB of data/corpus_1m.bin on the GPU
+   (16 streams, 1 KB per stream); the output must equal the input, and per
+   byte step and direction the fused kernel must have launched exactly once
+   and each mover once (ref-noppm: 3 launches a byte step) or twice
+   (ref-ppm: 5; the PPM count update moves its own rows first). Then a short
+   torch.profiler window of byte steps: wall ms, CUDA kernels, aten ops,
+   device busy ms and idle share per step;
+4. GPU against CPU, at both specs: at scale_tables(spec, 12,
+   history_bits=16), 2 streams, 1 KB, the GPU archive (kernels) must equal
+   the CPU archive (plain versions) byte for byte, and each device must
+   decode the other's.
 
-ref-noppm is gmix_tpu's reference wiring at its published table sizes with
-the two SSE/APM stages of bench.py and without PPM, LSTM and the rolling
-contexts that only PPM reads.
+ref-ppm is gmix_tpu's reference wiring at its published table sizes with the
+two SSE/APM stages of bench.py and without the LSTM; ref-noppm is ref-ppm
+without PPM and the rolling contexts that only PPM reads.
 
 Each kernel's `bound_ms` is the least time the card could take for the same
 work: the larger of its bytes (each input read once, each output written
 once) over 3.35 TB/s and its float operations over 67 TFLOP/s (float32
 outside the tensor cores), the published peaks of an H100 SXM.
 
-The line before the last is a JSON object describing each kernel (the
-gather's numbers are those of the byte step's one grouped launch, with the
-single launches per arena beside them); the last line is
+The line before the last is a JSON object describing each kernel (a mover's
+numbers are those of the ref-ppm byte step's one grouped launch of five
+arenas, with the four-arena group of ref-noppm and the single launches per
+arena beside them; `launches` sums both main paths); the last line is
 {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
@@ -94,35 +102,44 @@ REPLACES = {
     "scatter_rows": "gmix_tpu/ops/rowmove.py:116",
     "fused_substeps": "gmix_tpu/core/fused.py:249",
 }
-# the four arenas the byte step moves rows of, and how many rows per stream
-# per byte it moves in each (indirect models, stable mixers, position-gated
-# mixers, APM stages)
-ARENAS = (("ind.st", ("ind", "st")), ("mix_w", ("mix_w",)), ("mix_pos", ("mix_pos",)), ("apm", ("apm",)))
-# launch counters by kernel: the gather kernel has two wrappers (one arena,
+# the arenas the byte step moves rows of (indirect models, stable mixers,
+# position-gated mixers, APM stages, PPM orders) by their place in the state;
+# ref-noppm has the first four
+ARENAS = (("ind.st", ("ltm", "ind", "st")), ("mix_w", ("ltm", "mix_w")), ("mix_pos", ("ltm", "mix_pos")),
+          ("apm", ("ltm", "apm")), ("ppm_tbl", ("stm", "ppm_tbl")))
+# launch counters by kernel: each mover kernel has two wrappers (one arena,
 # a group of arenas)
-WRAPPERS = ((rowmove.gather_rows, rowmove.gather_rows_many), (rowmove.scatter_rows,), (fused.fused_substeps,))
+WRAPPERS = ((rowmove.gather_rows, rowmove.gather_rows_many), (rowmove.scatter_rows, rowmove.scatter_rows_many),
+            (fused.fused_substeps,))
+# archive sizes that must not change: the codec is deterministic, and these
+# specs' archives have been these bytes since the port first produced them
+KNOWN_ARCHIVE_BYTES = {("ref-noppm", "main"): 9978, ("ref-noppm", "cross"): 794,
+                       ("ref-ppm", "main"): 9184, ("ref-ppm", "cross"): 710}
 
 
-def ref_noppm_spec():
-    spec = reference_spec()
+def ref_ppm_spec():
     return dataclasses.replace(
-        spec,
+        reference_spec(),
         apm=(
             ApmStage("apm_lb", "last_byte", 8, lr=0.010, weight=0.50),
             ApmStage("apm_h2", "h2", 16, lr=0.010, weight=0.25),
         ),
-        ppm=None,
         lstm=None,
-        roll_ctxs=(),
     )
 
 
+def ref_noppm_spec():
+    return dataclasses.replace(ref_ppm_spec(), ppm=None, roll_ctxs=())
+
+
 def rows_per_byte(meta):
+    """Rows per stream that a byte step moves in each arena."""
     return {
         "ind.st": len(meta.spec.indirects),
         "mix_w": len(meta.mix_st_ix),
         "mix_pos": len(meta.mix_pos_ix),
         "apm": len(meta.spec.apm),
+        "ppm_tbl": len(meta.spec.ppm.orders) if meta.spec.ppm else 0,
     }
 
 
@@ -335,9 +352,11 @@ def decode_variant(fin, seed: int):
     return out
 
 
-def phase_fused(pred, dev):
-    """The fused kernel against its plain version at ref-noppm on live
-    inputs, and at the reference layout with both heads on seeded inputs."""
+def compare_fused_live(name: str, pred, dev):
+    """Warm `pred` over WARM_BYTES corpus bytes, take the packed inputs of the
+    next byte step, and hold the kernel against its plain version on them:
+    encode and decode, learn on and off. Returns (the encode and decode
+    inputs, the largest float difference)."""
     meta, plan, S = pred.meta, pred.plan, pred.num_streams
     data = np.frombuffer(corpus(S * 2 * WARM_BYTES), np.uint8).reshape(S, 2 * WARM_BYTES)
     data_buf = torch.as_tensor(data.copy(), device=dev)
@@ -348,7 +367,31 @@ def phase_fused(pred, dev):
     err = 0.0
     for direction, f_in in cases.items():
         for learn in (True, False):
-            err = max(err, compare_fused(f"phase 2 fused ref-noppm {direction} learn={learn}", meta, plan.fused, f_in, learn, True))
+            err = max(err, compare_fused(f"phase 2 fused {name} {direction} learn={learn}", meta, plan.fused, f_in, learn, True))
+    return cases, err
+
+
+def phase_fused_ppm(pred, dev) -> dict:
+    """The fused kernel against its plain version at the ref-ppm layout (the
+    PPM head alone: the prediction columns shifted by one) on live inputs."""
+    meta, plan, S = pred.meta, pred.plan, pred.num_streams
+    cases, err = compare_fused_live("ref-ppm", pred, dev)
+    if not torch.isfinite(cases["encode"]["ppm_probs"]).all():
+        raise RuntimeError("phase 2: ppm_probs of the warmed ref-ppm state is not finite")
+    row = {"spec": "ref-ppm", "streams": S, "warm_bytes": WARM_BYTES, "max_abs_err": err,
+           "instantiation": fused.fused_instantiation(meta, plan.fused, True, True, S, dev),
+           "ms": device_ms(lambda i: fused.fused_substeps(meta, plan.fused, cases["encode"], True, True), reps=50),
+           "decode_ms": device_ms(lambda i: fused.fused_substeps(meta, plan.fused, cases["decode"], True, True), reps=50)}
+    log(f"phase 2: fused_substeps {json.dumps(row)}")
+    return row
+
+
+def phase_fused(pred, dev):
+    """The fused kernel against its plain version at ref-noppm on live
+    inputs, and at the reference layout with both heads on seeded inputs."""
+    meta, plan, S = pred.meta, pred.plan, pred.num_streams
+    cases, err = compare_fused_live("ref-noppm", pred, dev)
+    fin = cases["encode"]
     n_cmp = fused.fused_substeps.launches
     inst = fused.fused_instantiation(meta, plan.fused, True, True, S, dev)
     log(f"phase 2: fused_substeps instantiation at ref-noppm {json.dumps(inst)}")
@@ -397,13 +440,16 @@ def phase_fused(pred, dev):
 
 def phase_rowmovers(pred, dev):
     """Each mover against its plain version on the arenas of a live
-    Predictor, at the shapes the byte step gives it."""
+    Predictor, at the shapes the byte step gives it: every arena alone, then
+    the groups the byte step launches."""
     rng = np.random.default_rng(SEED)
     gen = torch.Generator(device=dev).manual_seed(SEED)
+    floor_ms = device_ms(lambda i: rowmove.empty_launch(dev))
+    log(f"phase 2: an empty kernel launched as the movers are: {json.dumps({'launch_floor_ms': floor_ms})}")
     per_arena = []
     tables = []
     for name, path in ARENAS:
-        tbl = pred.state["ltm"]
+        tbl = pred.state
         for k in path:
             tbl = tbl[k]
         fill_random_(tbl, gen)
@@ -460,50 +506,86 @@ def phase_rowmovers(pred, dev):
                "bytes_moved": moved, "bound_ms": 1e3 * moved / PEAK_BYTES_PER_S, **t}
         log(f"phase 2: {json.dumps(row)}")
         per_arena.append(row)
-    return per_arena, phase_grouped_gather(pred, tables, rng, dev)
-
-
-def phase_grouped_gather(pred, tables, rng, dev):
-    """The four arenas' gathers as ONE launch, as the byte step makes them:
-    bitwise against the plain version, and timed beside the four torch
-    indexing calls that compute the same."""
-    S = tables[0].shape[0]
     counts = [rows_per_byte(pred.meta)[name] for name, _ in ARENAS]
+    names = [name for name, _ in ARENAS]
+    grouped = {}
+    for direction in ("gather", "scatter"):
+        for n in (4, 5):  # the byte step's group at ref-noppm and at ref-ppm
+            row = phase_grouped(direction, names[:n], tables[:n], counts[:n], rng, gen, dev)
+            row["launch_floor_ms"] = floor_ms
+            log(f"phase 2: {direction}_rows_many {json.dumps(row)}")
+            grouped[direction, n] = row
+    return per_arena, grouped
+
+
+def phase_grouped(direction, names, tables, counts, rng, gen, dev):
+    """The arenas' gathers (or scatters) as ONE launch, as the byte step makes
+    them: bitwise against the plain version (a scatter: every whole table
+    against a copy after the plain scatter), and timed beside the single
+    launches of the same rows and the torch indexing calls that compute the
+    same."""
+    S = tables[0].shape[0]
+    gather = direction == "gather"
+    many, single = (rowmove.gather_rows_many, rowmove.gather_rows) if gather else (rowmove.scatter_rows_many, rowmove.scatter_rows)
+    many_plain = rowmove.gather_rows_many_plain if gather else rowmove.scatter_rows_many_plain
 
     def fresh():
         return [unique_rows(rng, S, t.shape[1], m, dev) for t, m in zip(tables, counts)]
 
+    upd = [torch.empty((S, m, t.shape[2]), dtype=t.dtype, device=dev) for t, m in zip(tables, counts)]
+    for u in upd:
+        fill_random_(u, gen)
+
+    def args(ix, tbls=tables):
+        return list(zip(tbls, ix)) if gather else list(zip(tbls, ix, upd))
+
     idx = fresh()
-    n0 = rowmove.gather_rows_many.launches
-    got = rowmove.gather_rows_many(list(zip(tables, idx)))
-    want = rowmove.gather_rows_many_plain(list(zip(tables, idx)))
+    refs = tables if gather else [t.clone() for t in tables]
+    n0 = many.launches
+    got = many(args(idx))
+    want = many_plain(args(idx, refs))
     torch.cuda.synchronize()
-    if rowmove.gather_rows_many.launches != n0 + 1:
-        raise RuntimeError("gather_rows_many did not make exactly one launch")
+    if many.launches != n0 + 1:
+        raise RuntimeError(f"{direction}_rows_many did not make exactly one launch")
     err = 0.0
-    for (name, _), a, b in zip(ARENAS, want, got):
+    for name, a, b in zip(names, want, got):
         if a.shape != b.shape or a.dtype != b.dtype or not torch.equal(a, b):
-            raise RuntimeError(f"gather_rows_many differs from its plain version on {name}")
-        err = max(err, (a.double() - b.double()).abs().max().item())
+            raise RuntimeError(f"{direction}_rows_many differs from its plain version on {name}")
+        if gather:
+            err = max(err, (a.double() - b.double()).abs().max().item())
+    if not gather:
+        for u, back in zip(upd, rowmove.gather_rows_many_plain(list(zip(tables, idx)))):
+            err = max(err, (u.double() - back.double()).abs().max().item())
+    del refs, want, got
+    torch.cuda.empty_cache()
     s_ix = torch.arange(S, device=dev)[:, None]
 
     def timed(timer, op):
         ix = [fresh() for _ in range(64)]
         return timer(lambda i: op(ix[i]))
 
+    def library(ix):
+        for tbl, i, u in zip(tables, ix, upd):
+            if gather:
+                tbl[s_ix, i]
+            else:
+                tbl[s_ix, i] = u
+
+    def singles(ix):
+        for a in args(ix):
+            single(*a)
+
     t = {
-        "ms": timed(device_ms, lambda ix: rowmove.gather_rows_many(list(zip(tables, ix)))),
-        "call_ms": timed(call_ms, lambda ix: rowmove.gather_rows_many(list(zip(tables, ix)))),
-        "plain_ms": timed(device_ms, lambda ix: rowmove.gather_rows_many_plain(list(zip(tables, ix)))),
-        "library_ms": timed(device_ms, lambda ix: [tbl[s_ix, i] for tbl, i in zip(tables, ix)]),
-        "four_launches_ms": timed(device_ms, lambda ix: [rowmove.gather_rows(tbl, i) for tbl, i in zip(tables, ix)]),
-        "four_launches_call_ms": timed(call_ms, lambda ix: [rowmove.gather_rows(tbl, i) for tbl, i in zip(tables, ix)]),
+        "ms": timed(device_ms, lambda ix: many(args(ix))),
+        "call_ms": timed(call_ms, lambda ix: many(args(ix))),
+        "plain_ms": timed(device_ms, lambda ix: many_plain(args(ix))),
+        "library_ms": timed(device_ms, library),
+        "single_launches_ms": timed(device_ms, singles),
+        "single_launches_call_ms": timed(call_ms, singles),
     }
-    moved = tensor_bytes(idx) + 2 * tensor_bytes(want)
-    row = {"arenas": [name for name, _ in ARENAS], "rows": counts, "max_abs_err": err, "bytes_moved": moved,
-           "bound_ms": 1e3 * moved / PEAK_BYTES_PER_S, **t}
-    log(f"phase 2: gather_rows_many {json.dumps(row)}")
-    return row
+    moved = tensor_bytes(idx) + 2 * tensor_bytes(upd)
+    return {"arenas": names, "rows": counts, "max_abs_err": err, "bytes_moved": moved,
+            "bound_ms": 1e3 * moved / PEAK_BYTES_PER_S, **t}
 
 
 # ---------------------------------------------------------------------------
@@ -545,9 +627,9 @@ def profile_steps(pred, dev):
             us = getattr(ka, "self_device_time_total", None) or getattr(ka, "self_cuda_time_total", 0.0)
             kernels += ka.count
             busy_us += us
-            for own in ("fused_substeps_kernel", "gather_rows_many_kernel", "scatter_rows_kernel"):
+            for own in ("fused_substeps_kernel", "gather_rows_many_kernel", "scatter_rows_many_kernel"):
                 if own in ka.key:
-                    own_us[own] = us / ka.count
+                    own_us[own] = {"us_per_launch": us / ka.count, "launches_per_step": ka.count / n}
         elif ka.key.startswith("aten::"):
             aten += ka.count
     out = {"byte_steps": n, "wall_ms_per_step": 1e3 * wall / n, "traced_wall_ms_per_step": 1e3 * traced / n}
@@ -560,8 +642,9 @@ def profile_steps(pred, dev):
     return out
 
 
-def phase_main(spec, dev):
-    """compress + decompress at full width on the GPU; counts kernel launches."""
+def phase_main(name, spec, dev):
+    """compress + decompress at full width on the GPU; counts kernel launches
+    (every count set to 0 just before a direction, read just after it)."""
     data = corpus(MAIN_BYTES)
     out = {}
     torch.cuda.reset_peak_memory_stats()
@@ -591,26 +674,33 @@ def phase_main(spec, dev):
         raise RuntimeError("phase 3: decompress_bytes did not reproduce the input")
     if not np.isfinite(ent) or ent <= 0:
         raise RuntimeError(f"phase 3: cross-entropy {ent} is not a positive finite number")
-    expect = (per, 4 * per, per)
+    # the PPM count update gathers and scatters its own rows before the
+    # grouped gather; everything else is one launch per mover and byte step
+    moves = 2 if spec.ppm is not None else 1
+    expect = (moves * per, moves * per, per)
     if enc_launches != expect or dec_launches != expect:
         raise RuntimeError(
-            f"phase 3: launches (gather, scatter, fused) encode {enc_launches}, decode "
-            f"{dec_launches}, expected {expect} each (1 + 4 + 1 per byte step)"
+            f"phase 3 {name}: launches (gather, scatter, fused) encode {enc_launches}, decode "
+            f"{dec_launches}, expected {expect} each ({moves} + {moves} + 1 per byte step)"
         )
+    known = KNOWN_ARCHIVE_BYTES.get((name, "main"))
+    if known is not None and len(blob) != known:
+        raise RuntimeError(f"phase 3 {name}: the archive is {len(blob)} bytes, it has always been {known}")
     out.update(
+        spec=name, launches_per_byte_step=2 * moves + 1,
         bytes=len(data), archive_bytes=len(blob), bpb=8 * len(blob) / len(data),
         model_bpb=ent / len(data), encode_bytes_per_s=len(data) / out["encode_s"],
         decode_bytes_per_s=len(data) / out["decode_s"], byte_steps=per,
         launches_encode=list(enc_launches), launches_decode=list(dec_launches),
     )
     log(f"phase 3: {json.dumps(out)}")
-    log(f"phase 3: per byte step after {per} bytes per stream: {json.dumps(profile_steps(pred, dev))}")
+    log(f"phase 3: {name} per byte step after {per} bytes per stream: {json.dumps(profile_steps(pred, dev))}")
     del pred
     torch.cuda.empty_cache()
     return out
 
 
-def phase_cross(spec, dev):
+def phase_cross(name, spec, dev):
     """The same archive from the GPU and from the CPU, and cross-decodes."""
     spec12 = scale_tables(spec, 12, history_bits=16)
     data = corpus(1024)
@@ -620,19 +710,22 @@ def phase_cross(spec, dev):
     blob_gpu = compress_bytes(data, spec12, S, chunk, device=dev)
     t1 = time.perf_counter()
     if fused.fused_substeps.launches != n0 + chunk:
-        raise RuntimeError("phase 4: the GPU encode did not go through the fused kernel once per byte step")
+        raise RuntimeError(f"phase 4 {name}: the GPU encode did not go through the fused kernel once per byte step")
     blob_cpu = compress_bytes(data, spec12, S, chunk, device="cpu")
     t2 = time.perf_counter()
     if fused.fused_substeps.launches != n0 + chunk:
-        raise RuntimeError("phase 4: the CPU encode launched a kernel")
+        raise RuntimeError(f"phase 4 {name}: the CPU encode launched a kernel")
     if blob_gpu != blob_cpu:
         diff = next(i for i, (a, b) in enumerate(zip(blob_gpu, blob_cpu)) if a != b) if len(blob_gpu) == len(blob_cpu) else -1
-        raise RuntimeError(f"phase 4: GPU and CPU archives differ ({len(blob_gpu)} vs {len(blob_cpu)} bytes, first at {diff})")
+        raise RuntimeError(f"phase 4 {name}: GPU and CPU archives differ ({len(blob_gpu)} vs {len(blob_cpu)} bytes, first at {diff})")
     if decompress_bytes(blob_cpu, spec12, chunk, device=dev) != data:
-        raise RuntimeError("phase 4: the GPU does not decode the CPU archive")
+        raise RuntimeError(f"phase 4 {name}: the GPU does not decode the CPU archive")
     if decompress_bytes(blob_gpu, spec12, chunk, device="cpu") != data:
-        raise RuntimeError("phase 4: the CPU does not decode the GPU archive")
-    out = {"bytes": len(data), "archive_bytes": len(blob_gpu), "gpu_encode_s": t1 - t0,
+        raise RuntimeError(f"phase 4 {name}: the CPU does not decode the GPU archive")
+    known = KNOWN_ARCHIVE_BYTES.get((name, "cross"))
+    if known is not None and len(blob_gpu) != known:
+        raise RuntimeError(f"phase 4 {name}: the archive is {len(blob_gpu)} bytes, it has always been {known}")
+    out = {"spec": f"{name} scaled-12", "bytes": len(data), "archive_bytes": len(blob_gpu), "gpu_encode_s": t1 - t0,
            "cpu_encode_s": t2 - t1, "identical": True}
     log(f"phase 4: {json.dumps(out)}")
     return out
@@ -683,67 +776,62 @@ def main() -> int:
         if "Compiling entry" in line or "registers" in line or "spill" in line or "smem" in line:
             log(f"  ptxas: {line.strip()}")
 
-    spec = ref_noppm_spec()
-    pred = Predictor(spec, STREAMS, device=dev)
+    specs = {"ref-noppm": ref_noppm_spec(), "ref-ppm": ref_ppm_spec()}
+    pred = Predictor(specs["ref-noppm"], STREAMS, device=dev)
     fused_row = phase_fused(pred, dev)
     if fused_only:
         log(f"phase 1: instructions per kernel {json.dumps(code_sizes(res.path))}")
         print(smi, flush=True)
         print(json.dumps({"ok": True, "partial": "the fused kernel only", "fused_substeps": fused_row}), flush=True)
         return 0
+    del pred
+    torch.cuda.empty_cache()
+    pred = Predictor(specs["ref-ppm"], STREAMS, device=dev)
+    fused_ppm_row = phase_fused_ppm(pred, dev)
     per_arena, grouped = phase_rowmovers(pred, dev)
     del pred
     torch.cuda.empty_cache()
-    main_out = phase_main(spec, dev)
-    phase_cross(spec, dev)
+    main_out = {name: phase_main(name, spec, dev) for name, spec in specs.items()}
+    for name, spec in specs.items():
+        phase_cross(name, spec, dev)
 
     def launches(i):
-        return main_out["launches_encode"][i] + main_out["launches_decode"][i]
+        return {name: out["launches_encode"][i] + out["launches_decode"][i] for name, out in main_out.items()}
 
-    def arena_rows(op):
-        return [{"arena": r["arena"], "ms": r[f"{op}_ms"], "plain_ms": r[f"{op}_plain_ms"],
-                 "bound_ms": r["bound_ms"], "library_ms": r[f"{op}_library_ms"]} for r in per_arena]
+    def mover(direction, replaces_key):
+        """A mover's entry: the ref-ppm byte step's grouped launch of five
+        arenas, the four-arena group of ref-noppm and the single launches."""
+        five, four = grouped[direction, 5], grouped[direction, 4]
+        by_path = launches(0 if direction == "gather" else 1)
+        keys = ("ms", "call_ms", "plain_ms", "bound_ms", "library_ms", "single_launches_ms", "single_launches_call_ms")
+        return {
+            "name": f"{direction}_rows",
+            "route": "cuda",
+            "source": SOURCES[replaces_key],
+            "replaces": REPLACES[replaces_key],
+            "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
+            "max_abs_err": max(five["max_abs_err"], four["max_abs_err"], max(r[f"{direction}_err"] for r in per_arena)),
+            **{k: five[k] for k in keys},
+            "bound_by": "bytes",
+            "launch_floor_ms": five["launch_floor_ms"],
+            "four_arenas": {k: four[k] for k in keys},
+            # the four-arena group's rows as four single launches
+            "four_launches_ms": four["single_launches_ms"],
+            "four_launches_call_ms": four["single_launches_call_ms"],
+            "per_arena": [{"arena": r["arena"], "ms": r[f"{direction}_ms"], "plain_ms": r[f"{direction}_plain_ms"],
+                           "bound_ms": r["bound_ms"], "library_ms": r[f"{direction}_library_ms"]} for r in per_arena],
+        }
 
-    kernels = [{
-        # one byte step's gathers: the four arenas in one launch
-        "name": "gather_rows",
-        "route": "cuda",
-        "source": SOURCES["gather_rows"],
-        "replaces": REPLACES["gather_rows"],
-        "launches": launches(0),
-        "max_abs_err": max(grouped["max_abs_err"], max(r["gather_err"] for r in per_arena)),
-        "ms": grouped["ms"],
-        "call_ms": grouped["call_ms"],
-        "plain_ms": grouped["plain_ms"],
-        "bound_ms": grouped["bound_ms"],
-        "bound_by": "bytes",
-        "library_ms": grouped["library_ms"],
-        "four_launches_ms": grouped["four_launches_ms"],
-        "four_launches_call_ms": grouped["four_launches_call_ms"],
-        "per_arena": arena_rows("gather"),
-    }, {
-        # one byte step's scatters: a launch per arena, summed
-        "name": "scatter_rows",
-        "route": "cuda",
-        "source": SOURCES["scatter_rows"],
-        "replaces": REPLACES["scatter_rows"],
-        "launches": launches(1),
-        "max_abs_err": max(r["scatter_err"] for r in per_arena),
-        "ms": sum(r["scatter_ms"] for r in per_arena),
-        "call_ms": sum(r["scatter_call_ms"] for r in per_arena),
-        "plain_ms": sum(r["scatter_plain_ms"] for r in per_arena),
-        "bound_ms": sum(r["bound_ms"] for r in per_arena),
-        "bound_by": "bytes",
-        "library_ms": sum(r["scatter_library_ms"] for r in per_arena),
-        "per_arena": arena_rows("scatter"),
-    }]
-    kernels.append({
+    fused_by_path = launches(2)
+    kernels = [mover("gather", "gather_rows"), mover("scatter", "scatter_rows"), {
         "name": "fused_substeps",
         "route": "cuda",
         "source": SOURCES["fused_substeps"],
         "replaces": REPLACES["fused_substeps"],
-        "launches": launches(2),
-        "max_abs_err": fused_row["max_abs_err"],
+        "launches": sum(fused_by_path.values()),
+        "launches_by_path": fused_by_path,
+        "max_abs_err": max(fused_row["max_abs_err"], fused_ppm_row["max_abs_err"]),
         "ms": fused_row["ms"],
         "call_ms": fused_row["call_ms"],
         "plain_ms": fused_row["plain_ms"],
@@ -752,7 +840,8 @@ def main() -> int:
         # no single PyTorch call computes the 8 sub-steps
         "library_ms": None,
         "instantiation": fused_row["instantiation"],
-    })
+        "ref_ppm_ms": fused_ppm_row["ms"],
+    }]
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     # the run used one device, whatever the host holds

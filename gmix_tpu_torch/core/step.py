@@ -1,15 +1,17 @@
 """The codec's byte step: boundary contexts, one gather of the per-byte
 working sets, the 8 bit sub-steps with their deferred writes, and the
-byte-end scatters.
+byte-end scatter.
 
-Port of `gmix_tpu.core.step._byte_step` for specs without PPM and without an
-LSTM. The 8 sub-steps and the deferred per-bit writes are one function,
+Port of `gmix_tpu.core.step._byte_step` for specs without an LSTM. The 8
+sub-steps and the deferred per-bit writes are one function,
 `core/fused.py:fused_substeps`: one hand-written CUDA kernel on a CUDA
-device, the eager torch loop on the CPU. This module keeps what surrounds
-them, in eager torch, with the arena rows moved by the kernels of
-`ops/rowmove.py`. On a GPU a byte step is therefore 6 hand-written launches
-(one gather of all four arenas, the sub-steps, 4 scatters) plus the eager
-boundary, packing and byte-end ops.
+device, the eager torch loop on the CPU. The PPM byte model's boundary work
+is `core/ppm.py`. This module keeps what surrounds them, in eager torch, with
+the arena rows moved by the kernels of `ops/rowmove.py`. On a GPU a byte
+step is therefore 3 hand-written launches (one gather of every arena, the
+sub-steps, one scatter of every arena), and 5 with PPM, whose count update
+gathers and scatters its own rows first; plus the eager boundary, packing
+and byte-end ops.
 
 The JAX function is the reference; the port keeps its expression order op
 for op, because the decoder must replay the encoder's float updates bit for
@@ -36,8 +38,8 @@ from typing import Dict
 import numpy as np
 import torch
 
-from ..ops.murmur import MASK32, murmur3_u32, murmur3_u64
-from ..ops.rowmove import gather_rows_many, scatter_rows
+from ..ops.murmur import MASK32, mul32, murmur3_u32, murmur3_u64
+from ..ops.rowmove import gather_rows_many, scatter_rows_many
 from .fused import (  # noqa: F401  (_tri_solve: held against gmix_tpu's by the step tests)
     CODER_WIN,
     _onehot_rows,
@@ -47,7 +49,8 @@ from .fused import (  # noqa: F401  (_tri_solve: held against gmix_tpu's by the 
     pack_inputs,
     unpack_outputs,
 )
-from .meta import Meta
+from .meta import ROLL_BASE, Meta
+from .ppm import _ppm_index, _ppm_predict, _ppm_update
 
 I32 = torch.int32
 I64 = torch.int64
@@ -60,8 +63,8 @@ class StepPlan:
 
     def __init__(self, meta: Meta, num_streams: int, device):
         spec = meta.spec
-        if spec.ppm is not None or spec.lstm is not None:
-            raise NotImplementedError("the torch port runs specs without PPM and LSTM only")
+        if spec.lstm is not None:
+            raise NotImplementedError("the torch port runs specs without an LSTM only")
         self.meta = meta
         self.S = num_streams
         self.device = torch.device(device)
@@ -89,6 +92,9 @@ class StepPlan:
         self.ih_imask = t(meta.ih_inner_mods.astype(np.int64) - 1)[None, :]
         self.ih_omask = t(meta.ih_outer_mods.astype(np.int64) - 1)[None, :]
         self.ih_out_slots = t(meta.ih_out_slots)
+        self.roll_slots = t(meta.roll_slots)
+        self.roll_old_ix = t(meta.roll_old_ix)
+        self.roll_pows = t(meta.roll_pows)[None, :]
         # indirect models
         self.ind_ctx_slots = t(meta.ind_ctx_slots)
         self.ind_blk_masks = t(meta.ind_blk_masks)[None, :]
@@ -110,15 +116,29 @@ class StepPlan:
         self.apm_ctx_slots = t(meta.apm_ctx_slots)
         self.apm_masks = t(meta.apm_masks)[None, :]
         self.apm_offsets = t(meta.apm_offsets)[None, :]
+        # PPM
+        if spec.ppm is not None:
+            self.ppm_slots = t(meta.ppm_slots)
+            self.ppm_masks = t(meta.ppm_masks)[None, :]
+            self.ppm_row_offsets = t(meta.ppm_row_offsets)[None, :]
+            self.lane256 = torch.arange(256, device=self.device)[None, :]
+            self.ppm_buckets = torch.arange(spec.ppm.see_buckets, device=self.device)[None, None, :]
+            self.ppm_see_lr = t(np.float32(spec.ppm.see_lr), torch.float32)
+            self.ppm_uniform = t(np.float32(1.0 / 256), torch.float32)
 
 
 def _boundary(stm: Dict, t: int, plan: StepPlan) -> None:
-    """Byte-boundary contexts (gmix_tpu.core.step._boundary without the PPM
-    and LSTM branches); updates stm in place."""
+    """Byte-boundary contexts (gmix_tpu.core.step._boundary without the LSTM
+    branch; the PPM prediction follows the row gather in `_byte_inputs`);
+    updates stm in place."""
     meta = plan.meta
     spec = meta.spec
     s_ix = plan.s_ix
     completed = stm["acc"]
+    # PPM count update with the completed byte, against the PRE-update
+    # contexts, at every byte (the stream's first included)
+    if spec.ppm is not None:
+        _ppm_update(stm, completed, plan)
     if t > 0:
         last_byte = completed
         recent = torch.cat([completed[:, None], stm["recent"][:, :-1]], dim=1)
@@ -139,6 +159,18 @@ def _boundary(stm: Dict, t: int, plan: StepPlan) -> None:
         lo = torch.where(plan.skip_lo_on, bg << plan.skip_lo_sh, 0).sum(dim=2) & MASK32
         hi = torch.where(plan.skip_hi_on, bg << plan.skip_hi_sh, 0).sum(dim=2) & MASK32
         ctx[:, plan.skip_slots] = murmur3_u64(lo, hi)
+
+    # rolling-hash contexts (deep PPM orders): h' = (h - leaving * B^(n-1)) * B
+    # + completed over the pre-shift recent ring, published murmur-finalised.
+    # The difference is masked to 32 bits before the multiply: it can be
+    # negative, and an unmasked product overflows int64.
+    if spec.roll_ctxs:
+        h_new = stm["roll_h"]
+        if t > 0:
+            old_b = stm["recent"][:, plan.roll_old_ix]
+            h_new = (mul32((h_new - old_b * plan.roll_pows) & MASK32, ROLL_BASE) + completed[:, None]) & MASK32
+        ctx[:, plan.roll_slots] = murmur3_u32(h_new)
+        stm["roll_h"] = h_new
 
     # indirect-hash contexts (indirect-hash.cpp:16-31), one flat arena of
     # u32 values stored as int32 bits
@@ -213,10 +245,20 @@ def _byte_inputs(state: Dict, data_buf: torch.Tensor, code_buf: torch.Tensor, t:
     if NA:
         apm_ix = ((ctx_byte[:, plan.apm_ctx_slots] & plan.apm_masks) + plan.apm_offsets).to(I32)
         arenas.append(("apm_rows", ltm["apm"], apm_ix))  # (S, NA, 8*APM_BINS)
+    if spec.ppm is not None:
+        ppm_cv, ppm_ix = _ppm_index(ctx_byte, plan)
+        arenas.append(("ppm_rows", stm["ppm_tbl"], ppm_ix))  # (S, NO, PPM_ROW_W) int16 bits
     for (name, _, _), rows in zip(arenas, gather_rows_many([(tbl, idx) for _, tbl, idx in arenas])):
         work[name] = rows
     if Kp:
         work["rows_pos"] = work["rows_pos"].view(S, Kp, 8, WP)
+    if spec.ppm is not None:
+        # next-byte distribution from the new contexts' rows; its interval
+        # registers go through the sub-steps
+        _ppm_predict(stm, work.pop("ppm_rows"), ppm_cv, plan)
+        work["ppm_probs"] = stm["ppm_probs"]
+        work["ppm_regs"] = torch.stack(
+            [stm["ppm_top"], stm["ppm_bot"], stm["ppm_mid"], torch.zeros_like(stm["ppm_top"])], dim=1)
     dense0 = ltm.get("mix_dense")
     cd_oh = []
     if Kcd:
@@ -290,17 +332,26 @@ def _byte_finish(state: Dict, data_buf: torch.Tensor, t: int, plan: StepPlan, fo
     # ---- final per-bit context values -> ctx (checkpoint consistency) ----
     stm["ctx"][:, plan.bitreg_ctx_cols] = bitregs
 
-    # ---- byte end: scatter the working sets back, history append, match
-    # pointer write ----
+    if spec.ppm is not None:
+        pr = work["ppm_regs"]
+        stm.update(ppm_top=pr[:, 0], ppm_bot=pr[:, 1], ppm_mid=pr[:, 2])
+
+    # ---- byte end: scatter the working sets back (every arena in one
+    # launch; the arenas are distinct tensors), history append, match pointer
+    # write ----
     if learn:
+        back = []  # (table, row indices, rows)
         if M:
-            scatter_rows(ltm["ind"]["st"], ix["blk_ix"], work["ind_blk"])
+            back.append((ltm["ind"]["st"], ix["blk_ix"], work["ind_blk"]))
             ltm["ind"]["p"] = work["p_tbl"]
         ltm["mix_max_steps"] = work["max_steps"]
         if Kst:
-            scatter_rows(ltm["mix_w"], ix["rowix_st"], work["rows_st"])
+            back.append((ltm["mix_w"], ix["rowix_st"], work["rows_st"]))
         if Kp:
-            scatter_rows(ltm["mix_pos"], ix["posix"], work["rows_pos"].view(S, Kp, 8 * WP))
+            back.append((ltm["mix_pos"], ix["posix"], work["rows_pos"].view(S, Kp, 8 * WP)))
+        if NA:
+            back.append((ltm["apm"], ix["apm_ix"], work["apm_rows"]))
+        scatter_rows_many(back)
         if meta.mix_dense_total:
             # dense arena write-back: static slices + one-hot selects
             for i in range(Kcd):
@@ -315,8 +366,6 @@ def _byte_finish(state: Dict, data_buf: torch.Tensor, t: int, plan: StepPlan, fo
                 dense0[:, off : off + T] = work["lm_tbl"][i]
         if NM:
             ltm["match_pred"], ltm["match_cnt"] = work["mt_pred"], work["mt_cnt"]
-        if NA:
-            scatter_rows(ltm["apm"], ix["apm_ix"], work["apm_rows"])
         # dedup history: append unless inside a long match (the write is
         # masked instead of dropped out of range as gmix_tpu does)
         hist_n = stm["hist_n"]

@@ -11,17 +11,20 @@
 //
 // What bounds it on this card: nothing but memory latency and bandwidth.
 // The codec moves a few dozen scattered rows per stream per byte (512 B
-// indirect blocks and mixer rows, 4 KB position blocks, 1056 B APM rows),
-// about 65 rows per stream, out of arenas many times larger than the L2
-// cache, so almost every row is a cold read from HBM. There is no
-// arithmetic at all.
+// indirect blocks and mixer rows, 4 KB position blocks, 1056 B APM rows,
+// 544 B PPM count rows), 65 to 83 rows per stream each way, out of arenas
+// many times larger than the L2 cache, so almost every row is a cold read
+// from HBM. There is no arithmetic at all.
 //
 // Measured on an NVIDIA H100 80GB HBM3 at 700 W, a launch per arena took
-// 3.2-3.5 us on the device for 0.02-0.2 us of bytes, and more than that on
-// the host: launches, not bytes, are what a byte step pays for. So the
-// gather takes a group of arenas in ONE launch (gather_rows_many_kernel): the
-// byte step's four gathers are one launch, and a single-arena gather is a
-// group of one through the same kernel.
+// 2.8-3.5 us on the device for 0.02-0.2 us of bytes, and more than that on
+// the host: launches, not bytes, are what a byte step pays for. So each
+// mover takes a group of arenas in ONE launch (gather_rows_many_kernel,
+// scatter_rows_many_kernel): the byte step's gathers are one launch, its
+// byte-end scatters another, and a single-arena call is a group of one
+// through the same kernel. The four arenas of a byte step then take 3.3 us
+// (scatter) to 3.8 us (gather) in one launch against 11.3 and 12.9 us in
+// four; an empty kernel launched the same way takes 1.8 us.
 //
 // Why it looks as it does:
 // - The launcher takes the group as a small array of descriptors by value in
@@ -29,14 +32,17 @@
 //   row pointers, N, M, the row's 16-byte words, the threads per row and the
 //   first block): no device allocation and no host-to-device copy per call. A
 //   block finds its arena from blockIdx.x, then moves rows as below. The
-//   descriptor and the host code that fills it (fill_group) hold nothing of
-//   the direction, so that a grouped scatter can take them as they are.
+//   descriptor, the host code that fills it (fill_group) and the row a
+//   thread group owns (find_row) hold nothing of the direction: the two
+//   kernels differ only in which side of the copy is the table.
 // - A group of threads moves one row, neighbouring threads on neighbouring
 //   16-byte words (uint4 loads/stores, fully coalesced). Every row width of
 //   the codec is a multiple of 16 bytes; the wrapper checks that. Rows of up
 //   to 512 B get one warp; wider rows get the smallest power-of-two group
 //   of threads that covers them, up to a whole 256-thread block, so that a
-//   4 KB row is one coalesced wave instead of eight per warp.
+//   4 KB row is one coalesced wave instead of eight per warp. A row whose
+//   word count is no power of two (the PPM rows: 34 words) leaves the
+//   group's last lanes idle.
 // - The TPU kernel issued row copies from one scalar core and needed a ring
 //   of DMA semaphores to overlap them; here every row is independent, so
 //   all rows of the call are in flight at once across the SMs and no
@@ -85,7 +91,17 @@ struct ArenaGroup {
   int n;
 };
 
-__global__ void __launch_bounds__(kThreads) gather_rows_many_kernel(const __grid_constant__ ArenaGroup g) {
+// The row this thread's group moves: its arena, the row's number r among the
+// S * M rows of the call, its first word in the table and in the packed
+// rows, and this thread's lane within the group. False where the group has
+// no row (the ragged end of an arena's last block).
+struct RowRef {
+  uint4* tbl;
+  uint4* packed;
+  int vecs, lane, tpr;
+};
+
+__device__ __forceinline__ bool find_row(const ArenaGroup& g, RowRef* ref) {
   int a = 0;
 #pragma unroll
   for (int i = 1; i < kMaxArenas; ++i)
@@ -94,41 +110,31 @@ __global__ void __launch_bounds__(kThreads) gather_rows_many_kernel(const __grid
   const int tpr = 1 << d.tpr_shift;
   const int64_t r = (static_cast<int64_t>(blockIdx.x - d.first_block) << (8 - d.tpr_shift)) +
                     (threadIdx.x >> d.tpr_shift);
-  if (r >= d.rows_total) return;
+  if (r >= d.rows_total) return false;
   const int64_t s = r / d.M;
   const int64_t row = d.idx[r];
   assert(row >= 0 && row < d.n_rows);
-  const uint4* src = static_cast<const uint4*>(d.tbl) + (s * d.n_rows + row) * d.vecs;
-  uint4* dst = static_cast<uint4*>(d.rows) + r * d.vecs;
-  for (int v = threadIdx.x & (tpr - 1); v < d.vecs; v += tpr) dst[v] = src[v];
+  ref->tbl = static_cast<uint4*>(d.tbl) + (s * d.n_rows + row) * d.vecs;
+  ref->packed = static_cast<uint4*>(d.rows) + r * d.vecs;
+  ref->vecs = d.vecs;
+  ref->lane = threadIdx.x & (tpr - 1);
+  ref->tpr = tpr;
+  return true;
 }
 
-__global__ void scatter_rows_kernel(uint4* __restrict__ tbl,
-                                    const int32_t* __restrict__ idx,
-                                    const uint4* __restrict__ upd,
-                                    int64_t n_rows, int64_t M, int64_t rows,
-                                    int64_t vecs, int tpr) {
-  const int64_t r = static_cast<int64_t>(blockIdx.x) * (kThreads / tpr) +
-                    threadIdx.x / tpr;
-  if (r >= rows) return;
-  const int64_t s = r / M;
-  const int64_t row = idx[r];
-  assert(row >= 0 && row < n_rows);
-  const uint4* src = upd + r * vecs;
-  uint4* dst = tbl + (s * n_rows + row) * vecs;
-  for (int64_t v = threadIdx.x % tpr; v < vecs; v += tpr) dst[v] = src[v];
+__global__ void __launch_bounds__(kThreads) gather_rows_many_kernel(const __grid_constant__ ArenaGroup g) {
+  RowRef r;
+  if (!find_row(g, &r)) return;
+  for (int v = r.lane; v < r.vecs; v += r.tpr) r.packed[v] = r.tbl[v];
 }
 
-int launch_shape(int64_t S, int64_t M, int64_t row_bytes, int64_t* vecs,
-                 int* tpr, int64_t* blocks) {
-  if (S < 0 || M <= 0 || row_bytes <= 0 || row_bytes % 16 != 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  *vecs = row_bytes / 16;
-  *tpr = threads_per_row(*vecs);
-  const int64_t rows_per_block = kThreads / *tpr;
-  *blocks = (S * M + rows_per_block - 1) / rows_per_block;
-  return 0;
+__global__ void __launch_bounds__(kThreads) scatter_rows_many_kernel(const __grid_constant__ ArenaGroup g) {
+  RowRef r;
+  if (!find_row(g, &r)) return;
+  for (int v = r.lane; v < r.vecs; v += r.tpr) r.tbl[v] = r.packed[v];
 }
+
+__global__ void __launch_bounds__(kThreads) empty_kernel(const __grid_constant__ ArenaGroup g) {}
 
 // Fill the kernel's descriptors from the caller's (HostArena is the C
 // interface's GmixRowArena) and count the blocks; arenas without rows take
@@ -141,10 +147,12 @@ int fill_group(const HostArena* arenas, int n, ArenaGroup* g, int64_t* blocks) {
   *blocks = 0;
   for (int i = 0; i < n; ++i) {
     const HostArena& h = arenas[i];
-    int64_t vecs, nb;
-    int tpr;
-    if (int rc = launch_shape(h.S, h.M, h.row_bytes, &vecs, &tpr, &nb)) return rc;
-    if (h.N < 0 || vecs > INT32_MAX || *blocks + nb > INT32_MAX) return invalid;
+    if (h.S < 0 || h.N < 0 || h.M <= 0 || h.row_bytes <= 0 || h.row_bytes % 16 != 0) return invalid;
+    const int64_t vecs = h.row_bytes / 16;
+    const int tpr = threads_per_row(vecs);
+    const int64_t rows_per_block = kThreads / tpr;
+    const int64_t nb = (h.S * h.M + rows_per_block - 1) / rows_per_block;
+    if (vecs > INT32_MAX || *blocks + nb > INT32_MAX) return invalid;
     if (nb == 0) continue;
     ArenaDesc& d = g->a[g->n++];
     d.tbl = h.tbl;
@@ -175,11 +183,11 @@ struct GmixRowArena {
 
 extern "C" {
 
-// Both entry points launch on `stream` (a cudaStream_t), do not
-// synchronise, and return the launch's cudaError_t (0 on success).
+// Both entry points take the n <= 8 arenas of `arenas` in one launch on
+// `stream` (a cudaStream_t), do not synchronise, and return the launch's
+// cudaError_t (0 on success).
 
-// rows[a][s, m, :] = tbl[a][s, idx[a][s, m], :] for the n <= 8 arenas of
-// `arenas`, in one launch
+// rows[a][s, m, :] = tbl[a][s, idx[a][s, m], :]
 int gmix_gather_rows_many(const GmixRowArena* arenas, int n, void* stream) {
   ArenaGroup g;
   int64_t blocks;
@@ -189,16 +197,23 @@ int gmix_gather_rows_many(const GmixRowArena* arenas, int n, void* stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-int gmix_scatter_rows(void* tbl, const int32_t* idx, const void* upd,
-                      int64_t S, int64_t N, int64_t M, int64_t row_bytes,
-                      void* stream) {
-  int64_t vecs, blocks;
-  int tpr;
-  if (int rc = launch_shape(S, M, row_bytes, &vecs, &tpr, &blocks)) return rc;
+// tbl[a][s, idx[a][s, m], :] = rows[a][s, m, :] in place; the tables are
+// distinct and idx[a] is unique within each stream, so no two rows race
+int gmix_scatter_rows_many(const GmixRowArena* arenas, int n, void* stream) {
+  ArenaGroup g;
+  int64_t blocks;
+  if (int rc = fill_group(arenas, n, &g, &blocks)) return rc;
   if (blocks == 0) return 0;
-  scatter_rows_kernel<<<static_cast<unsigned int>(blocks), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<uint4*>(tbl), idx, static_cast<const uint4*>(upd), N, M,
-      S * M, vecs, tpr);
+  scatter_rows_many_kernel<<<static_cast<unsigned int>(blocks), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(g);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// An empty kernel launched as the movers are (the same parameter block, one
+// block of kThreads): what a launch costs on the device before any byte
+// moves. For measurement only.
+int gmix_empty_launch(void* stream) {
+  ArenaGroup g = {};
+  empty_kernel<<<1, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(g);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -7,9 +7,10 @@ each mover launches its hand-written kernel (csrc/rowmove.cu, built by
 utils/build.py) or raises; on a CPU tensor it runs the plain torch version
 beside it. The kernels only move bytes, so both give the same bits.
 
-A launch costs more than the bytes it moves (csrc/rowmove.cu), so the gather
-takes a list of arenas in one launch: `gather_rows_many`. `gather_rows` is a
-list of one through the same kernel.
+A launch costs more than the bytes it moves (csrc/rowmove.cu), so each mover
+takes a list of arenas in one launch: `gather_rows_many` and
+`scatter_rows_many`. `gather_rows` and `scatter_rows` are lists of one
+through the same two kernels.
 
 Row indices must be unique within a stream (each model family owns a
 disjoint offset range of its arena; core/meta.py builds them that way), so
@@ -49,6 +50,12 @@ def scatter_rows_plain(tbl: torch.Tensor, idx: torch.Tensor, upd: torch.Tensor) 
     return tbl
 
 
+def scatter_rows_many_plain(triples: Sequence[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]) -> List[torch.Tensor]:
+    """[(tbl_a, idx_a, upd_a)]: tbl_a[s, idx_a[s, m]] = upd_a[s, m] in place;
+    returns the tables."""
+    return [scatter_rows_plain(tbl, idx, upd) for tbl, idx, upd in triples]
+
+
 def _check_cuda(what: str, tbl: torch.Tensor, idx: torch.Tensor, rows: torch.Tensor) -> None:
     """Validate what the kernel takes; raise on anything else."""
     if tbl.device.type != "cuda":
@@ -73,31 +80,37 @@ def _check_cuda(what: str, tbl: torch.Tensor, idx: torch.Tensor, rows: torch.Ten
         raise ValueError(f"{what}: row width {W * tbl.element_size()} B is not a multiple of 16")
 
 
-def _gather_launch(what: str, pairs) -> List[torch.Tensor]:
-    """One launch of the grouped gather kernel on CUDA tensors."""
-    if not 1 <= len(pairs) <= MAX_ARENAS:
-        raise ValueError(f"{what}: one launch takes 1 to {MAX_ARENAS} arenas, got {len(pairs)}")
-    dev = pairs[0][0].device
-    for tbl, _ in pairs:
+def _launch(what: str, entry: str, arenas) -> None:
+    """One launch of a grouped mover (`entry`: the C function) on CUDA
+    tensors: `arenas` is a list of (table, indices, packed rows)."""
+    if not 1 <= len(arenas) <= MAX_ARENAS:
+        raise ValueError(f"{what}: one launch takes 1 to {MAX_ARENAS} arenas, got {len(arenas)}")
+    dev = arenas[0][0].device
+    for tbl, _, _ in arenas:
         if tbl.device != dev:
             raise ValueError(f"{what}: every arena must lie on one device, got {tbl.device} and {dev}")
-    desc = (ctypes.c_int64 * (_ARENA_FIELDS * len(pairs)))()
-    outs = []
-    for a, (tbl, idx) in enumerate(pairs):
-        if tbl.dim() != 3 or idx.dim() != 2:
-            raise ValueError(f"{what}: expected tbl (S, N, W) and idx (S, M), got {tuple(tbl.shape)} / {tuple(idx.shape)}")
+    desc = (ctypes.c_int64 * (_ARENA_FIELDS * len(arenas)))()
+    for a, (tbl, idx, rows) in enumerate(arenas):
+        _check_cuda(what, tbl, idx, rows)
         S, N, W = tbl.shape
-        M = idx.shape[1]
-        out = torch.empty((S, M, W), dtype=tbl.dtype, device=dev)
-        _check_cuda(what, tbl, idx, out)
         desc[a * _ARENA_FIELDS : (a + 1) * _ARENA_FIELDS] = (
-            tbl.data_ptr(), idx.data_ptr(), out.data_ptr(), S, N, M, W * tbl.element_size())
-        outs.append(out)
+            tbl.data_ptr(), idx.data_ptr(), rows.data_ptr(), S, N, idx.shape[1], W * tbl.element_size())
     lib = load_kernels()
     with torch.cuda.device(dev):
-        rc = lib.gmix_gather_rows_many(desc, len(pairs), torch.cuda.current_stream(dev).cuda_stream)
+        rc = getattr(lib, entry)(desc, len(arenas), torch.cuda.current_stream(dev).cuda_stream)
     check_launch(lib, rc, what)
-    return outs
+
+
+def _gather_launch(what: str, pairs) -> List[torch.Tensor]:
+    """Allocate each arena's output rows and gather into them in one launch."""
+    arenas = []
+    for tbl, idx in pairs:
+        if tbl.dim() != 3 or idx.dim() != 2:
+            raise ValueError(f"{what}: expected tbl (S, N, W) and idx (S, M), got {tuple(tbl.shape)} / {tuple(idx.shape)}")
+        out = torch.empty((tbl.shape[0], idx.shape[1], tbl.shape[2]), dtype=tbl.dtype, device=pairs[0][0].device)
+        arenas.append((tbl, idx, out))
+    _launch(what, "gmix_gather_rows_many", arenas)
+    return [out for _, _, out in arenas]
 
 
 def gather_rows_many(pairs: Sequence[Tuple[torch.Tensor, torch.Tensor]]) -> List[torch.Tensor]:
@@ -123,22 +136,40 @@ def gather_rows(tbl: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def scatter_rows_many(triples: Sequence[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]) -> List[torch.Tensor]:
+    """[(tbl_a (S, N_a, W_a), idx_a (S, M_a), upd_a (S, M_a, W_a))]:
+    tbl_a[s, idx_a[s, m]] = upd_a[s, m] in place, for up to 8 DISTINCT
+    tables of any row widths and dtypes, idx_a unique within each stream;
+    returns the tables. ONE launch of the kernel on CUDA tensors, the plain
+    version on CPU tensors."""
+    triples = list(triples)
+    if not triples:
+        return []
+    if all(tbl.device.type == "cpu" for tbl, _, _ in triples):
+        return scatter_rows_many_plain(triples)
+    _launch("scatter_rows_many", "gmix_scatter_rows_many", triples)
+    scatter_rows_many.launches += 1
+    return [tbl for tbl, _, _ in triples]
+
+
 def scatter_rows(tbl: torch.Tensor, idx: torch.Tensor, upd: torch.Tensor) -> torch.Tensor:
     """tbl[s, idx[s, m]] = upd[s, m] in place, idx unique per stream; returns
-    tbl. The kernel on CUDA, plain on CPU."""
+    tbl. The kernel on CUDA (a group of one arena), plain on CPU."""
     if tbl.device.type == "cpu":
         return scatter_rows_plain(tbl, idx, upd)
-    _check_cuda("scatter_rows", tbl, idx, upd)
-    S, N, W = tbl.shape
-    M = idx.shape[1]
-    lib = load_kernels()
-    rc = lib.gmix_scatter_rows(
-        tbl.data_ptr(), idx.data_ptr(), upd.data_ptr(), S, N, M,
-        W * tbl.element_size(), torch.cuda.current_stream(tbl.device).cuda_stream,
-    )
-    check_launch(lib, rc, "scatter_rows")
+    _launch("scatter_rows", "gmix_scatter_rows_many", [(tbl, idx, upd)])
     scatter_rows.launches += 1
     return tbl
+
+
+def empty_launch(device) -> None:
+    """Launch the library's empty kernel on `device`'s current stream: the
+    device-side cost of a launch, for measurement beside the movers' times."""
+    dev = torch.device(device)
+    lib = load_kernels()
+    with torch.cuda.device(dev):
+        rc = lib.gmix_empty_launch(torch.cuda.current_stream(dev).cuda_stream)
+    check_launch(lib, rc, "empty_launch")
 
 
 # kernel launch counters: one per launch of the CUDA kernel, none for the
@@ -146,3 +177,4 @@ def scatter_rows(tbl: torch.Tensor, idx: torch.Tensor, upd: torch.Tensor) -> tor
 gather_rows.launches = 0
 gather_rows_many.launches = 0
 scatter_rows.launches = 0
+scatter_rows_many.launches = 0

@@ -8,7 +8,7 @@ with a leading stream axis S. Dtypes follow what torch can compute with:
 - the two large u32 arenas (`ltm.match_tbl`, `stm.ih_tbl`) are int32
   tensors with the same bits, so that they take no more memory than in
   gmix_tpu;
-- the u16 indirect arena `ltm.ind.st` is int16 with the same bits;
+- the u16 arenas (`ltm.ind.st`, `stm.ppm_tbl`) are int16 with the same bits;
 - u8, int32 and float32 leaves keep their dtype.
 
 `state_to_numpy` restores gmix_tpu's dtypes and `state_from_numpy` takes them
@@ -22,7 +22,7 @@ from typing import Dict
 import numpy as np
 import torch
 
-from .core.meta import APM_BINS, APM_SPAN, Meta
+from .core.meta import APM_BINS, APM_SPAN, PPM_ROW_W, Meta
 
 DEFAULT_SEED = 0xDEADBEEF
 
@@ -32,10 +32,10 @@ U32_AS_I32 = frozenset({"match_tbl", "ih_tbl"})
 
 def init_state(meta: Meta, num_streams: int, seed: int = DEFAULT_SEED, device="cpu") -> Dict:
     """Fresh state for `num_streams` streams on `device`. `seed` only seeds
-    the LSTM in gmix_tpu; specs with an LSTM or PPM are not ported yet."""
+    the LSTM in gmix_tpu; specs with an LSTM are not ported yet."""
     spec = meta.spec
-    if spec.ppm is not None or spec.lstm is not None:
-        raise NotImplementedError("the torch port runs specs without PPM and LSTM only")
+    if spec.lstm is not None:
+        raise NotImplementedError("the torch port runs specs without an LSTM only")
     S = num_streams
     f32, i32, i64 = torch.float32, torch.int32, torch.int64
 
@@ -56,6 +56,8 @@ def init_state(meta: Meta, num_streams: int, seed: int = DEFAULT_SEED, device="c
         "hist_n": zeros((S,)),
         "ppm_probs": full((S, 256), 1.0 / 256, f32),
     }
+    if spec.roll_ctxs:
+        stm["roll_h"] = zeros((S, len(spec.roll_ctxs)))
     if spec.matches:
         nm = len(spec.matches)
         stm["match_ptr"] = zeros((S, nm))
@@ -107,6 +109,17 @@ def init_state(meta: Meta, num_streams: int, seed: int = DEFAULT_SEED, device="c
         ident = 1.0 / (1.0 + np.exp(-centers))
         row = np.tile(ident.astype(np.float32), 8)
         ltm["apm"] = torch.as_tensor(row, device=device).expand(S, meta.apm_total, 8 * APM_BINS).clone()
+
+    # PPM byte model, in short-term memory as in gmix_tpu: widened rows of
+    # 256 u16 counts + the owner tag at lane 256 (core/ppm.py), the interval
+    # registers of its bit head, and the learned escape-logit offsets per
+    # (order, distinct bucket), 0 = the pure PPM-C prior
+    if spec.ppm is not None:
+        stm["ppm_tbl"] = zeros((S, meta.ppm_total_rows, PPM_ROW_W), torch.int16)
+        stm["ppm_top"] = full((S,), 255, i32)
+        stm["ppm_bot"] = zeros((S,), i32)
+        stm["ppm_mid"] = full((S,), 127, i32)
+        stm["ppm_see"] = zeros((S, len(spec.ppm.orders), spec.ppm.see_buckets), f32)
 
     coder = {
         "x1": zeros((S,)),

@@ -122,13 +122,15 @@ def load_kernels() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(str(build().path))
-        ptr, i64 = ctypes.c_void_p, ctypes.c_int64
-        lib.gmix_scatter_rows.argtypes = [ptr, ptr, ptr, i64, i64, i64, i64, ptr]
-        lib.gmix_scatter_rows.restype = ctypes.c_int
+        ptr = ctypes.c_void_p
         # (GmixRowArena* of 7 8-byte fields per arena, arenas, stream);
         # ops/rowmove.py fills the array
-        lib.gmix_gather_rows_many.argtypes = [ptr, ctypes.c_int, ptr]
-        lib.gmix_gather_rows_many.restype = ctypes.c_int
+        for name in ("gmix_gather_rows_many", "gmix_scatter_rows_many"):
+            fn = getattr(lib, name)
+            fn.argtypes = [ptr, ctypes.c_int, ptr]
+            fn.restype = ctypes.c_int
+        lib.gmix_empty_launch.argtypes = [ptr]
+        lib.gmix_empty_launch.restype = ctypes.c_int
         # (FusedDims* of int64 sizes, FusedIO* of device pointers, stream);
         # core/fused.py declares the two structures
         for name in ("gmix_fused_substeps", "gmix_fused_substeps_clocks"):

@@ -4,6 +4,7 @@ layout, and agreement with gmix_tpu's jitted codec in size and entropy.
 Jitted gmix_tpu contracts a*b+c into fused multiply-adds on the CPU, which
 the port (like gmix_tpu run eagerly) does not, so the two archives are not
 byte-identical; they must agree in size and total cross-entropy."""
+import dataclasses
 import struct
 
 import pytest
@@ -50,6 +51,22 @@ def test_size_and_entropy_close_to_jitted_gmix_tpu(port_run, corpus):
     j_ent = g.entropy_bits(jp)
     assert abs(len(blob) - len(j_blob)) <= 0.01 * len(j_blob)
     assert abs(ent - j_ent) <= 0.005 * j_ent
+
+
+def test_ppm_spec_roundtrips_and_stays_close_to_jitted_gmix_tpu(corpus):
+    """The tiny spec with its PPM byte model (no LSTM): exact self round trip,
+    archive within 1% in size and 0.5% in total cross-entropy of gmix_tpu's."""
+    data = corpus[:320]
+    spec = dataclasses.replace(gt.tiny_spec(True), lstm=None)
+    pred = Predictor(spec, S, device="cpu")
+    blob = gt.compress_bytes(data, spec, S, CHUNK, pred=pred)
+    assert gt.decompress_bytes(blob, spec, CHUNK, device="cpu") == data
+    j_spec = dataclasses.replace(g.tiny_spec(True), lstm=None)
+    jp = g.Predictor(j_spec, S)
+    j_blob = g.compress_bytes(data, j_spec, S, CHUNK, pred=jp)
+    assert abs(len(blob) - len(j_blob)) <= 0.01 * len(j_blob)
+    assert abs(gt.entropy_bits(pred) - g.entropy_bits(jp)) <= 0.005 * g.entropy_bits(jp)
+    assert blob[:40] == j_blob[:40]  # the same header: container, sizes, spec hash
 
 
 def test_header_layout_matches_gmix_tpu(port_run, corpus):

@@ -11,6 +11,8 @@ both sides. Every output that can reach an archive must be bitwise equal;
 own: `ent` within 2 ulp per sub-step (16 ulp over the byte), `ema` within
 1e-6 relative. Inputs are finite, valid codec states (utils/fused_inputs.py).
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -45,8 +47,16 @@ def _to_jax(name, a, dtype):
     return jnp.asarray(a.astype(np.dtype(dtype)))
 
 
-def _run_jax(full: bool, learn: bool, analysis: bool, inputs):
-    meta = j_build_meta(g.tiny_spec(full))
+def _spec(pkg, full):
+    """tiny_spec(full), or for full == "ppm" the full spec without its LSTM:
+    the PPM head alone, the prediction columns shifted by one."""
+    if full == "ppm":
+        return dataclasses.replace(pkg.tiny_spec(True), lstm=None)
+    return pkg.tiny_spec(full)
+
+
+def _run_jax(full, learn: bool, analysis: bool, inputs):
+    meta = j_build_meta(_spec(g, full))
     ins, outs = j_fused._io_layout(meta, learn, analysis)
     consts = j_fused.const_inputs(meta, learn)
     refs = [consts[n] if kind == "c" else _to_jax(n, inputs[n], dt) for n, _, dt, kind in ins]
@@ -56,8 +66,8 @@ def _run_jax(full: bool, learn: bool, analysis: bool, inputs):
     return {n: np.asarray(r.value) for (n, _, _, _), r in zip(outs, out_refs)}
 
 
-def _run_torch(full: bool, learn: bool, analysis: bool, inputs):
-    meta = t_build_meta(gt.tiny_spec(full))
+def _run_torch(full, learn: bool, analysis: bool, inputs):
+    meta = t_build_meta(_spec(gt, full))
     consts = t_fused.const_inputs(meta, learn)
     fin = {n: torch.as_tensor(inputs[n]) for n, _, _, kind in t_fused.io_layout(meta, learn, analysis)[0] if kind == "s"}
     fo = t_fused.fused_substeps(meta, consts, fin, learn, analysis)
@@ -82,8 +92,18 @@ CASES = [
 
 @pytest.mark.parametrize("full,learn,decode,analysis,not_first", CASES)
 def test_plain_substeps_match_eager_gmix_tpu_kernel_body(full, learn, decode, analysis, not_first):
-    meta = t_build_meta(gt.tiny_spec(full))
     seed = 100 + CASES.index((full, learn, decode, analysis, not_first))
+    _check_substeps(full, learn, decode, analysis, not_first, seed)
+
+
+@pytest.mark.parametrize("learn,decode,analysis,not_first", [(True, False, True, True), (False, True, False, False)])
+def test_plain_substeps_with_the_ppm_head_alone_match_eager_gmix_tpu_kernel_body(learn, decode, analysis, not_first):
+    """The layout of a spec with PPM and without an LSTM (`ppm=1, lstm=0`)."""
+    _check_substeps("ppm", learn, decode, analysis, not_first, 200 + int(decode))
+
+
+def _check_substeps(full, learn, decode, analysis, not_first, seed):
+    meta = t_build_meta(_spec(gt, full))
     inputs = random_inputs(meta, S, seed, decode=decode, not_first=not_first)
     want = _run_jax(full, learn, analysis, inputs)
     got = _run_torch(full, learn, analysis, inputs)

@@ -10,9 +10,9 @@ import torch
 
 from gmix_tpu_torch.ops import rowmove
 
-# (dtype, row width) of the four arenas the byte step moves rows of:
-# ind.st (u16 bits in int16), mix_w, mix_pos, apm
-SHAPES = [(torch.int16, 256), (torch.float32, 128), (torch.float32, 1024), (torch.float32, 264)]
+# (dtype, row width) of the five arenas the byte step moves rows of:
+# ind.st (u16 bits in int16), mix_w, mix_pos, apm, ppm_tbl (34 16-byte words)
+SHAPES = [(torch.int16, 256), (torch.float32, 128), (torch.float32, 1024), (torch.float32, 264), (torch.int16, 272)]
 S, N, M = 5, 300, 41
 
 
@@ -75,6 +75,8 @@ GROUP_ARENAS = [
     (torch.float32, 264, 90, 2), (torch.float32, 256, 50, 3), (torch.int32, 4, 40, 7),
     (torch.float32, 512, 33, 1), (torch.int16, 2048, 17, 3),
 ]
+# the byte step's five arenas with PPM: the first four and 9 rows of 272 u16
+PPM_GROUP = GROUP_ARENAS[:4] + [(torch.int16, 272, 500, 9)]
 
 
 @pytest.mark.cuda
@@ -90,6 +92,67 @@ def test_grouped_gather_kernel_matches_plain(cuda, n_arenas):
     for a, b in zip(want, got):
         assert (a.shape, a.dtype) == (b.shape, b.dtype)
         assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_grouped_gather_kernel_takes_the_ppm_rows(cuda):
+    pairs = [_arena(dt, W, n, m, cuda, 300 + i) for i, (dt, W, n, m) in enumerate(PPM_GROUP)]
+    n0 = rowmove.gather_rows_many.launches
+    got = rowmove.gather_rows_many(pairs)
+    torch.cuda.synchronize()
+    assert rowmove.gather_rows_many.launches == n0 + 1
+    for a, b in zip(rowmove.gather_rows_many_plain(pairs), got):
+        assert (a.shape, a.dtype) == (b.shape, b.dtype) and torch.equal(a, b)
+
+
+def _scatter_group(arenas, dev, seed0):
+    triples = []
+    for i, (dt, W, n, m) in enumerate(arenas):
+        tbl, idx = _arena(dt, W, n, m, dev, seed0 + i)
+        upd = _fill(torch.empty((S, m, W), dtype=dt, device=dev), torch.Generator(device=dev).manual_seed(seed0 + 50 + i))
+        triples.append((tbl, idx, upd))
+    return triples
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("group", ["1", "4", "8", "ppm"])
+def test_grouped_scatter_kernel_matches_plain(cuda, group):
+    """Every table of the group after ONE launch equals a copy after the
+    plain scatter, whole tables compared: no row but the indexed ones moved."""
+    arenas = PPM_GROUP if group == "ppm" else GROUP_ARENAS[: int(group)]
+    triples = _scatter_group(arenas, cuda, 400)
+    refs = [(tbl.clone(), idx, upd) for tbl, idx, upd in triples]
+    n0, n1 = rowmove.scatter_rows_many.launches, rowmove.scatter_rows.launches
+    got = rowmove.scatter_rows_many(triples)
+    torch.cuda.synchronize()
+    assert rowmove.scatter_rows_many.launches == n0 + 1  # one launch, whatever the number of arenas
+    assert rowmove.scatter_rows.launches == n1
+    want = rowmove.scatter_rows_many_plain(refs)
+    torch.cuda.synchronize()
+    assert len(got) == len(arenas)
+    for (tbl, _, _), out, ref in zip(triples, got, want):
+        assert out is tbl and torch.equal(tbl, ref)
+
+
+@pytest.mark.cuda
+def test_grouped_scatter_rejects_what_the_kernel_does_not_take(cuda):
+    tbl, idx, upd = _scatter_group(GROUP_ARENAS[1:2], cuda, 1)[0]
+    kept = tbl.clone()
+    with pytest.raises(ValueError, match="1 to 8 arenas"):
+        rowmove.scatter_rows_many([(tbl, idx, upd)] * 9)
+    with pytest.raises(ValueError, match="one device"):
+        rowmove.scatter_rows_many([(tbl, idx, upd), (tbl.cpu(), idx.cpu(), upd.cpu())])
+    with pytest.raises(ValueError, match="int32"):
+        rowmove.scatter_rows_many([(tbl, idx.long(), upd)])
+    with pytest.raises(ValueError, match="rows are"):
+        rowmove.scatter_rows_many([(tbl, idx, upd.double())])
+    with pytest.raises(ValueError, match="rows .* !="):
+        rowmove.scatter_rows_many([(tbl, idx, upd[:, :1])])
+    with pytest.raises(ValueError, match="contiguous"):
+        rowmove.scatter_rows_many([(tbl, idx, upd.transpose(0, 1).contiguous().transpose(0, 1))])
+    assert rowmove.scatter_rows_many([]) == []
+    torch.cuda.synchronize()
+    assert torch.equal(tbl, kept)  # a rejected call wrote nothing
 
 
 @pytest.mark.cuda
@@ -147,7 +210,13 @@ def _more_indirects(spec, times):
 def _fused_spec(name):
     import gmix_tpu_torch as gt
 
+    import dataclasses
+
     return {"tiny": lambda: gt.tiny_spec(False), "tiny-heads": lambda: gt.tiny_spec(True),
+            # the PPM head alone: the prediction columns shift by one
+            "tiny-ppm": lambda: dataclasses.replace(gt.tiny_spec(True), lstm=None),
+            "ref-ppm": lambda: dataclasses.replace(_ref_noppm_spec(), ppm=gt.reference_spec().ppm,
+                                                   roll_ctxs=gt.reference_spec().roll_ctxs),
             "ref-noppm": _ref_noppm_spec, "reference": gt.reference_spec,
             # 256-lane rows (8 lane groups), layers of 6 and 2 rows, tables in shared memory
             "tiny-wide": lambda: _more_indirects(gt.tiny_spec(False), 10),
@@ -187,7 +256,7 @@ def _assert_fused_equal(want, got):
 # the instantiations of the kernel a spec takes: (32-lane groups of a mixer
 # row, look-up tables in shared memory)
 INSTANTIATIONS = {"tiny": (4, True), "ref-noppm": (4, True), "reference": (4, True), "tiny-wide": (8, True),
-                  "ref-wide": (8, False)}
+                  "ref-wide": (8, False), "ref-ppm": (4, True)}
 
 
 @pytest.mark.cuda
@@ -210,7 +279,7 @@ def test_fused_kernel_other_instantiations_match_plain(cuda, spec_name, learn, d
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("spec_name", ["tiny", "ref-noppm", "reference"])
+@pytest.mark.parametrize("spec_name", ["tiny", "ref-noppm", "reference", "ref-ppm"])
 def test_fused_instantiation_of_the_reference_specs(cuda, spec_name):
     from gmix_tpu_torch.core import fused
 
@@ -248,7 +317,7 @@ def test_fused_clocks_instantiation_computes_the_same(cuda, spec_name, decode):
 @pytest.mark.cuda
 @pytest.mark.parametrize("learn,analysis", [(True, True), (True, False), (False, True), (False, False)])
 @pytest.mark.parametrize("decode", [False, True])
-@pytest.mark.parametrize("spec_name", ["tiny", "tiny-heads", "ref-noppm", "reference"])
+@pytest.mark.parametrize("spec_name", ["tiny", "tiny-heads", "ref-noppm", "reference", "tiny-ppm", "ref-ppm"])
 def test_fused_kernel_matches_plain(cuda, spec_name, decode, learn, analysis):
     """Bitwise on every output that can reach an archive; `ent` and `ema` go
     through log2f / torch.log2, which need not agree to the bit: 16 ulp over

@@ -1,7 +1,9 @@
 """The row movers' plain torch gather/scatter against gmix_tpu's (which
-takes its XLA path on the CPU), bitwise, at the four arena row shapes of the
-byte step, one arena at a time and all four in one grouped call. The CUDA kernels are held against the plain versions in
-test_torch_kernels.py, which runs on a GPU machine without JAX."""
+takes its XLA path on the CPU), bitwise, at the five arena row shapes of the
+byte step (the PPM rows, u16 W=272, among them), one arena at a time and all
+in one grouped call, either direction. The CUDA kernels are held against the
+plain versions in test_torch_kernels.py, which runs on a GPU machine without
+JAX."""
 import numpy as np
 import pytest
 import torch
@@ -15,6 +17,8 @@ torch.set_num_threads(1)
 
 # (numpy dtype, row width): ind.st, mix_w, mix_pos, apm
 SHAPES = [(np.uint16, 256), (np.float32, 128), (np.float32, 1024), (np.float32, 264)]
+# with ppm_tbl
+SHAPES5 = SHAPES + [(np.uint16, 272)]
 S, N, M = 3, 37, 9
 
 
@@ -88,12 +92,52 @@ def test_grouped_gather_is_the_list_of_single_gathers(n_arenas):
         assert torch.equal(out, t_rm.gather_rows(tbl, idx))
 
 
+def test_ppm_row_shape_matches_gmix_tpu():
+    """u16 rows of 272 lanes (34 16-byte words, no power of two), both ways."""
+    tbl, idx, upd = _case(np.uint16, 272, 272)
+    want = np.asarray(j_rm.gather_rows(jnp.asarray(tbl), jnp.asarray(idx)))
+    assert np.array_equal(_np(t_rm.gather_rows(_t(tbl), torch.tensor(idx)), np.uint16), want)
+    want = np.asarray(j_rm.scatter_rows(jnp.asarray(tbl), jnp.asarray(idx), jnp.asarray(upd)))
+    assert np.array_equal(_np(t_rm.scatter_rows(_t(tbl), torch.tensor(idx), _t(upd)), np.uint16), want)
+
+
+def _triples(shapes, seed0):
+    """One (table, indices, rows) triple per (dtype, width), as numpy arrays."""
+    return [_case(dtype, W, seed0 + i) for i, (dtype, W) in enumerate(shapes)]
+
+
+@pytest.mark.parametrize("entry", ["scatter_rows_many", "scatter_rows_many_plain"])
+@pytest.mark.parametrize("n_arenas", [0, 1, 5, 8])
+def test_grouped_scatter_matches_gmix_tpu(entry, n_arenas):
+    """Up to 8 arenas scattered in ONE call, each table bitwise equal to
+    gmix_tpu's scatter into it; the tables are updated in place and returned."""
+    shapes = [SHAPES5[i % len(SHAPES5)] for i in range(n_arenas)]
+    cases = _triples(shapes, 51)
+    triples = [(_t(tbl), torch.tensor(idx), _t(upd)) for tbl, idx, upd in cases]
+    got = getattr(t_rm, entry)(triples)
+    assert len(got) == n_arenas
+    for (dtype, W), (tbl, idx, upd), (t_tbl, _, _), out in zip(shapes, cases, triples, got):
+        want = np.asarray(j_rm.scatter_rows(jnp.asarray(tbl), jnp.asarray(idx), jnp.asarray(upd)))
+        assert out is t_tbl  # in place
+        assert np.array_equal(_np(t_tbl, dtype).view(np.uint8), want.view(np.uint8)), (dtype, W)
+
+
+@pytest.mark.parametrize("n_arenas", [0, 1, 5, 8])
+def test_grouped_scatter_is_the_list_of_single_scatters(n_arenas):
+    cases = _triples([SHAPES5[i % len(SHAPES5)] for i in range(n_arenas)], 71)
+    grouped = [(_t(tbl), torch.tensor(idx), _t(upd)) for tbl, idx, upd in cases]
+    t_rm.scatter_rows_many(grouped)
+    for (tbl, idx, upd), (g_tbl, _, _) in zip(cases, grouped):
+        assert torch.equal(g_tbl, t_rm.scatter_rows(_t(tbl), torch.tensor(idx), _t(upd)))
+
+
 def test_cpu_tensors_never_launch_a_kernel():
     tbl, idx, upd = _case(np.float32, 128, 5)
-    counters = (t_rm.gather_rows, t_rm.gather_rows_many, t_rm.scatter_rows)
+    counters = (t_rm.gather_rows, t_rm.gather_rows_many, t_rm.scatter_rows, t_rm.scatter_rows_many)
     before = [w.launches for w in counters]
     t_rm.scatter_rows(_t(tbl), torch.tensor(idx), t_rm.gather_rows(_t(tbl), torch.tensor(idx)))
     t_rm.gather_rows_many([(_t(tbl), torch.tensor(idx))] * 3)
+    t_rm.scatter_rows_many([(_t(tbl), torch.tensor(idx), _t(upd)), (_t(tbl), torch.tensor(idx), _t(upd))])
     assert [w.launches for w in counters] == before
 
 
@@ -108,6 +152,9 @@ def test_other_devices_raise_instead_of_falling_back():
         t_rm.scatter_rows(tbl, idx, torch.empty((S, M, 128), device="meta"))
     with pytest.raises(ValueError, match="expected a CUDA or CPU tensor"):
         t_rm.gather_rows_many([(tbl, idx), (tbl, idx)])
+    upd = torch.empty((S, M, 128), device="meta")
+    with pytest.raises(ValueError, match="expected a CUDA or CPU tensor"):
+        t_rm.scatter_rows_many([(tbl, idx, upd), (tbl, idx, upd)])
 
 
 def test_grouped_gather_takes_one_device_only():
@@ -120,3 +167,17 @@ def test_grouped_gather_takes_one_device_only():
         t_rm.gather_rows_many([(meta_tbl, meta_idx), (_t(tbl), torch.tensor(idx))])
     with pytest.raises(ValueError, match="1 to 8 arenas"):
         t_rm.gather_rows_many([(meta_tbl, meta_idx)] * 9)
+
+
+def test_grouped_scatter_takes_one_device_only():
+    tbl, idx, upd = _case(np.float32, 128, 9)
+    cpu = (_t(tbl), torch.tensor(idx), _t(upd))
+    meta = (torch.empty((S, N, 128), device="meta"), torch.zeros((S, M), dtype=torch.int32, device="meta"),
+            torch.empty((S, M, 128), device="meta"))
+    with pytest.raises(ValueError, match="one device"):
+        t_rm.scatter_rows_many([cpu, meta])
+    with pytest.raises(ValueError, match="one device"):
+        t_rm.scatter_rows_many([meta, cpu])
+    with pytest.raises(ValueError, match="1 to 8 arenas"):
+        t_rm.scatter_rows_many([meta] * 9)
+    assert torch.equal(cpu[0], _t(tbl))  # nothing was written

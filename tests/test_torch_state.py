@@ -23,6 +23,8 @@ SPECS = {
     "tiny": lambda c: c.tiny_spec(False),
     "reference_noppm_scaled8": lambda c: c.scale_tables(
         dataclasses.replace(c.reference_spec(), ppm=None, lstm=None, roll_ctxs=()), 8, history_bits=10),
+    "tiny_ppm": lambda c: dataclasses.replace(c.tiny_spec(True), lstm=None),
+    "reference_ppm_scaled8": lambda c: c.scale_tables(dataclasses.replace(c.reference_spec(), lstm=None), 8, history_bits=10),
 }
 
 
@@ -51,7 +53,7 @@ def test_init_state_matches_gmix_tpu(name):
     # the arenas take the bytes they take in gmix_tpu; only the small u32
     # registers are widened to int64
     big = {"ltm.ind.st", "ltm.ind.p", "ltm.mix_w", "ltm.mix_pos", "ltm.hist", "ltm.match_tbl",
-           "stm.ih_tbl", "ltm.apm"}
+           "stm.ih_tbl", "ltm.apm", "stm.ppm_tbl"}
     j_big = sum(v.nbytes for k, v in _flat(j_state) if k in big)
     t_big = sum(t.numel() * t.element_size() for k, t in _flat(t_state) if k in big)
     assert t_big == j_big
@@ -59,9 +61,17 @@ def test_init_state_matches_gmix_tpu(name):
 
 
 def test_numpy_round_trip_is_identity():
+    _check_round_trip("tiny")
+
+
+def test_numpy_round_trip_is_identity_with_ppm():
+    _check_round_trip("tiny_ppm")
+
+
+def _check_round_trip(name):
     # a state whose leaves hold arbitrary bits, including u32 values >= 2^31
-    # and u16 values >= 2^15
-    template = jax.device_get(j_init_state(j_build_meta(j_cfg.tiny_spec(False)), S))
+    # and u16 values >= 2^15 (`ind.st`, and `ppm_tbl` with PPM)
+    template = jax.device_get(j_init_state(j_build_meta(SPECS[name](j_cfg)), S))
     rng = np.random.default_rng(7)
 
     def scramble(tree):
@@ -89,5 +99,8 @@ def test_state_from_numpy_copies():
 
 
 def test_unported_specs_raise():
+    """Specs with an LSTM, with or without PPM."""
     with pytest.raises(NotImplementedError):
         init_state(t_build_meta(t_cfg.tiny_spec(True)), S)
+    with pytest.raises(NotImplementedError):
+        init_state(t_build_meta(dataclasses.replace(t_cfg.tiny_spec(True), ppm=None, roll_ctxs=())), S)

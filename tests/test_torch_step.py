@@ -5,6 +5,8 @@ multiply-add, so they round differently from a program whose ops round one
 by one. The port keeps every op separate, as gmix_tpu does when run under
 `jax.disable_jit()`, and is held bitwise against that.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -36,28 +38,64 @@ def _flat(tree, prefix=""):
             yield f"{prefix}{k}", np.asarray(v)
 
 
-@pytest.fixture(scope="module")
-def warm():
+def _ppm_spec(pkg):
+    """The tiny spec with its PPM byte model and rolling context, without the
+    LSTM."""
+    return dataclasses.replace(pkg.tiny_spec(True), lstm=None)
+
+
+def _warm(spec):
     """gmix_tpu's state after WARM bytes of corpus_100k, coded by its jitted
     chunk program, and the padded input."""
     with open("data/corpus_100k.bin", "rb") as f:
         data = f.read(S * (WARM + CHUNK))
     arr, _ = _pad_streams(data, S, CHUNK)
-    jp = JPredictor(g.tiny_spec(False), S)
+    jp = JPredictor(spec, S)
     j_run_chunks(jp, jnp.asarray(arr), jnp.zeros((S, 64), jnp.uint8), WARM, decode=False, chunk=CHUNK)
     return jp.meta, jax.device_get(jp.state), arr
 
 
+@pytest.fixture(scope="module")
+def warm():
+    return _warm(g.tiny_spec(False))
+
+
+@pytest.fixture(scope="module")
+def warm_ppm():
+    return _warm(_ppm_spec(g))
+
+
 def test_byte_steps_match_eager_gmix_tpu(warm):
+    _check_byte_steps(warm, gt.tiny_spec(False), (WARM, WARM + 1, WARM + 2))
+
+
+def test_ppm_byte_steps_match_eager_gmix_tpu(warm_ppm):
+    """With the PPM byte model: its count update, rolling-hash context,
+    prediction and bit head, every state leaf (`ppm_tbl`, `ppm_see`,
+    `ppm_probs`, the interval registers, `roll_h`) bitwise."""
+    _check_byte_steps(warm_ppm, _ppm_spec(gt), (WARM, WARM + 1, WARM + 2))
+
+
+def test_ppm_first_byte_matches_eager_gmix_tpu():
+    """t == 0: the count update still runs (on the zero contexts); the
+    rolling hash and the recent ring stay."""
+    spec = _ppm_spec(g)
+    jp = JPredictor(spec, S)
+    with open("data/corpus_100k.bin", "rb") as f:
+        arr, _ = _pad_streams(f.read(S * CHUNK), S, CHUNK)
+    _check_byte_steps((jp.meta, jax.device_get(jp.state), arr), _ppm_spec(gt), (0, 1, 2))
+
+
+def _check_byte_steps(warm, t_spec, ts):
     meta, state_np, arr = warm
     j_state = jax.tree_util.tree_map(jnp.asarray, state_np)
     j_data = jnp.asarray(arr)
-    tp = TPredictor(gt.tiny_spec(False), S, device="cpu")
+    tp = TPredictor(t_spec, S, device="cpu")
     tp.state = state_from_numpy(state_np)
     t_data = torch.tensor(arr)
     code = np.random.default_rng(3).integers(0, 256, (S, 512), dtype=np.uint8)
     # two bytes in encode mode, then one in decode mode on arbitrary code bytes
-    for t, decode in ((WARM, False), (WARM + 1, False), (WARM + 2, True)):
+    for t, decode in zip(ts, (False, False, True)):
         code_buf = code if decode else np.zeros_like(code)
         with jax.disable_jit():
             stm, ltm, coder, metrics, j_data, _, j_win, j_nw = j_step._byte_step(
@@ -72,7 +110,7 @@ def test_byte_steps_match_eager_gmix_tpu(warm):
         got = dict(_flat(state_to_numpy(tp.state)))
         assert sorted(got) == sorted(want)
         for k in want:
-            a, b = want[k], got[k]
+            a, b = want[k], np.ascontiguousarray(got[k])  # register leaves are columns of a packed output
             assert (a.shape, a.dtype) == (b.shape, b.dtype), k
             if k.startswith("metrics."):
                 # the entropy metrics go through jnp.log2, XLA's own log
@@ -118,6 +156,68 @@ def test_byte_step_gathers_every_arena_in_one_call(warm, monkeypatch):
         assert work[name].data_ptr() == out.data_ptr(), name
 
 
+def test_ppm_byte_step_groups_its_row_moves(warm_ppm, monkeypatch):
+    """With PPM a byte step makes one grouped gather of five arenas (`ppm_tbl`
+    the fifth) and one grouped scatter of four; the count update before them
+    gathers and scatters its own `ppm_tbl` rows, a group of one each way, and
+    the scattered rows are gmix_tpu's scatters of the same indices."""
+    from gmix_tpu.ops import rowmove as j_rm
+    from gmix_tpu_torch.core import ppm as t_ppm
+
+    _, state_np, arr = warm_ppm
+    tp = TPredictor(_ppm_spec(gt), S, device="cpu")
+    tp.state = state_from_numpy(state_np)
+    stm, ltm = tp.state["stm"], tp.state["ltm"]
+    calls = []
+
+    def spy(mod, name):
+        real = getattr(mod, name)
+
+        def wrapped(*args):
+            before = [t.clone() for t, *_ in args[0]] if name == "scatter_rows_many" else None
+            out = real(*args)
+            calls.append((name, args, before))
+            return out
+
+        monkeypatch.setattr(mod, name, wrapped)
+
+    spy(t_ppm, "gather_rows")
+    spy(t_ppm, "scatter_rows")
+    spy(t_step, "gather_rows_many")
+    spy(t_step, "scatter_rows_many")
+    code = torch.zeros((S, 64), dtype=torch.uint8)
+    t_step._byte_step(tp.state, torch.tensor(arr), code, WARM, False, tp.plan)
+    assert [c[0] for c in calls] == ["gather_rows", "scatter_rows", "gather_rows_many", "scatter_rows_many"]
+    assert calls[0][1][0] is stm["ppm_tbl"] and calls[1][1][0] is stm["ppm_tbl"]
+    assert torch.equal(calls[0][1][1], calls[1][1][1])  # the update writes the rows it read
+    five = [t.data_ptr() for t, _ in calls[2][1][0]]
+    tables = [ltm["ind"]["st"], ltm["mix_w"], ltm["mix_pos"], ltm["apm"]]
+    assert five == [t.data_ptr() for t in tables] + [stm["ppm_tbl"].data_ptr()]
+    assert calls[2][1][0][4][0].shape[2] == 272
+    _, (triples,), before = calls[3]
+    assert [t.data_ptr() for t, _, _ in triples] == [t.data_ptr() for t in tables]
+    for (tbl, idx, upd), old in zip(triples, before):
+        want = np.asarray(j_rm.scatter_rows(jnp.asarray(old.numpy()), jnp.asarray(idx.numpy()), jnp.asarray(upd.numpy())))
+        assert np.array_equal(tbl.numpy().view(np.uint8), want.view(np.uint8))
+
+
+def test_byte_step_scatters_every_arena_in_one_call(warm, monkeypatch):
+    """Without PPM: one grouped scatter of the four arenas at the byte end, no
+    single-arena move anywhere in the step."""
+    from gmix_tpu_torch.ops import rowmove as t_rm
+
+    _, state_np, arr = warm
+    tp = TPredictor(gt.tiny_spec(False), S, device="cpu")
+    tp.state = state_from_numpy(state_np)
+    calls = []
+    real = t_step.scatter_rows_many
+    monkeypatch.setattr(t_step, "scatter_rows_many", lambda triples: calls.append(len(triples)) or real(triples))
+    for name in ("gather_rows", "scatter_rows"):
+        monkeypatch.setattr(t_rm, name, lambda *a: pytest.fail("a single-arena move on the byte step"))
+    t_step._byte_step(tp.state, torch.tensor(arr), torch.zeros((S, 64), dtype=torch.uint8), WARM, False, tp.plan)
+    assert calls == [4]
+
+
 @pytest.mark.parametrize("n", [6, 24])
 def test_tri_solve_matches_eager_gmix_tpu(n):
     rng = np.random.default_rng(n)
@@ -130,5 +230,9 @@ def test_tri_solve_matches_eager_gmix_tpu(n):
 
 
 def test_unported_specs_raise():
+    """Specs with an LSTM are not ported; a spec with PPM alone runs."""
     with pytest.raises(NotImplementedError):
         TPredictor(gt.tiny_spec(True), S, device="cpu")
+    with pytest.raises(NotImplementedError):
+        TPredictor(gt.reference_spec(), S, device="cpu")
+    assert "ppm_tbl" in TPredictor(_ppm_spec(gt), S, device="cpu").state["stm"]

@@ -5,7 +5,7 @@ into `num_streams` contiguous blocks, each coded by an independent model
 replica (one lane of every batched state tensor). Streams are padded to a
 common length that is a multiple of `chunk`; the port runs eagerly, so
 `chunk` only sets that padding, which keeps the container identical to
-gmix_tpu's.
+gmix_tpu's, and the order of an LSTM's backward pass (`run_chunks`).
 """
 from __future__ import annotations
 
@@ -19,7 +19,7 @@ from ..config import EnsembleSpec
 from ..ops import coder as coder_ops
 from ..state import init_state
 from .meta import Meta, build_meta
-from .step import CODER_WIN, StepPlan, _byte_step
+from .step import CODER_WIN, StepPlan, _byte_step, lstm_bptt
 
 MAGIC = b"GXTC"
 # the container version of gmix_tpu.core.codec (v4: deterministic polynomial
@@ -97,16 +97,29 @@ def run_chunks(
     predictor's device; the encoder's per-byte renorm bytes come back to the
     host once per chunk. Returns (data_buf, code_buf, payloads), payloads
     being the per-stream code bytes emitted by this call (encode; empty byte
-    strings for decode)."""
+    strings for decode).
+
+    `chunk` also decides when an LSTM's backward pass runs, by gmix_tpu's
+    rule (`make_chunk_fn_raw`): when learning and the horizon divides
+    `chunk`, it is deferred to after every horizon-th byte of the chunk, and
+    `t0` must then be horizon-aligned; otherwise it runs inside the byte that
+    wraps the window, before that byte's output-layer SGD. The two orders
+    give different weights, so encoder and decoder must use the same chunk."""
     if n_bytes % chunk:
         raise ValueError("n_bytes must be a chunk multiple")
     S = data_buf.shape[0]
+    Hz = pred.spec.lstm.horizon if pred.spec.lstm is not None else 0
+    defer = learn and Hz > 0 and chunk % Hz == 0
+    if defer and t0 % Hz:
+        raise ValueError("t0 must be a multiple of the LSTM horizon when the horizon divides chunk")
     wins, nws = [], []
     for c0 in range(t0, t0 + n_bytes, chunk):
         cw, cn = [], []
         for t in range(c0, c0 + chunk):
             win, nw = _byte_step(pred.state, data_buf, code_buf, t, decode, pred.plan,
-                                 learn=learn, analysis=pred.analysis)
+                                 learn=learn, analysis=pred.analysis, bptt=not defer)
+            if defer and (t + 1 - c0) % Hz == 0:
+                lstm_bptt(pred.state, pred.plan)
             if not decode:
                 cw.append(win)
                 cn.append(nw)

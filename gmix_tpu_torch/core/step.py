@@ -2,16 +2,19 @@
 working sets, the 8 bit sub-steps with their deferred writes, and the
 byte-end scatter.
 
-Port of `gmix_tpu.core.step._byte_step` for specs without an LSTM. The 8
-sub-steps and the deferred per-bit writes are one function,
-`core/fused.py:fused_substeps`: one hand-written CUDA kernel on a CUDA
-device, the eager torch loop on the CPU. The PPM byte model's boundary work
-is `core/ppm.py`. This module keeps what surrounds them, in eager torch, with
+Port of `gmix_tpu.core.step._byte_step`. The 8 sub-steps and the deferred
+per-bit writes are one function, `core/fused.py:fused_substeps`: one
+hand-written CUDA kernel on a CUDA device, the eager torch loop on the CPU.
+The PPM byte model's boundary work is `core/ppm.py`, the LSTM byte model is
+`core/lstm.py`. This module keeps what surrounds them, in eager torch, with
 the arena rows moved by the kernels of `ops/rowmove.py`. On a GPU a byte
 step is therefore 3 hand-written launches (one gather of every arena, the
 sub-steps, one scatter of every arena), and 5 with PPM, whose count update
 gathers and scatters its own rows first; plus the eager boundary, packing
-and byte-end ops.
+and byte-end ops. With PPM and an LSTM it is 6: the LSTM's forward pass reads
+the PPM prediction and sets the `lstm_ctx` context, which an indirect model
+may be keyed on, so the rows of `ppm_tbl` are gathered on their own before
+the prediction, and the other arenas after the forward pass.
 
 The JAX function is the reference; the port keeps its expression order op
 for op, because the decoder must replay the encoder's float updates bit for
@@ -39,7 +42,7 @@ import numpy as np
 import torch
 
 from ..ops.murmur import MASK32, mul32, murmur3_u32, murmur3_u64
-from ..ops.rowmove import gather_rows_many, scatter_rows_many
+from ..ops.rowmove import gather_rows, gather_rows_many, scatter_rows_many
 from .fused import (  # noqa: F401  (_tri_solve: held against gmix_tpu's by the step tests)
     CODER_WIN,
     _onehot_rows,
@@ -49,6 +52,7 @@ from .fused import (  # noqa: F401  (_tri_solve: held against gmix_tpu's by the 
     pack_inputs,
     unpack_outputs,
 )
+from .lstm import LstmPlan, _lstm_bptt, _lstm_forward, _lstm_perceive
 from .meta import ROLL_BASE, Meta
 from .ppm import _ppm_index, _ppm_predict, _ppm_update
 
@@ -63,8 +67,6 @@ class StepPlan:
 
     def __init__(self, meta: Meta, num_streams: int, device):
         spec = meta.spec
-        if spec.lstm is not None:
-            raise NotImplementedError("the torch port runs specs without an LSTM only")
         self.meta = meta
         self.S = num_streams
         self.device = torch.device(device)
@@ -125,11 +127,32 @@ class StepPlan:
             self.ppm_buckets = torch.arange(spec.ppm.see_buckets, device=self.device)[None, None, :]
             self.ppm_see_lr = t(np.float32(spec.ppm.see_lr), torch.float32)
             self.ppm_uniform = t(np.float32(1.0 / 256), torch.float32)
+        # LSTM
+        if spec.lstm is not None:
+            self.lstm = LstmPlan(spec.lstm, num_streams, self.device)
+            self.lstm_ctx_slot = int(meta.slots["lstm_ctx"])
+            self._epoch = 0
+
+    def epoch(self, lst: Dict) -> int:
+        """The LSTM's epoch as a host integer. The byte step sets the state's
+        0-d `epoch` leaf to one of `lstm.epoch_leaves` and remembers its value;
+        only a leaf that came from elsewhere (a state taken from outside) is
+        read back from the device, once."""
+        if lst["epoch"] is not self.lstm.epoch_leaves[self._epoch]:
+            self._epoch = int(lst["epoch"])
+            lst["epoch"] = self.lstm.epoch_leaves[self._epoch]
+        return self._epoch
+
+    def lstm_forward(self, stm: Dict, ltm: Dict) -> None:
+        """The LSTM's forward pass at the state's epoch, which it advances."""
+        e = self.epoch(stm["lstm"])
+        _lstm_forward(stm, ltm, self.lstm, e, self.lstm_ctx_slot)
+        self._epoch = (e + 1) % self.meta.spec.lstm.horizon
 
 
 def _boundary(stm: Dict, t: int, plan: StepPlan) -> None:
-    """Byte-boundary contexts (gmix_tpu.core.step._boundary without the LSTM
-    branch; the PPM prediction follows the row gather in `_byte_inputs`);
+    """Byte-boundary contexts (gmix_tpu.core.step._boundary up to the PPM
+    prediction and the LSTM's forward pass, which follow in `_byte_inputs`);
     updates stm in place."""
     meta = plan.meta
     spec = meta.spec
@@ -208,6 +231,19 @@ def _byte_inputs(state: Dict, data_buf: torch.Tensor, code_buf: torch.Tensor, t:
     # ---- byte boundary: contexts ----
     _boundary(stm, t, plan)
     data_byte = data_buf[:, t].to(I64)
+    work: Dict = {"max_steps": ltm["mix_max_steps"]}
+
+    # ---- with an LSTM: the PPM prediction from rows gathered on their own,
+    # then the forward pass, which reads it and sets the lstm_ctx context ----
+    ppm_grouped = spec.ppm is not None and spec.lstm is None
+    if spec.lstm is not None:
+        if spec.ppm is not None:
+            ppm_cv, ppm_ix = _ppm_index(stm["ctx"], plan)
+            _ppm_predict(stm, gather_rows(stm["ppm_tbl"], ppm_ix), ppm_cv, plan)
+        plan.lstm_forward(stm, ltm)
+        lst = stm["lstm"]
+        work["lstm_probs"] = lst["probs"]
+        work["lstm_regs"] = torch.stack([lst["top"], lst["bot"], lst["mid"], torch.zeros_like(lst["top"])], dim=1)
 
     # ---- match byte-boundary pointer logic (match.cpp:38-58) ----
     if NM:
@@ -225,7 +261,6 @@ def _byte_inputs(state: Dict, data_buf: torch.Tensor, code_buf: torch.Tensor, t:
     # ---- gather the per-byte working sets (byte-stable gating contexts):
     # all row indices first, then every arena's rows in one launch ----
     ctx_byte = stm["ctx"]
-    work: Dict = {"max_steps": ltm["mix_max_steps"]}
     Kst, Kp = len(meta.mix_st_ix), len(meta.mix_pos_ix)
     Kcd, Kpd, Klm = len(meta.mix_cd_ix), len(meta.mix_pd_ix), len(meta.mix_lm_ix)
     arenas = []  # (working-set name, table, row indices)
@@ -245,17 +280,18 @@ def _byte_inputs(state: Dict, data_buf: torch.Tensor, code_buf: torch.Tensor, t:
     if NA:
         apm_ix = ((ctx_byte[:, plan.apm_ctx_slots] & plan.apm_masks) + plan.apm_offsets).to(I32)
         arenas.append(("apm_rows", ltm["apm"], apm_ix))  # (S, NA, 8*APM_BINS)
-    if spec.ppm is not None:
+    if ppm_grouped:
         ppm_cv, ppm_ix = _ppm_index(ctx_byte, plan)
         arenas.append(("ppm_rows", stm["ppm_tbl"], ppm_ix))  # (S, NO, PPM_ROW_W) int16 bits
     for (name, _, _), rows in zip(arenas, gather_rows_many([(tbl, idx) for _, tbl, idx in arenas])):
         work[name] = rows
     if Kp:
         work["rows_pos"] = work["rows_pos"].view(S, Kp, 8, WP)
-    if spec.ppm is not None:
-        # next-byte distribution from the new contexts' rows; its interval
-        # registers go through the sub-steps
+    if ppm_grouped:
+        # next-byte distribution from the new contexts' rows
         _ppm_predict(stm, work.pop("ppm_rows"), ppm_cv, plan)
+    if spec.ppm is not None:
+        # the head's interval registers go through the sub-steps
         work["ppm_probs"] = stm["ppm_probs"]
         work["ppm_regs"] = torch.stack(
             [stm["ppm_top"], stm["ppm_bot"], stm["ppm_mid"], torch.zeros_like(stm["ppm_top"])], dim=1)
@@ -307,10 +343,11 @@ def _byte_inputs(state: Dict, data_buf: torch.Tensor, code_buf: torch.Tensor, t:
 
 
 def _byte_finish(state: Dict, data_buf: torch.Tensor, t: int, plan: StepPlan, fo: Dict, work: Dict,
-                 ix: Dict, learn: bool):
+                 ix: Dict, learn: bool, bptt: bool = True):
     """The byte step after the sub-steps: registers back into the state, the
-    byte-end scatters, the history append and the match-table write. Returns
-    the encoder's renorm bytes of this input byte (win, nw)."""
+    byte-end scatters, the history append, the match-table write and the
+    LSTM's byte end (`bptt`: see `_byte_step`). Returns the encoder's renorm
+    bytes of this input byte (win, nw)."""
     meta = plan.meta
     spec = meta.spec
     stm, ltm, coder, metrics = state["stm"], state["ltm"], state["coder"], state["metrics"]
@@ -335,6 +372,9 @@ def _byte_finish(state: Dict, data_buf: torch.Tensor, t: int, plan: StepPlan, fo
     if spec.ppm is not None:
         pr = work["ppm_regs"]
         stm.update(ppm_top=pr[:, 0], ppm_bot=pr[:, 1], ppm_mid=pr[:, 2])
+    if spec.lstm is not None:
+        lr_ = work["lstm_regs"]
+        stm["lstm"].update(top=lr_[:, 0], bot=lr_[:, 1], mid=lr_[:, 2])
 
     # ---- byte end: scatter the working sets back (every arena in one
     # launch; the arenas are distinct tensors), history append, match pointer
@@ -380,6 +420,8 @@ def _byte_finish(state: Dict, data_buf: torch.Tensor, t: int, plan: StepPlan, fo
             newp = ((hist_n - 1) & MASK32).to(I32)  # position of the appended byte
             old = ltm["match_tbl"][s_ix, ix["match_ix"]]
             ltm["match_tbl"][s_ix, ix["match_ix"]] = torch.where(append[:, None], newp[:, None], old)
+        if spec.lstm is not None:
+            _lstm_perceive(stm, ltm, cur_byte, plan.lstm, plan.epoch(stm["lstm"]), bptt)
 
     # the reconstructed byte (decode reconstructs; encode rewrites it)
     data_buf[:, t] = cur_byte.to(data_buf.dtype)
@@ -387,11 +429,22 @@ def _byte_finish(state: Dict, data_buf: torch.Tensor, t: int, plan: StepPlan, fo
 
 
 def _byte_step(state: Dict, data_buf: torch.Tensor, code_buf: torch.Tensor, t: int,
-               decode: bool, plan: StepPlan, learn: bool = True, analysis: bool = True):
+               decode: bool, plan: StepPlan, learn: bool = True, analysis: bool = True, bptt: bool = True):
     """One byte for all S streams: boundary work, 8 bit sub-steps, byte-end
     learn. Updates `state` and `data_buf[:, t]` in place and returns the
     encoder's renorm bytes of this input byte: (win (S, 40) u8, nw (S,) u8).
-    Decode reads the code stream from `code_buf` (S, cap) u8."""
+    Decode reads the code stream from `code_buf` (S, cap) u8.
+
+    With an LSTM and `bptt` (gmix_tpu's mode "cond") the byte that wraps the
+    horizon window runs the backward pass at its end, before the output
+    layer's SGD; without `bptt` (mode "defer") the caller runs `lstm_bptt`
+    after that byte, which then reads the slot the SGD has just written."""
     fin, work, ix = _byte_inputs(state, data_buf, code_buf, t, decode, plan, analysis)
     fo = fused_substeps(plan.meta, plan.fused, fin, learn, analysis)
-    return _byte_finish(state, data_buf, t, plan, fo, work, ix, learn)
+    return _byte_finish(state, data_buf, t, plan, fo, work, ix, learn, bptt)
+
+
+def lstm_bptt(state: Dict, plan: StepPlan) -> None:
+    """The LSTM's backward pass and Adam step on the recorded window, for a
+    caller that defers it to the end of a horizon-aligned segment."""
+    _lstm_bptt(state["stm"]["lstm"], state["ltm"]["lstm"], plan.lstm)

@@ -2,9 +2,9 @@
 
 Port of `gmix_tpu.ops.sigmoid`, op for op. Every function is built from
 operations that IEEE 754 rounds exactly (+, -, *, /, round, compares and
-integer bit operations), each issued as its own torch op, so the bits are
-the same on the CPU and on a CUDA device and equal those of the JAX package
-run eagerly.
+integer bit operations; the square root by way of float64, `sqrt_det`), each
+its own torch op, so the bits are the same on the CPU and on a CUDA device
+and equal those of the JAX package run eagerly.
 
 Two torch habits would break that and are avoided here:
 - `scalar / tensor` is `tensor.reciprocal() * scalar` in torch (two
@@ -35,6 +35,17 @@ _LN2_LO = -2.12194440e-4
 def rdiv(c: float, t: torch.Tensor) -> torch.Tensor:
     """c / t as one correctly rounded f32 division."""
     return torch.full_like(t, c) / t
+
+
+def sqrt_det(x: torch.Tensor) -> torch.Tensor:
+    """The correctly rounded float32 square root, the same bits on every
+    device. `torch.sqrt` on float32 is not: the CPU's vectorised root is off
+    by one ulp in about 0.7% of random inputs, where an H100's is correctly
+    rounded. A
+    float64 square root rounded to float32 is the correctly rounded float32
+    root, because 53 bits are more than twice 24 plus 2, so the second
+    rounding cannot change the result."""
+    return torch.sqrt(x.to(torch.float64)).to(F32)
 
 
 def _exp_scaled(u: torch.Tensor, n: torch.Tensor) -> torch.Tensor:

@@ -17,12 +17,14 @@ updates the arenas in place rather than copying them every byte.
 """
 from __future__ import annotations
 
+import math
 from typing import Dict
 
 import numpy as np
 import torch
 
 from .core.meta import APM_BINS, APM_SPAN, PPM_ROW_W, Meta
+from .utils import threefry
 
 DEFAULT_SEED = 0xDEADBEEF
 
@@ -31,11 +33,10 @@ U32_AS_I32 = frozenset({"match_tbl", "ih_tbl"})
 
 
 def init_state(meta: Meta, num_streams: int, seed: int = DEFAULT_SEED, device="cpu") -> Dict:
-    """Fresh state for `num_streams` streams on `device`. `seed` only seeds
-    the LSTM in gmix_tpu; specs with an LSTM are not ported yet."""
+    """Fresh state for `num_streams` streams on `device`. `seed` seeds the
+    LSTM's initial weights, the same for every stream and equal to gmix_tpu's
+    (utils/threefry.py)."""
     spec = meta.spec
-    if spec.lstm is not None:
-        raise NotImplementedError("the torch port runs specs without an LSTM only")
     S = num_streams
     f32, i32, i64 = torch.float32, torch.int32, torch.int64
 
@@ -120,6 +121,67 @@ def init_state(meta: Meta, num_streams: int, seed: int = DEFAULT_SEED, device="c
         stm["ppm_bot"] = zeros((S,), i32)
         stm["ppm_mid"] = full((S,), 127, i32)
         stm["ppm_see"] = zeros((S, len(spec.ppm.orders), spec.ppm.see_buckets), f32)
+
+    # LSTM byte model: gate weights with their Adam moments and the per-epoch
+    # output layers in long-term memory; the forward history of one horizon
+    # window in short-term memory. `epoch` and `update_steps` are 0-d, shared
+    # by all streams.
+    if spec.lstm is not None:
+        ls = spec.lstm
+        C, Hz, OUT = ls.num_cells, ls.horizon, ls.output_size
+        LI = ls.input_size + C + 1  # [aux, hidden, bias]
+        # Xavier-uniform (lstm-layer.cpp:179-195); the weight row [one-hot
+        # symbol | input vector] is stored split (w_sym | w_in)
+        val = math.sqrt(6.0 / float(ls.input_size + ls.output_size))
+        k1, k2 = threefry.split(threefry.key(seed))
+        w_sym = threefry.uniform(k1, (3, C, OUT), -val, val)
+        w_in = threefry.uniform(k2, (3, C, LI), -val, val)
+        w_in[0, :, LI - 1] = 1.0  # forget-gate bias column = 1
+
+        def per_stream(a):
+            return torch.as_tensor(a, device=device).expand((S,) + a.shape).clone()
+
+        ltm["lstm"] = {
+            "w_sym": per_stream(w_sym),
+            "sym_m": zeros((S, 3, C, OUT), f32),
+            "sym_v": zeros((S, 3, C, OUT), f32),
+            "w_in": per_stream(w_in),
+            "in_m": zeros((S, 3, C, LI), f32),
+            "in_v": zeros((S, 3, C, LI), f32),
+            "gamma": full((S, 3, C), 1.0, f32),
+            "beta": zeros((S, 3, C), f32),
+            "gamma_m": zeros((S, 3, C), f32),
+            "gamma_v": zeros((S, 3, C), f32),
+            "beta_m": zeros((S, 3, C), f32),
+            "beta_v": zeros((S, 3, C), f32),
+            "out_w": zeros((S, Hz, C + 1, OUT), f32),
+        }
+        hidden = zeros((S, C + 1), f32)
+        hidden[:, C] = 1.0  # bias lane (lstm.cpp:31)
+        layer_input = zeros((S, Hz, LI), f32)
+        layer_input[:, :, LI - 1] = 1.0
+        stm["lstm"] = {
+            "probs": full((S, 256), 1.0 / 256, f32),  # byte-level output
+            "top": full((S,), 255, i32),
+            "bot": zeros((S,), i32),
+            "mid": full((S,), 127, i32),
+            "cell": zeros((S, C), f32),
+            "hidden": hidden,
+            "state_err": zeros((S, C), f32),
+            "stored_err": zeros((S, C), f32),
+            "old_input": zeros((S,), i32),
+            "norm": zeros((S, 3, Hz, C), f32),
+            "ivar": zeros((S, 3, Hz), f32),
+            "gate_state": zeros((S, 3, Hz, C), f32),
+            "tanh_state": zeros((S, Hz, C), f32),
+            "in_gate": zeros((S, Hz, C), f32),
+            "last_state": zeros((S, Hz, C), f32),
+            "layer_input": layer_input,
+            "in_hist": zeros((S, Hz), i32),
+            "outputs": full((S, Hz, OUT), 1.0 / OUT, f32),
+            "epoch": zeros((), i32),
+            "update_steps": zeros((), i32),
+        }
 
     coder = {
         "x1": zeros((S,)),

@@ -1,0 +1,27 @@
+"""The port imports torch and never JAX or gmix_tpu: a fresh interpreter
+imports every module under gmix_tpu_torch/ and must end with none of them
+loaded."""
+import os
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_SCRIPT = """
+import importlib, pkgutil, sys
+import gmix_tpu_torch
+names = ["gmix_tpu_torch"] + [m.name for m in pkgutil.walk_packages(gmix_tpu_torch.__path__, "gmix_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "gmix_tpu"))
+print(len(names), "modules")
+print("FORBIDDEN", bad)
+sys.exit(1 if bad or len(names) < 15 else 0)
+"""
+
+
+def test_no_module_of_the_port_imports_jax_or_gmix_tpu():
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run([sys.executable, "-c", _SCRIPT], cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert "FORBIDDEN []" in out.stdout

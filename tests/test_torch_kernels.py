@@ -23,6 +23,57 @@ def cuda():
     return torch.device("cuda")
 
 
+@pytest.mark.cuda
+def test_sqrt_det_is_the_same_on_the_card_and_on_the_cpu(cuda):
+    """`torch.sqrt` on float32 is not (the CPU's vectorised root is off by one
+    ulp on about 0.7% of inputs); the LSTM's layer norm and Adam go through
+    `sqrt_det` so that GPU and CPU archives stay equal."""
+    from gmix_tpu_torch.ops.sigmoid import sqrt_det
+
+    rng = np.random.default_rng(3)
+    x = torch.tensor(np.exp(rng.uniform(np.log(1e-30), np.log(1e30), 1_000_000)).astype(np.float32))
+    assert torch.equal(sqrt_det(x.to(cuda)).cpu(), sqrt_det(x))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bptt", [True, False], ids=["cond", "defer"])
+def test_lstm_is_the_same_on_the_card_and_on_the_cpu(cuda, bptt):
+    """core/lstm.py has no kernel, but an archive must be the same bits from
+    either device: 25 byte-model steps (forward pass, byte end, the backward
+    pass with Adam at every window wrap, in either order) from a seeded
+    state, every LSTM leaf bit for bit."""
+    import gmix_tpu_torch as gt
+    from gmix_tpu_torch.core import lstm
+    from gmix_tpu_torch.core.meta import build_meta
+    from gmix_tpu_torch.state import init_state
+
+    spec = gt.tiny_spec(True)
+    meta = build_meta(spec)
+    n_streams, horizon = 3, spec.lstm.horizon
+    rng = np.random.default_rng(9)
+    syms = rng.integers(0, 256, (25, n_streams))
+    aux = rng.random((25, n_streams, 256)).astype(np.float32)
+    aux /= aux.sum(axis=2, keepdims=True)
+    states = {}
+    for dev in (torch.device("cpu"), cuda):
+        st = init_state(meta, n_streams, device=dev)
+        lp = lstm.LstmPlan(spec.lstm, n_streams, dev)
+        for t in range(25):
+            e = t % horizon
+            st["stm"]["ppm_probs"] = torch.as_tensor(aux[t], device=dev)
+            lstm._lstm_forward(st["stm"], st["ltm"], lp, e, int(meta.slots["lstm_ctx"]))
+            e_cur = (e + 1) % horizon
+            lstm._lstm_perceive(st["stm"], st["ltm"], torch.as_tensor(syms[t], device=dev), lp, e_cur, bptt)
+            if not bptt and e_cur == 0:
+                lstm._lstm_bptt(st["stm"]["lstm"], st["ltm"]["lstm"], lp)
+            st["stm"]["last_byte"] = torch.as_tensor(syms[t], device=dev)
+        states[dev.type] = {**{"stm." + k: v for k, v in st["stm"]["lstm"].items()},
+                            **{"ltm." + k: v for k, v in st["ltm"]["lstm"].items()}}
+    assert int(states["cpu"]["stm.update_steps"]) == 2
+    for k, a in states["cpu"].items():
+        assert torch.equal(a, states["cuda"][k].cpu()), k
+
+
 def _fill(t, gen):
     return t.normal_(generator=gen) if t.is_floating_point() else t.random_(generator=gen)
 

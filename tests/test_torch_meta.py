@@ -29,6 +29,12 @@ def ref_noppm(cfg):
     )
 
 
+def ref_full(cfg):
+    """The whole reference wiring (PPM and the LSTM) with bench.py's two APM
+    stages: the widest spec chip_smoke.py runs."""
+    return dataclasses.replace(cfg.reference_spec(), apm=ref_noppm(cfg).apm)
+
+
 SPECS = {
     "tiny": lambda c: c.tiny_spec(False),
     "tiny_lstm": lambda c: c.tiny_spec(True),
@@ -36,6 +42,9 @@ SPECS = {
     "best": lambda c: c.best_spec(),
     "ref_noppm": ref_noppm,
     "ref_noppm_scaled12": lambda c: c.scale_tables(ref_noppm(c), 12, history_bits=16),
+    "ref_full": ref_full,
+    "ref_full_scaled12": lambda c: c.scale_tables(ref_full(c), 12, history_bits=16),
+    "best_scaled8": lambda c: c.scale_tables(c.best_spec(), 8, history_bits=10),
 }
 
 

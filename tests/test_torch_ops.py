@@ -127,3 +127,15 @@ def test_coder_bit_bitwise(decode):
 def test_flush_bytes_equal():
     x1, x2 = _coder_inputs(200, 23)[:2]
     assert t_coder.flush_bytes(x1, x2) == j_coder.flush_bytes(x1, x2)
+
+
+def test_sqrt_det_is_correctly_rounded():
+    """The float32 root by way of float64: the correctly rounded value (numpy
+    rounds float64's root once more to float32: innocuous, 53 > 2 * 24 + 2),
+    which is also eager gmix_tpu's `jnp.sqrt`, denormal inputs aside (XLA
+    flushes them)."""
+    x = _f32(1e-30, 3e30, [0.0, 1.0, 2.0, 4.0, 1e-6, 1.00001, 1.1754944e-38, 3.4e38], 31, n=200000, log=True)
+    got = t_sig.sqrt_det(torch.tensor(x)).numpy()
+    want = np.sqrt(x.astype(np.float64)).astype(np.float32)
+    np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+    np.testing.assert_array_equal(got.view(np.uint32), _bits(jnp.sqrt(jnp.asarray(x))))

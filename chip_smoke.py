@@ -23,6 +23,10 @@ Phases; any failure ends the run with a non-zero exit:
      full layout with the PPM and LSTM heads on seeded valid inputs: every
      output that can reach an archive bitwise (`ent` within 16 ulp over the
      byte, `ema` within 1e-6 relative: they go through log2f / torch.log2).
+     Its sampling mode (generation: learn off, the bits drawn against
+     logistic(logit(p) * inv_temp) and coded in encode mode, analysis on) the
+     same way, at 1 / temperature = 1, 1.25 and 1000 (the floor), on the live
+     ref-full inputs and at the reference layout, timed on the former.
      Which instantiation ran (lane groups, tables in shared memory or not,
      shared bytes) is printed, and the kernel's clocks instantiation gives
      each stage's share of the launch beside the SM clock;
@@ -45,13 +49,23 @@ Phases; any failure ends the run with a non-zero exit:
    direction (chunk 1024: inside the byte that wraps the horizon window).
    Then a short torch.profiler window of byte steps: wall ms, CUDA kernels,
    aten ops, device busy ms and idle share per step; at ref-full also the
-   wall time of one backward pass;
+   wall time of one backward pass. Then generate_bytes on the warm
+   predictor: a 256-byte prompt (replayed with learning), 256 sampled bytes
+   a stream at temperature 0.8 in one chunk of 256; a sampling byte step
+   must launch the kernels of an encode step less the byte-end scatter
+   (ref-noppm 2, ref-ppm 4, ref-full 5). Then 256 bytes more without a
+   prompt, timed, after which every long-term-memory leaf must be as it
+   was; a profiler window of sampling byte steps as above;
 4. GPU against CPU, at the three specs: at scale_tables(spec, 12,
    history_bits=16), 2 streams, the GPU archive (kernels) must equal the CPU
    archive (plain versions) byte for byte, and each device must decode the
    other's: 512 bytes at ref-noppm and ref-ppm, 1000 bytes in chunks of 500
    at ref-full (the horizon of 100 divides the chunk: the backward pass is
-   deferred to the segment ends, the other of gmix_tpu's two orders).
+   deferred to the segment ends, the other of gmix_tpu's two orders). At
+   ref-full the two trained predictors' checkpoints must be the same file,
+   each must load on the other device, and the four predictors (GPU, CPU,
+   and each loaded on the other device) must generate the same bytes from a
+   16-byte prompt (32 bytes in chunks of 16) and end in the same checkpoint.
 
 ref-full is gmix_tpu's reference wiring (`reference_spec()`: PPM, the LSTM
 byte model of 50 cells with a horizon of 100) at its published table sizes
@@ -86,12 +100,14 @@ import gmix_tpu_torch as gt
 from gmix_tpu_torch.config import ApmStage, reference_spec, scale_tables
 from gmix_tpu_torch.core import fused
 from gmix_tpu_torch.core import step as step_mod
-from gmix_tpu_torch.core.codec import Predictor, compress_bytes, decompress_bytes, entropy_bits, run_chunks
+from gmix_tpu_torch.core.codec import (Predictor, compress_bytes, decompress_bytes, entropy_bits, generate_bytes,
+                                       run_chunks)
 from gmix_tpu_torch.core.meta import build_meta
 from gmix_tpu_torch.ops import rowmove
 from gmix_tpu_torch.state import state_bytes
 from gmix_tpu_torch.utils.build import build
-from gmix_tpu_torch.utils.fused_inputs import random_inputs
+from gmix_tpu_torch.utils.fused_inputs import random_inputs, with_sampling
+from gmix_tpu_torch.utils.serialization import copy_state
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 STREAMS = 16
@@ -100,6 +116,12 @@ CHUNK = 1024
 SEED = 1234
 WARM_BYTES = 48  # byte steps before the fused kernel's inputs are taken
 PROFILE_STEPS = 10
+# generation on the warm predictor of phase 3: prompt and sampled bytes a
+# stream, temperature, chunk; phase 4's at scaled-12 (the CPU is slow)
+GEN_PROMPT, GEN_BYTES, GEN_TEMP, GEN_CHUNK = 256, 256, 0.8, 256
+CROSS_PROMPT, CROSS_GEN, CROSS_CHUNK = 16, 32, 16
+# the sampling mode's 1 / temperature: the default, 0.8, and the floor
+INV_TEMPS = (1.0, 1.25, 1000.0)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_OPS_PER_S = 67e12
 SOURCES = {
@@ -250,12 +272,13 @@ def tensor_bytes(tensors) -> int:
 # ---------------------------------------------------------------------------
 
 
-def fused_float_ops(meta, S: int, learn: bool, analysis: bool) -> int:
+def fused_float_ops(meta, S: int, learn: bool, analysis: bool, sample: bool = False) -> int:
     """Float operations of one launch, counted from the shapes: per sub-step
     the three layers' dots (2 per lane), the triangular solves (squarings of
     2 n^3 and matrix-vector products of 2 n^2), ~60 per logistic/logit/log2
     of a prediction column, the heads' interval sums, the SGD pass (3 per
-    lane), and per byte the dense deferred passes (2 per lane and level)."""
+    lane), a sampled bit's logit and logistic, and per byte the dense
+    deferred passes (2 per lane and level)."""
     d = fused._dims(meta)
     M2, NM, K, WP = 2 * d["M"], d["NM"], d["K"], d["WP"]
     per_sub = 2 * K * WP + 60 * (NM + 2 * d["NA"] + 1) + 2 * 256 * (d["ppm"] + d["lstm"])
@@ -265,34 +288,36 @@ def fused_float_ops(meta, S: int, learn: bool, analysis: bool) -> int:
             per_sub += squarings * 2 * n**3 + (squarings + 1) * 2 * n * n
     if analysis:
         per_sub += 60 * d["nc"]
+    if sample:
+        per_sub += 2 * 60 + 1
     if learn:
         per_sub += 3 * K * WP + 60 * (M2 + K) + 16 * (M2 + NM) + 3 * 33 * d["NA"]
     per_byte = 8 * per_sub + (16 * (M2 + NM) * 256 if learn else 0)
     return S * per_byte
 
 
-def fused_bound(meta, consts, fin, S: int) -> dict:
+def fused_bound(meta, consts, fin, S: int, learn: bool = True, sample: bool = False) -> dict:
     """The least time the card could take for one launch at the main path's
-    flags (learn, analysis): every input read once and every output written
-    once over the memory rate, or the float operations over the float32
-    rate, whichever is larger."""
-    ins, _ = fused.io_layout(meta, True, True)
-    got = fused.fused_substeps(meta, consts, fin, True, True)
-    moved = tensor_bytes([(fin if kind == "s" else consts)[n] for n, _, _, kind in ins])
+    flags (analysis; learn, or the sampling mode): every input read once and
+    every output written once over the memory rate, or the float operations
+    over the float32 rate, whichever is larger."""
+    ins, _ = fused.io_layout(meta, learn, True, sample)
+    got = fused.fused_substeps(meta, consts, fin, learn, True, sample)
+    moved = tensor_bytes([(fin if kind == "s" or n in fused.CALL_INPUTS else consts)[n] for n, _, _, kind in ins])
     moved += tensor_bytes([consts["desc_i"], consts["desc_f"]]) + tensor_bytes(got.values())
-    ops = fused_float_ops(meta, S, True, True)
+    ops = fused_float_ops(meta, S, learn, True, sample)
     bytes_ms, ops_ms = 1e3 * moved / PEAK_BYTES_PER_S, 1e3 * ops / PEAK_F32_OPS_PER_S
     return {"bytes_moved": moved, "float_ops": ops, "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
 
 
-def compare_fused(what: str, meta, consts, fin, learn: bool, analysis: bool) -> float:
+def compare_fused(what: str, meta, consts, fin, learn: bool, analysis: bool, sample: bool = False) -> float:
     """Kernel against plain version on the same inputs, on the card. Raises
     on a difference; returns the largest absolute difference of any float
     output (0.0 but for `ent` and `ema`)."""
-    got = fused.fused_substeps(meta, consts, fin, learn, analysis)
+    got = fused.fused_substeps(meta, consts, fin, learn, analysis, sample)
     torch.cuda.synchronize()
-    want = fused.fused_substeps_plain(meta, consts, fin, learn, analysis)
+    want = fused.fused_substeps_plain(meta, consts, fin, learn, analysis, sample)
     torch.cuda.synchronize()
     if sorted(got) != sorted(want):
         raise RuntimeError(f"{what}: outputs {sorted(got)} != {sorted(want)}")
@@ -405,6 +430,18 @@ def compare_fused_live(name: str, pred, dev):
     return cases, err
 
 
+def compare_fused_sampling(what: str, meta, consts, fin) -> dict:
+    """The sampling mode against its plain version on `fin` made a sampling
+    step (learn off, encode, analysis on), at each of INV_TEMPS with its own
+    seeded uniforms."""
+    err, cases = 0.0, {}
+    for k, inv_temp in enumerate(INV_TEMPS):
+        cases[inv_temp] = f_in = with_sampling(fin, SEED + k, inv_temp)
+        err = max(err, compare_fused(f"phase 2 fused {what} sampling inv_temp={inv_temp}", meta, consts, f_in, False,
+                                     True, sample=True))
+    return {"compared": len(INV_TEMPS), "max_abs_err": err, "cases": cases}
+
+
 def phase_fused_heads(name, pred, dev) -> dict:
     """The fused kernel against its plain version on live inputs at a layout
     with byte-model heads: ref-ppm (the PPM head alone: the prediction columns
@@ -421,6 +458,23 @@ def phase_fused_heads(name, pred, dev) -> dict:
            "instantiation": fused.fused_instantiation(meta, plan.fused, True, True, S, dev),
            "ms": device_ms(lambda i: fused.fused_substeps(meta, plan.fused, cases["encode"], True, True), reps=50),
            "decode_ms": device_ms(lambda i: fused.fused_substeps(meta, plan.fused, cases["decode"], True, True), reps=50)}
+    if meta.spec.lstm is not None:
+        # the sampling mode on the same live inputs, timed beside the encode
+        # with learn off (what a sampling launch leaves out)
+        smp = compare_fused_sampling(name, meta, plan.fused, cases["encode"])
+        f_s = smp["cases"][1.25]
+        row["sample"] = {
+            "compared": smp["compared"], "max_abs_err": smp["max_abs_err"],
+            **fused_bound(meta, plan.fused, f_s, S, learn=False, sample=True),
+            "ms": device_ms(lambda i: fused.fused_substeps(meta, plan.fused, f_s, False, True, True), reps=50),
+            "call_ms": call_ms(lambda i: fused.fused_substeps(meta, plan.fused, f_s, False, True, True), reps=50),
+            "plain_ms": call_ms(lambda i: fused.fused_substeps_plain(meta, plan.fused, f_s, False, True, True), reps=3,
+                                warmup=1),
+            "encode_nolearn_ms": device_ms(lambda i: fused.fused_substeps(meta, plan.fused, cases["encode"], False, True),
+                                           reps=50),
+            "encode_call_ms": call_ms(lambda i: fused.fused_substeps(meta, plan.fused, cases["encode"], True, True), reps=50),
+        }
+        row["max_abs_err"] = max(err, smp["max_abs_err"])
     log(f"phase 2: fused_substeps {json.dumps(row)}")
     return row
 
@@ -460,8 +514,13 @@ def phase_fused(pred, dev):
         head_err = max(head_err, compare_fused(f"phase 2 fused reference+heads decode={decode}", meta_h, consts_h, fin_h, True, True))
     heads_ms = device_ms(lambda i: fused.fused_substeps(meta_h, consts_h, fin_h, True, True), reps=50)
     inst_h = fused.fused_instantiation(meta_h, consts_h, True, True, S, dev)
-    log(f"phase 2: fused_substeps {json.dumps({'spec': 'reference (PPM and LSTM heads)', 'streams': S, 'max_abs_err': head_err, 'ms': heads_ms, 'instantiation': inst_h})}")
-    row["max_abs_err"] = max(err, head_err)
+    # the sampling mode at this layout, on the encode case's inputs
+    inp = random_inputs(meta_h, S, SEED, not_first=True)
+    enc_h = {n: torch.as_tensor(inp[n], device=dev) for n, _, _, kind in fused.io_layout(meta_h, False, True)[0] if kind == "s"}
+    smp = compare_fused_sampling("reference+heads", meta_h, consts_h, enc_h)
+    log(f"phase 2: fused_substeps {json.dumps({'spec': 'reference (PPM and LSTM heads)', 'streams': S, 'max_abs_err': head_err, 'ms': heads_ms, 'instantiation': inst_h, 'sample_compared': smp['compared'], 'sample_max_abs_err': smp['max_abs_err']})}")
+    row["max_abs_err"] = max(err, head_err, smp["max_abs_err"])
+    row["sample_compared"] = smp["compared"]
     return row
 
 
@@ -625,10 +684,12 @@ def phase_grouped(direction, names, tables, counts, rng, gen, dev):
 # ---------------------------------------------------------------------------
 
 
-def profile_steps(pred, dev):
+def profile_steps(pred, dev, sample: bool = False):
     """Wall time of PROFILE_STEPS byte steps untraced, then the same number
     under torch.profiler: CUDA kernels, aten ops and device busy time per
-    byte step, and the device's idle share of the traced window."""
+    byte step, and the device's idle share of the traced window. Encode
+    steps, or with `sample` sampling steps (learn off, seeded uniforms,
+    temperature GEN_TEMP)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -637,10 +698,17 @@ def profile_steps(pred, dev):
     data = np.frombuffer(corpus(MAIN_BYTES + S * 3 * n)[MAIN_BYTES:], np.uint8).reshape(S, 3 * n)
     data_buf = torch.as_tensor(data.copy(), device=dev)
     code_buf = torch.zeros((S, 1), dtype=torch.uint8, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    u = torch.rand((3 * n + 1, 8, S), generator=gen, device=dev)
+    inv_temp = torch.tensor([np.float32(1.0 / GEN_TEMP)], device=dev)
 
     def steps(t0):
         for t in range(t0, t0 + n):
-            step_mod._byte_step(pred.state, data_buf, code_buf, t, False, pred.plan)
+            if sample:
+                step_mod._byte_step(pred.state, data_buf, code_buf, t, False, pred.plan, learn=False,
+                                    sample_u=u[t], inv_temp=inv_temp)
+            else:
+                step_mod._byte_step(pred.state, data_buf, code_buf, t, False, pred.plan)
         torch.cuda.synchronize()
 
     steps(1)  # warm-up (t > 0: not the stream's first bit)
@@ -665,6 +733,8 @@ def profile_steps(pred, dev):
         elif ka.key.startswith("aten::"):
             aten += ka.count
     out = {"byte_steps": n, "wall_ms_per_step": 1e3 * wall / n, "traced_wall_ms_per_step": 1e3 * traced / n}
+    if sample:
+        out["sampled_bytes_per_s"] = S * n / wall
     if kernels and busy_us > 0:
         out.update(cuda_kernels_per_step=kernels / n, aten_ops_per_step=aten / n,
                    device_busy_ms_per_step=busy_us / 1e3 / n, device_idle_share=1.0 - (busy_us / 1e6) / traced,
@@ -761,9 +831,80 @@ def phase_main(name, spec, dev):
     log(f"phase 3: {name} per byte step after {per} bytes per stream: {json.dumps(profile_steps(pred, dev))}")
     if spec.lstm is not None:
         log(f"phase 3: {name} one backward pass of the LSTM: {json.dumps(time_bptt(pred))}")
+    out["generate"] = phase_generate(name, pred, dev, (gathers, scatters, 1))
     del pred
     torch.cuda.empty_cache()
     return out
+
+
+def phase_generate(name, pred, dev, per_encode_step):
+    """generate_bytes on the warm predictor, as a user calls it: the prompt
+    replayed with learning (encode steps), then GEN_BYTES sampled bytes a
+    stream; each byte step must launch what the code says (a sampling step
+    an encode step's kernels less the byte-end scatter). Then sampling alone
+    from where that left off (no prompt), timed, after which every
+    long-term-memory leaf must be as it was (the prompt's replay learns by
+    design); then a profiler window of sampling steps."""
+    S = pred.num_streams
+    prompt = corpus(MAIN_BYTES + GEN_PROMPT)[MAIN_BYTES:]  # bytes the model has not seen
+    expect = (per_encode_step[0], per_encode_step[1] - 1, 1)
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs = generate_bytes(pred, prompt, GEN_BYTES, temperature=GEN_TEMP, chunk=GEN_CHUNK, seed=SEED, return_all=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    want = tuple(GEN_PROMPT * e + GEN_BYTES * g for e, g in zip(per_encode_step, expect))
+    if launches != want:
+        raise RuntimeError(f"phase 3 {name} generate: launches (gather, scatter, fused) {launches}, expected {want}: "
+                           f"{per_encode_step} an encode step of the prompt, {expect} a sampling step")
+    if len(outs) != S or any(len(o) != GEN_BYTES for o in outs):
+        raise RuntimeError(f"phase 3 {name} generate: {[len(o) for o in outs]} bytes, expected {GEN_BYTES} a stream")
+    ltm0 = copy_state(pred.state["ltm"])
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    more = generate_bytes(pred, b"", GEN_BYTES, temperature=GEN_TEMP, chunk=GEN_CHUNK, seed=SEED + 1, return_all=True)
+    torch.cuda.synchronize()
+    wall_sampling = time.perf_counter() - t0
+    sampling = read_launches()
+    if sampling != tuple(GEN_BYTES * g for g in expect):
+        raise RuntimeError(f"phase 3 {name} generate: sampling alone launched {sampling} in {GEN_BYTES} steps, "
+                           f"expected {expect} a step")
+    if any(len(o) != GEN_BYTES for o in more):
+        raise RuntimeError(f"phase 3 {name} generate: {[len(o) for o in more]} bytes without a prompt")
+    for path, a in _leaves(ltm0):
+        b = pred.state["ltm"]
+        for k in path:
+            b = b[k]
+        if not torch.equal(a, b):
+            raise RuntimeError(f"phase 3 {name} generate: long-term memory leaf {'.'.join(path)} changed")
+    del ltm0
+    torch.cuda.empty_cache()
+    reset_launches()
+    window = profile_steps(pred, dev, sample=True)
+    n_steps = 3 * PROFILE_STEPS
+    if read_launches() != tuple(e * n_steps for e in expect):
+        raise RuntimeError(f"phase 3 {name}: the sampling window launched {read_launches()} in {n_steps} steps")
+    row = {"spec": name, "streams": S, "prompt_bytes": GEN_PROMPT, "sampled_bytes": GEN_BYTES, "temperature": GEN_TEMP,
+           "chunk": GEN_CHUNK, "wall_s": wall, "launches": list(launches), "sampling_step_launches": sum(expect),
+           "sampling_alone_launches": list(sampling), "sampling_alone_wall_s": wall_sampling,
+           "sampling_wall_ms_per_step": 1e3 * wall_sampling / GEN_BYTES,
+           "sampled_bytes_per_s": S * GEN_BYTES / wall_sampling, "ltm_unchanged": True,
+           "distinct_bytes_stream0": len(set(outs[0] + more[0]))}
+    log(f"phase 3: {name} generate {json.dumps(row)}")
+    log(f"phase 3: {name} per sampling byte step: {json.dumps(window)}")
+    row["window"] = window
+    return row
+
+
+def _leaves(tree, prefix=()):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _leaves(v, prefix + (k,))
+        else:
+            yield prefix + (k,), v
 
 
 def phase_cross(name, spec, dev):
@@ -774,12 +915,13 @@ def phase_cross(name, spec, dev):
     S = 2
     per = n_bytes // S
     n0 = fused.fused_substeps.launches
+    pred_gpu, pred_cpu = Predictor(spec12, S, device=dev), Predictor(spec12, S, device="cpu")
     t0 = time.perf_counter()
-    blob_gpu = compress_bytes(data, spec12, S, chunk, device=dev)
+    blob_gpu = compress_bytes(data, spec12, S, chunk, pred=pred_gpu)
     t1 = time.perf_counter()
     if fused.fused_substeps.launches != n0 + per:
         raise RuntimeError(f"phase 4 {name}: the GPU encode did not go through the fused kernel once per byte step")
-    blob_cpu = compress_bytes(data, spec12, S, chunk, device="cpu")
+    blob_cpu = compress_bytes(data, spec12, S, chunk, pred=pred_cpu)
     t2 = time.perf_counter()
     if fused.fused_substeps.launches != n0 + per:
         raise RuntimeError(f"phase 4 {name}: the CPU encode launched a kernel")
@@ -796,7 +938,55 @@ def phase_cross(name, spec, dev):
     out = {"spec": f"{name} scaled-12", "bytes": len(data), "chunk": chunk, "archive_bytes": len(blob_gpu), "gpu_encode_s": t1 - t0,
            "cpu_encode_s": t2 - t1, "identical": True}
     log(f"phase 4: {json.dumps(out)}")
+    if spec.lstm is not None:
+        out["checkpoints"] = phase_cross_checkpoints(name, spec12, pred_gpu, pred_cpu, data_end=n_bytes)
     return out
+
+
+def same_file(path_a: str, path_b: str, what: str) -> None:
+    with open(path_a, "rb") as fa, open(path_b, "rb") as fb:
+        if fa.read() != fb.read():
+            raise RuntimeError(f"phase 4: {what}: the checkpoints differ")
+
+
+def phase_cross_checkpoints(name, spec12, pred_gpu, pred_cpu, data_end: int) -> dict:
+    """After phase 4's encodes at ref-full scaled-12: the trained GPU and
+    CPU predictors' checkpoints are the same file, and each loads on the
+    other device; the four predictors generate (a CROSS_PROMPT-byte prompt,
+    CROSS_GEN sampled bytes in chunks of CROSS_CHUNK) the same bytes and end
+    in the same checkpoint."""
+    import tempfile
+
+    S = pred_gpu.num_streams
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
+        ck = {k: os.path.join(tmp, f"{k}.gxt") for k in ("gpu", "cpu")}
+        pred_gpu.save(ck["gpu"])
+        pred_cpu.save(ck["cpu"])
+        same_file(ck["gpu"], ck["cpu"], f"{name} after the encodes")
+        gpu_from_cpu = Predictor(spec12, S, device=pred_gpu.device)
+        gpu_from_cpu.load(ck["cpu"])
+        cpu_from_gpu = Predictor(spec12, S, device="cpu")
+        cpu_from_gpu.load(ck["gpu"])
+        preds = {"gpu": pred_gpu, "cpu": pred_cpu, "gpu loaded from cpu": gpu_from_cpu, "cpu loaded from gpu": cpu_from_gpu}
+        prompt = corpus(data_end + CROSS_PROMPT)[data_end:]
+        times, outs = {}, {}
+        for k, p in preds.items():
+            t0 = time.perf_counter()
+            outs[k] = generate_bytes(p, prompt, CROSS_GEN, temperature=GEN_TEMP, chunk=CROSS_CHUNK, seed=SEED,
+                                     return_all=True)
+            times[k] = time.perf_counter() - t0
+        for k, o in outs.items():
+            if o != outs["gpu"]:
+                raise RuntimeError(f"phase 4 {name}: the {k} predictor generated other bytes than the gpu one")
+        for i, (k, p) in enumerate(preds.items()):
+            p.save(os.path.join(tmp, f"after-{i}.gxt"))
+            same_file(os.path.join(tmp, "after-0.gxt"), os.path.join(tmp, f"after-{i}.gxt"),
+                      f"{name} generation, {k} against gpu")
+    row = {"spec": f"{name} scaled-12", "streams": S, "same_checkpoints": True, "prompt_bytes": CROSS_PROMPT,
+           "generated_bytes": CROSS_GEN, "chunk": CROSS_CHUNK, "same_bytes": True, "generate_s": times}
+    log(f"phase 4: checkpoints and generation {json.dumps(row)}")
+    return row
 
 
 def code_sizes(lib_path) -> dict:
@@ -868,7 +1058,13 @@ def main() -> int:
         phase_cross(name, spec, dev)
 
     def launches(i):
-        return {name: out["launches_encode"][i] + out["launches_decode"][i] for name, out in main_out.items()}
+        """Kernel i's launches on each main path: encode + decode, and the
+        two generate_bytes calls (prompt and sampling, sampling alone)."""
+        by_path = {}
+        for name, out in main_out.items():
+            by_path[name] = out["launches_encode"][i] + out["launches_decode"][i]
+            by_path[f"{name} generate"] = out["generate"]["launches"][i] + out["generate"]["sampling_alone_launches"][i]
+        return by_path
 
     def mover(direction, replaces_key):
         """A mover's entry: the ref-ppm byte step's grouped launch of five
@@ -915,6 +1111,17 @@ def main() -> int:
         "ref_ppm_ms": fused_ppm_row["ms"],
         # on the live inputs of a running ref-full model (PPM and LSTM heads)
         "ref_full": {k: fused_full_row[k] for k in ("ms", "decode_ms", "bound_ms", "bound_by", "bytes_moved")},
+        # the sampling mode (generation) on the same live ref-full inputs, and
+        # its launches in the sampling steps of the three generate paths
+        "sampling": {
+            **{k: fused_full_row["sample"][k] for k in ("ms", "call_ms", "plain_ms", "bound_ms", "bound_by",
+                                                        "bytes_moved", "max_abs_err", "encode_nolearn_ms",
+                                                        "encode_call_ms")},
+            # the prompt's replay makes one encode launch a byte (asserted)
+            "launches": sum(out["generate"]["launches"][2] - GEN_PROMPT + out["generate"]["sampling_alone_launches"][2]
+                            for out in main_out.values()),
+            "inv_temps": list(INV_TEMPS),
+        },
     }]
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

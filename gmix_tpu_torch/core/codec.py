@@ -1,25 +1,30 @@
-"""The host side of the codec: the GXTC v4 container, the byte loop, the flush.
+"""The host side of the codec: the GXTC v4 container, the byte loop, the
+flush, temperature sampling, and the predictor's checkpoints.
 
-Port of `gmix_tpu.core.codec` (compress/decompress only). The input is split
-into `num_streams` contiguous blocks, each coded by an independent model
-replica (one lane of every batched state tensor). Streams are padded to a
-common length that is a multiple of `chunk`; the port runs eagerly, so
-`chunk` only sets that padding, which keeps the container identical to
-gmix_tpu's, and the order of an LSTM's backward pass (`run_chunks`).
+Port of `gmix_tpu.core.codec` (the predictor with save/load/copy,
+compress/decompress, generation). The input is split into `num_streams`
+contiguous blocks, each coded by an independent model replica (one lane of
+every batched state tensor). Streams are padded to a common length that is a
+multiple of `chunk`; the port runs eagerly, so `chunk` only sets that
+padding, which keeps the container identical to gmix_tpu's, the order of an
+LSTM's backward pass (`run_chunks`), and how often `progress` is called and
+generation draws its uniforms.
 """
 from __future__ import annotations
 
 import struct
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
 
 from ..config import EnsembleSpec
 from ..ops import coder as coder_ops
-from ..state import init_state
+from ..state import init_state, numpy_layout, state_bytes, state_from_numpy
+from ..utils import threefry
+from ..utils.serialization import copy_state, load_state, save_state
 from .meta import Meta, build_meta
-from .step import CODER_WIN, StepPlan, _byte_step, lstm_bptt
+from .step import CODER_WIN, StepPlan, _byte_step, gen_chunk, lstm_bptt
 
 MAGIC = b"GXTC"
 # the container version of gmix_tpu.core.codec (v4: deterministic polynomial
@@ -63,6 +68,41 @@ class Predictor:
         self.plan = StepPlan(self.meta, num_streams, self.device)
         self.state = init_state(self.meta, num_streams, seed, self.device)
 
+    # --- checkpoint / copy (gmix_tpu codec.py:116-143) ---
+    def save(self, path: str) -> None:
+        save_state(path, self.state)
+
+    def load(self, path: str) -> None:
+        """Take the state in the checkpoint `path`, onto this predictor's
+        device. Every leaf's path, shape and dtype must be this spec's."""
+        loaded = load_state(path)
+        want = numpy_layout(self.state)
+        got = numpy_layout(loaded)
+        if sorted(got) != sorted(want):
+            missing, extra = sorted(set(want) - set(got)), sorted(set(got) - set(want))
+            raise RuntimeError(f"{path}: checkpoint does not match the spec (missing {missing}, unexpected {extra})")
+        for k, (shape, dtype) in want.items():
+            if got[k] != (shape, dtype):
+                raise RuntimeError(
+                    f"{path}: checkpoint mismatch at {k}: {got[k][0]}/{got[k][1]} vs {shape}/{dtype}")
+        self.state = state_from_numpy(loaded, self.device)
+
+    def copy(self) -> "Predictor":
+        """An independent predictor in the same state: every tensor is
+        cloned, and the copy has its own StepPlan, so that it and this one
+        run side by side with no read-back from the device."""
+        p = object.__new__(Predictor)
+        p.spec, p.meta, p.num_streams, p.seed = self.spec, self.meta, self.num_streams, self.seed
+        p.device, p.analysis = self.device, self.analysis
+        p.plan = StepPlan(self.meta, self.num_streams, self.device)
+        p.state = copy_state(self.state)
+        if self.spec.lstm is not None:
+            p.plan.take_epoch(self.plan, self.state["stm"]["lstm"], p.state["stm"]["lstm"])
+        return p
+
+    def memory_bytes(self) -> int:
+        return state_bytes(self.state)
+
 
 def _pad_streams(data: bytes, num_streams: int, chunk: int):
     orig = len(data)
@@ -92,12 +132,14 @@ def run_chunks(
     learn: bool = True,
     t0: int = 0,
     chunk: int = 4096,
+    progress: Optional[Callable[[int], None]] = None,
 ):
     """Run the byte step over [t0, t0+n_bytes). The buffers stay on the
     predictor's device; the encoder's per-byte renorm bytes come back to the
     host once per chunk. Returns (data_buf, code_buf, payloads), payloads
     being the per-stream code bytes emitted by this call (encode; empty byte
-    strings for decode).
+    strings for decode). `progress(t + chunk)` is called after each chunk
+    [t, t + chunk).
 
     `chunk` also decides when an LSTM's backward pass runs, by gmix_tpu's
     rule (`make_chunk_fn_raw`): when learning and the horizon divides
@@ -126,6 +168,8 @@ def run_chunks(
         if not decode:
             wins.append(torch.stack(cw).cpu().numpy())
             nws.append(torch.stack(cn).cpu().numpy())
+        if progress is not None:
+            progress(c0 + chunk)
     if decode:
         return data_buf, code_buf, [b""] * S
     win = np.concatenate(wins) if wins else np.zeros((0, S, CODER_WIN), np.uint8)
@@ -143,11 +187,13 @@ def compress_bytes(
     num_streams: int = 1,
     chunk: int = 4096,
     pred: Optional[Predictor] = None,
+    progress: Optional[Callable[[int], None]] = None,
     device=None,
 ) -> bytes:
     """Full-file compression into the GXTC container. The model runs on
     `pred.device`, or, when no predictor is given, on `device` (default: the
-    current CUDA device)."""
+    current CUDA device). `progress` receives the bytes per stream coded so
+    far after each chunk (`run_chunks`)."""
     orig = len(data)
     if orig == 0:
         return _header(spec, num_streams, 0, 0)
@@ -160,7 +206,7 @@ def compress_bytes(
     # encode never reads the code buffer
     code_buf = torch.zeros((S, 1), dtype=torch.uint8, device=dev)
     data_buf, code_buf, bodies = run_chunks(
-        pred, data_buf, code_buf, per, decode=False, chunk=chunk
+        pred, data_buf, code_buf, per, decode=False, chunk=chunk, progress=progress
     )
     coder = {k: v.cpu().numpy() for k, v in pred.state["coder"].items()}
     tails = coder_ops.flush_bytes(coder["x1"], coder["x2"])
@@ -177,8 +223,11 @@ def decompress_bytes(
     spec: EnsembleSpec,
     chunk: int = 4096,
     pred: Optional[Predictor] = None,
+    progress: Optional[Callable[[int], None]] = None,
     device=None,
 ) -> bytes:
+    """The bytes of a GXTC archive; `pred`, `progress` and `device` as in
+    `compress_bytes`."""
     if len(blob) < 40 or blob[:4] != MAGIC:
         raise ValueError("not a GXTC archive (bad magic or truncated header)")
     ver, _flags, S, orig, per, spec_hash, _rsv = struct.unpack("<BBHQQQQ", blob[4:40])
@@ -229,9 +278,68 @@ def decompress_bytes(
     data_buf = torch.zeros((S, per), dtype=torch.uint8, device=dev)
     code_buf = torch.as_tensor(codes, device=dev)
     data_buf, code_buf, _ = run_chunks(
-        pred, data_buf, code_buf, per, decode=True, chunk=chunk
+        pred, data_buf, code_buf, per, decode=True, chunk=chunk, progress=progress
     )
     return data_buf.cpu().numpy().reshape(-1)[:orig].tobytes()
+
+
+def generate_bytes(
+    pred: Predictor,
+    prompt: bytes,
+    out_size: int,
+    temperature: float = 1.0,
+    chunk: int = 256,
+    seed: int = 1234,
+    progress: Optional[Callable[[int], None]] = None,
+    return_all: bool = False,
+):
+    """Temperature sampling with learning off (gmix_tpu codec.py:324-381,
+    runner-utils.cpp:158-221), on the predictor's device.
+
+    The prompt is replayed WITH learning through `run_chunks` (the reference
+    learns during the prompt), front-padded with zeros to a chunk multiple,
+    the same prompt for every stream, so that the prompt's last byte sits
+    where sampling starts. (The padding is gmix_tpu's documented deviation
+    from the reference's exact-length replay, mirrored.) Sampling then runs
+    from there with every learn stage off, so long-term memory stays as it
+    is: per chunk, `key, sub = split(key)` from `key(seed)` and
+    (chunk * 8, S) uniforms from `sub`, drawn on the host as jax.random does
+    (utils/threefry.py) and moved to the device once. The bits are drawn
+    against logistic(logit(p) * inv_temp) with inv_temp = float32(1 /
+    max(temperature, 0.001)), a device tensor. `progress` receives the
+    sampled bytes per stream after each chunk.
+
+    Generates num_streams independent samples. Returns stream 0's bytes, or
+    all streams' as a list with return_all=True."""
+    S = pred.num_streams
+    dev = pred.device
+    temperature = max(temperature, 0.001)
+    # ---- prompt replay (encode, learning on; code output dropped) ----
+    if prompt:
+        per = -(-len(prompt) // chunk) * chunk
+        arr = np.zeros((1, per), np.uint8)
+        arr[0, per - len(prompt):] = np.frombuffer(prompt, np.uint8)
+        data_buf = torch.as_tensor(np.broadcast_to(arr, (S, per)).copy(), device=dev)
+        code_buf = torch.zeros((S, 1), dtype=torch.uint8, device=dev)
+        run_chunks(pred, data_buf, code_buf, per, decode=False, chunk=chunk)
+        t0 = per
+    else:
+        t0 = 0
+    # ---- sampling ----
+    n = -(-out_size // chunk) * chunk
+    data_buf = torch.zeros((S, t0 + n), dtype=torch.uint8, device=dev)
+    key = threefry.key(seed)
+    inv_temp = torch.tensor([np.float32(1.0 / temperature)], dtype=torch.float32, device=dev)
+    for t in range(t0, t0 + n, chunk):
+        key, sub = threefry.split(key)
+        u = torch.as_tensor(threefry.uniform(sub, (chunk * 8, S), 0.0, 1.0), device=dev)
+        gen_chunk(pred.state, data_buf, t, u, inv_temp, pred.plan)
+        if progress is not None:
+            progress(t - t0 + chunk)
+    out = data_buf.cpu().numpy()
+    if return_all:
+        return [out[s, t0 : t0 + out_size].tobytes() for s in range(S)]
+    return out[0, t0 : t0 + out_size].tobytes()
 
 
 def entropy_bits(pred: Predictor) -> float:

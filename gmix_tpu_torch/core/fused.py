@@ -42,7 +42,7 @@ take the same tensors.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -71,8 +71,10 @@ WIN_PAD = 64
 _WD = float(np.float32(1.0) - np.float32(3e-6))
 _FLT_MIN = float(np.finfo(np.float32).tiny)
 
-# sc lane indices (packed per-stream scalars)
-SC_DATA, SC_LB, SC_R1, SC_DECODE, SC_NOTFIRST = 0, 1, 2, 3, 4
+# sc lane indices (packed per-stream scalars); SC_SAMPLE marks a sampling
+# step, whose bits are drawn (`sample_u`, `inv_temp`) instead of read from
+# the data byte
+SC_DATA, SC_LB, SC_R1, SC_DECODE, SC_NOTFIRST, SC_SAMPLE = 0, 1, 2, 3, 4, 5
 # coder-regs lane indices
 CR_X1, CR_X2, CR_X, CR_WPOS, CR_RPOS, CR_ACC, CR_BITS, CR_NEWBIT = range(8)
 
@@ -96,12 +98,23 @@ def _dims(meta: Meta) -> Dict[str, int]:
     )
 
 
-def io_layout(meta: Meta, learn: bool, analysis: bool) -> Tuple[List, List]:
+def _check_mode(learn: bool, sample: bool) -> None:
+    if sample and learn:
+        raise ValueError("fused_substeps: sampling runs with learn off (gmix_tpu's generation chunk)")
+
+
+def io_layout(meta: Meta, learn: bool, analysis: bool, sample: bool = False) -> Tuple[List, List]:
     """(inputs, outputs): lists of (name, shape_tail, dtype, kind); kind "s"
     = one row per stream (full shape (S,) + shape_tail), "c" = constant of
     the spec (full shape = shape_tail). The names, order and shape tails are
     those of gmix_tpu's `_io_layout`; the dtypes are the port's (module
-    docstring): int64 where gmix_tpu has uint32, int16 for `ind_blk`."""
+    docstring): int64 where gmix_tpu has uint32, int16 for `ind_blk`.
+
+    `sample` (learn off only) adds what gmix_tpu's fused kernel does not
+    have, because it never samples: the 8 uniforms of each stream's byte and
+    the inverse temperature, a constant-kind input that comes with each call
+    (`CALL_INPUTS`). The sampled byte leaves as the coder's `acc` lane."""
+    _check_mode(learn, sample)
     d = _dims(meta)
     M, NM, K, WP = d["M"], d["NM"], d["K"], d["WP"]
     ins: List = [
@@ -160,7 +173,14 @@ def io_layout(meta: Meta, learn: bool, analysis: bool) -> Tuple[List, List]:
     if analysis:
         ins.append(("ema", (d["nc"],), F32, "s"))
         outs.append(("ema", (d["nc"],), F32, "s"))
+    if sample:
+        ins += [("sample_u", (8,), F32, "s"), ("inv_temp", (1, 1), F32, "c")]
     return ins, outs
+
+
+# constant-kind inputs that are not constants of the spec: they come with each
+# call in `fin`, not from `const_inputs`
+CALL_INPUTS = ("inv_temp",)
 
 
 class FusedConsts(dict):
@@ -226,16 +246,21 @@ def const_inputs(meta: Meta, learn: bool, device="cpu") -> FusedConsts:
 
 
 def pack_inputs(meta: Meta, stm: Dict, coder: Dict, metrics: Dict, work: Dict, data_byte: torch.Tensor,
-                win_r: torch.Tensor, decode: bool, not_first: bool, analysis: bool) -> Dict[str, torch.Tensor]:
+                win_r: torch.Tensor, decode: bool, not_first: bool, analysis: bool,
+                sample_u: Optional[torch.Tensor] = None, inv_temp: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
     """The per-stream kernel inputs of one byte (gmix_tpu step.py, the fused
     branch of `_byte_step`). `work` holds the gathered working sets under
     their layout names, `rows_pos` / `blocks_pd` as (S, Kp, 8, WP) and
-    `lm_tbl` as the list of per-mixer tables. `win_r` is (S, CODER_WIN)."""
+    `lm_tbl` as the list of per-mixer tables. `win_r` is (S, CODER_WIN).
+    A sampling step passes `sample_u` (8, S) and `inv_temp` (a one-element
+    float32 tensor on the device), which go in as `io_layout(..., sample=True)`
+    names them, with `sc[:, SC_SAMPLE]` set."""
     S = data_byte.shape[0]
     zero = torch.zeros((S,), dtype=I64, device=data_byte.device)
+    sample = sample_u is not None
     fin = {
         "sc": torch.stack([data_byte, stm["last_byte"], stm["recent"][:, 1], zero + int(decode),
-                           zero + int(not_first), zero, zero, zero], dim=1),
+                           zero + int(not_first), zero + int(sample), zero, zero], dim=1),
         "coder": torch.stack([coder["x1"], coder["x2"], coder["x"], coder["wpos"], coder["rpos"],
                               stm["acc"], stm["bits_seen"], stm["new_bit"]], dim=1),
         "win_r": torch.nn.functional.pad(win_r, (0, WIN_PAD - CODER_WIN)),
@@ -252,6 +277,9 @@ def pack_inputs(meta: Meta, stm: Dict, coder: Dict, metrics: Dict, work: Dict, d
             fin[name] = torch.cat(work[name], dim=1)
         else:  # rows_pos and blocks_pd fold their (K, 8) axes, kp-major
             fin[name] = work[name].reshape((S,) + tail)
+    if sample:
+        fin["sample_u"] = sample_u.t().contiguous()
+        fin["inv_temp"] = inv_temp.reshape(1, 1)
     return fin
 
 
@@ -376,10 +404,16 @@ def _interval_pred(probs, top, bot, mid, nb, first: bool, ar256):
 
 
 def fused_substeps_plain(meta: Meta, consts: Dict[str, torch.Tensor], fin: Dict[str, torch.Tensor],
-                         learn: bool, analysis: bool) -> Dict[str, torch.Tensor]:
+                         learn: bool, analysis: bool, sample: bool = False) -> Dict[str, torch.Tensor]:
     """The 8 sub-steps and the deferred writes in eager torch, on the packed
     inputs; returns the outputs of `io_layout`. Every float op is its own
-    torch op (see core/step.py's docstring)."""
+    torch op (see core/step.py's docstring).
+
+    With `sample` a stream whose `sc[:, SC_SAMPLE]` is set codes, in encode
+    mode, the bit it draws: 1 when its uniform `sample_u[:, j]` is below the
+    tempered probability `logistic(logit(p) * inv_temp)` of the APM chain's
+    output p (gmix_tpu step.py:1111-1119, where the unfused sub-step samples)."""
+    _check_mode(learn, sample)
     d = _dims(meta)
     spec = meta.spec
     M, NM, n0, n1, K, WP, SL = d["M"], d["NM"], d["n0"], d["n1"], d["K"], d["WP"], d["SL"]
@@ -391,6 +425,9 @@ def fused_substeps_plain(meta: Meta, consts: Dict[str, torch.Tensor], fin: Dict[
     data_byte, last_byte, recent1 = sc[:, SC_DATA], sc[:, SC_LB], sc[:, SC_R1]
     dec = sc[:, SC_DECODE] != 0
     not_first = sc[:, SC_NOTFIRST] != 0
+    if sample:
+        smp = sc[:, SC_SAMPLE] != 0
+        sample_u, inv_temp = fin["sample_u"], fin["inv_temp"][0]
     cr = fin["coder"]
     x1, x2, x = cr[:, CR_X1], cr[:, CR_X2], cr[:, CR_X]
     wpos, rpos = cr[:, CR_WPOS], cr[:, CR_RPOS]
@@ -591,6 +628,10 @@ def fused_substeps_plain(meta: Meta, consts: Dict[str, torch.Tensor], fin: Dict[
         # ---- arithmetic coder (encoder.cpp:10-25 / decoder.cpp:19-39), the
         # direction a per-stream lane ----
         enc_bit = (data_byte >> (7 - j)) & 1
+        if sample:
+            # temperature sampling (runner-utils.cpp:202-206)
+            p_temp = logistic(logit(prob) * inv_temp)
+            enc_bit = torch.where(smp, (sample_u[:, j] < p_temp).to(I64), enc_bit)
         off_r = (rpos - rpos0)[:, None] + k4  # (S, 4) window lanes
         in_bytes = torch.where(off_r < WIN_PAD, torch.gather(win_r, 1, torch.clamp(off_r, max=WIN_PAD - 1)), 0)
         bit, (x1, x2, x), emits, nren = coder_ops.coder_bit(
@@ -754,7 +795,7 @@ _IN_SLOTS = (
     "sc", "coder", "win_r", "ent", "mix_lrs", "ind_blk", "ind_rot", "p_tbl", "ind_lrs", "ns_next", "rm_next",
     "rows_st", "rows_pos", "rows_cd", "blocks_pd", "lm_tbl", "max_steps", "apm_rows", "ppm_probs", "ppm_regs",
     "lstm_probs", "lstm_regs", "match_len", "match_byte", "mt_pred", "mt_cnt", "match_limits", "ema",
-    "desc_i", "desc_f",
+    "desc_i", "desc_f", "sample_u", "inv_temp",
 )
 _OUT_SLOTS = (
     "coder", "win_w", "bitregs", "ent", "ind_blk", "p_tbl", "rows_st", "rows_pos", "rows_cd", "blocks_pd",
@@ -764,7 +805,7 @@ _OUT_SLOTS = (
 # int64 fields of the C struct FusedDims, in its order
 _DIM_SLOTS = (
     "S", "M", "NM", "n0", "n1", "WP", "SL", "n_pred", "pl0", "pl12", "nskip", "Kst", "Kp", "Kcd", "Kpd",
-    "Klm", "Tlm", "NA", "ppm", "lstm", "nc", "learn", "analysis",
+    "Klm", "Tlm", "NA", "ppm", "lstm", "nc", "learn", "analysis", "sample",
 )
 _IN_AT = {n: i for i, n in enumerate(_IN_SLOTS)}
 _OUT_AT = {n: len(_IN_SLOTS) + i for i, n in enumerate(_OUT_SLOTS)}
@@ -810,20 +851,23 @@ def _check_tensor(name: str, t: torch.Tensor, shape, dtype, dev) -> None:
 
 class _LaunchPlan:
     """What a launch needs that does not change from byte to byte, for one
-    (consts, learn, analysis, S, device): the sizes, the io struct with the
-    checked constants' pointers in it, and the per-stream slots that each
+    (consts, learn, analysis, sample, S, device): the sizes, the io struct
+    with the checked constants' pointers in it, and the slots of the inputs
+    that come with each call (per stream, and `CALL_INPUTS`), which each
     call checks and fills."""
 
-    def __init__(self, meta: Meta, consts: Dict[str, torch.Tensor], learn: bool, analysis: bool, S: int, dev):
+    def __init__(self, meta: Meta, consts: Dict[str, torch.Tensor], learn: bool, analysis: bool, sample: bool,
+                 S: int, dev):
         d = _dims(meta)
         if d["WP"] > _MAX_WP or d["WP"] % 32:
             raise ValueError(f"fused_substeps: the kernel takes mixer rows of up to {_MAX_WP} lanes, a multiple of 32; got {d['WP']}")
-        ins, outs = io_layout(meta, learn, analysis)
+        ins, outs = io_layout(meta, learn, analysis, sample)
         self.io = _FusedIO()
         self.stream_ins = []  # (slot, name, shape, dtype)
         for name, tail, dtype, kind in ins:
-            if kind == "s":
-                self.stream_ins.append((_IN_AT[name], name, torch.Size((S,) + tail), dtype))
+            if kind == "s" or name in CALL_INPUTS:
+                full = (S,) + tail if kind == "s" else tail
+                self.stream_ins.append((_IN_AT[name], name, torch.Size(full), dtype))
             else:
                 _check_tensor(name, consts[name], tail, dtype, dev)
                 self.io[_IN_AT[name]] = consts[name].data_ptr()
@@ -832,7 +876,8 @@ class _LaunchPlan:
             _check_tensor(name, t, t.shape, dtype, dev)
             self.io[_IN_AT[name]] = t.data_ptr()
         self.outs = [(_OUT_AT[name], name, (S,) + tail, dtype) for name, tail, dtype, _ in outs]
-        self.dims = _FusedDims(S=S, learn=int(learn), analysis=int(analysis), **{n: d[n] for n in _DIM_SLOTS if n in d})
+        self.dims = _FusedDims(S=S, learn=int(learn), analysis=int(analysis), sample=int(sample),
+                               **{n: d[n] for n in _DIM_SLOTS if n in d})
         self.dims_ref, self.io_ref = ctypes.byref(self.dims), ctypes.byref(self.io)
         self.dev = dev
         self.lib = load_kernels()
@@ -843,19 +888,19 @@ class _LaunchPlan:
                               "shared_bytes": int(picked[2])}
 
 
-def _launch_plan(meta, consts, learn: bool, analysis: bool, S: int, dev) -> _LaunchPlan:
+def _launch_plan(meta, consts, learn: bool, analysis: bool, sample: bool, S: int, dev) -> _LaunchPlan:
     plans = consts.launch_plans  # `consts` is const_inputs()'s FusedConsts
-    key = (learn, analysis, S, dev)
+    key = (learn, analysis, sample, S, dev)
     if key not in plans:
-        plans[key] = _LaunchPlan(meta, consts, learn, analysis, S, dev)
+        plans[key] = _LaunchPlan(meta, consts, learn, analysis, sample, S, dev)
     return plans[key]
 
 
-def _launch(meta, consts, fin, learn: bool, analysis: bool, clocks: bool):
+def _launch(meta, consts, fin, learn: bool, analysis: bool, sample: bool, clocks: bool):
     dev = fin["sc"].device
     if dev.type != "cuda":
         raise ValueError(f"fused_substeps: inputs on {dev}, expected a CUDA or CPU tensor")
-    plan = _launch_plan(meta, consts, learn, analysis, fin["sc"].shape[0], dev)
+    plan = _launch_plan(meta, consts, learn, analysis, sample, fin["sc"].shape[0], dev)
     io = plan.io
     for slot, name, shape, dtype in plan.stream_ins:
         t = fin[name]
@@ -880,15 +925,18 @@ def _launch(meta, consts, fin, learn: bool, analysis: bool, clocks: bool):
 
 
 def fused_substeps(meta: Meta, consts: Dict[str, torch.Tensor], fin: Dict[str, torch.Tensor],
-                   learn: bool, analysis: bool) -> Dict[str, torch.Tensor]:
+                   learn: bool, analysis: bool, sample: bool = False) -> Dict[str, torch.Tensor]:
     """The 8 bit sub-steps of one byte for every stream: the CUDA kernel on
     CUDA tensors, the plain version on CPU tensors. `consts` is
-    `const_inputs(meta, learn, device)`, `fin` the per-stream inputs of
-    `io_layout`; returns its outputs. What a launch needs beyond the
-    per-stream pointers is made at the first call and kept on `consts`."""
+    `const_inputs(meta, learn, device)`, `fin` the inputs of `io_layout`
+    that are not constants of the spec; returns its outputs. `sample` (with
+    learn off) is the sampling mode of `fused_substeps_plain`; the kernel
+    reads which streams sample from `sc` as it reads the direction. What a
+    launch needs beyond the per-call pointers is made at the first call and
+    kept on `consts`."""
     if fin["sc"].device.type == "cpu":
-        return fused_substeps_plain(meta, consts, fin, learn, analysis)
-    fo, _ = _launch(meta, consts, fin, learn, analysis, clocks=False)
+        return fused_substeps_plain(meta, consts, fin, learn, analysis, sample)
+    fo, _ = _launch(meta, consts, fin, learn, analysis, sample, clocks=False)
     fused_substeps.launches += 1
     return fo
 
@@ -900,7 +948,7 @@ def fused_substeps_clocks(meta: Meta, consts: Dict[str, torch.Tensor], fin: Dict
     0 of every block stores `clock64()` at every stage boundary; `clocks` is
     (S, 8, len(CLOCK_COLS)) int64 SM cycles. The codec never calls it, and
     it does not count as a launch of the main path's kernel."""
-    return _launch(meta, consts, fin, learn, analysis, clocks=True)
+    return _launch(meta, consts, fin, learn, analysis, False, clocks=True)
 
 
 def fused_instantiation(meta: Meta, consts: Dict[str, torch.Tensor], learn: bool, analysis: bool, S: int, device) -> Dict:
@@ -911,7 +959,7 @@ def fused_instantiation(meta: Meta, consts: Dict[str, torch.Tensor], learn: bool
     dev = torch.device(device)
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
-    return dict(_launch_plan(meta, consts, learn, analysis, S, dev).instantiation)
+    return dict(_launch_plan(meta, consts, learn, analysis, False, S, dev).instantiation)
 
 
 # kernel launch counter: one per launch of the CUDA kernel, none for the

@@ -14,7 +14,8 @@ gathers and scatters its own rows first; plus the eager boundary, packing
 and byte-end ops. With PPM and an LSTM it is 6: the LSTM's forward pass reads
 the PPM prediction and sets the `lstm_ctx` context, which an indirect model
 may be keyed on, so the rows of `ppm_tbl` are gathered on their own before
-the prediction, and the other arenas after the forward pass.
+the prediction, and the other arenas after the forward pass. A sampling step
+(generation: learn off) makes no byte-end scatter: 2, 4 and 5 launches.
 
 The JAX function is the reference; the port keeps its expression order op
 for op, because the decoder must replay the encoder's float updates bit for
@@ -36,7 +37,7 @@ tensors in [0, 2^32) (see state.py).
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -143,6 +144,15 @@ class StepPlan:
             lst["epoch"] = self.lstm.epoch_leaves[self._epoch]
         return self._epoch
 
+    def take_epoch(self, src: "StepPlan", src_lst: Dict, lst: Dict) -> None:
+        """For `lst`, a copy of the LSTM state `src_lst` that the plan `src`
+        runs: take over src's host epoch and give the copy its leaf from this
+        plan's constants, so that neither plan reads the device when the two
+        run side by side. A leaf that src has not set stays, to be read once."""
+        if src_lst["epoch"] is src.lstm.epoch_leaves[src._epoch]:
+            self._epoch = src._epoch
+            lst["epoch"] = self.lstm.epoch_leaves[self._epoch]
+
     def lstm_forward(self, stm: Dict, ltm: Dict) -> None:
         """The LSTM's forward pass at the state's epoch, which it advances."""
         e = self.epoch(stm["lstm"])
@@ -213,12 +223,14 @@ def _boundary(stm: Dict, t: int, plan: StepPlan) -> None:
 
 
 def _byte_inputs(state: Dict, data_buf: torch.Tensor, code_buf: torch.Tensor, t: int,
-                 decode: bool, plan: StepPlan, analysis: bool = True):
+                 decode: bool, plan: StepPlan, analysis: bool = True,
+                 sample_u: Optional[torch.Tensor] = None, inv_temp: Optional[torch.Tensor] = None):
     """The byte step up to the sub-steps: boundary contexts, the match
     pointer logic, the gathers of the per-byte working sets and the coder
     window. Updates `state["stm"]` in place and returns (fin, work, ix): the
     packed inputs of `fused_substeps`, the working sets they were packed
-    from, and the row indices the byte end scatters back to."""
+    from, and the row indices the byte end scatters back to. `sample_u` and
+    `inv_temp` make it a sampling step (`_byte_step`)."""
     meta = plan.meta
     spec = meta.spec
     stm, ltm, coder, metrics = state["stm"], state["ltm"], state["coder"], state["metrics"]
@@ -327,7 +339,7 @@ def _byte_inputs(state: Dict, data_buf: torch.Tensor, code_buf: torch.Tensor, t:
     else:
         win_r = torch.zeros((S, CODER_WIN), dtype=I64, device=plan.device)
 
-    fin = pack_inputs(meta, stm, coder, metrics, work, data_byte, win_r, decode, t > 0, analysis)
+    fin = pack_inputs(meta, stm, coder, metrics, work, data_byte, win_r, decode, t > 0, analysis, sample_u, inv_temp)
     ix = dict(wpos0=wpos0, cd_oh=cd_oh)
     if M:
         ix["blk_ix"] = blk_ix
@@ -429,7 +441,8 @@ def _byte_finish(state: Dict, data_buf: torch.Tensor, t: int, plan: StepPlan, fo
 
 
 def _byte_step(state: Dict, data_buf: torch.Tensor, code_buf: torch.Tensor, t: int,
-               decode: bool, plan: StepPlan, learn: bool = True, analysis: bool = True, bptt: bool = True):
+               decode: bool, plan: StepPlan, learn: bool = True, analysis: bool = True, bptt: bool = True,
+               sample_u: Optional[torch.Tensor] = None, inv_temp: Optional[torch.Tensor] = None):
     """One byte for all S streams: boundary work, 8 bit sub-steps, byte-end
     learn. Updates `state` and `data_buf[:, t]` in place and returns the
     encoder's renorm bytes of this input byte: (win (S, 40) u8, nw (S,) u8).
@@ -438,10 +451,33 @@ def _byte_step(state: Dict, data_buf: torch.Tensor, code_buf: torch.Tensor, t: i
     With an LSTM and `bptt` (gmix_tpu's mode "cond") the byte that wraps the
     horizon window runs the backward pass at its end, before the output
     layer's SGD; without `bptt` (mode "defer") the caller runs `lstm_bptt`
-    after that byte, which then reads the slot the SGD has just written."""
-    fin, work, ix = _byte_inputs(state, data_buf, code_buf, t, decode, plan, analysis)
-    fo = fused_substeps(plan.meta, plan.fused, fin, learn, analysis)
+    after that byte, which then reads the slot the SGD has just written.
+
+    A sampling step (learn off, encode) takes `sample_u` (8, S) float32
+    uniforms and `inv_temp`, a one-element float32 tensor, both on the
+    state's device: the byte's bits are drawn in the sub-steps and coded, and
+    the drawn byte is written to `data_buf[:, t]`."""
+    fin, work, ix = _byte_inputs(state, data_buf, code_buf, t, decode, plan, analysis, sample_u, inv_temp)
+    fo = fused_substeps(plan.meta, plan.fused, fin, learn, analysis, sample_u is not None)
     return _byte_finish(state, data_buf, t, plan, fo, work, ix, learn, bptt)
+
+
+def gen_chunk(state: Dict, data_buf: torch.Tensor, t0: int, u: torch.Tensor, inv_temp: torch.Tensor,
+              plan: StepPlan) -> None:
+    """Sample `u.shape[0] // 8` bytes from byte offset t0 into `data_buf`
+    (gmix_tpu's `make_gen_chunk_fn_raw`): learn off, encode, the LSTM's
+    backward pass "cond" (with learn off it never runs), analysis on as in
+    gmix_tpu's generation chunk, whatever the predictor's flag; the code
+    bytes go to a sink and are dropped. `u` is the chunk's (chunk * 8, S)
+    float32 uniforms on the device: byte i draws its 8 bits from rows
+    8 i .. 8 i + 7. Nothing is read back from the device."""
+    S = data_buf.shape[0]
+    chunk = u.shape[0] // 8
+    u = u.view(chunk, 8, S)
+    code_buf = torch.zeros((S, 8), dtype=torch.uint8, device=data_buf.device)  # sink
+    for i in range(chunk):
+        _byte_step(state, data_buf, code_buf, t0 + i, False, plan, learn=False, analysis=True, bptt=True,
+                   sample_u=u[i], inv_temp=inv_temp)
 
 
 def lstm_bptt(state: Dict, plan: StepPlan) -> None:

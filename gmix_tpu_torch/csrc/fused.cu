@@ -18,7 +18,7 @@ int plan_fused(const FusedDims* hd, Dims* out, bool* tables, size_t* smem_bytes)
   d.Kp = static_cast<int>(hd->Kp); d.Kcd = static_cast<int>(hd->Kcd); d.Kpd = static_cast<int>(hd->Kpd);
   d.Klm = static_cast<int>(hd->Klm); d.Tlm = static_cast<int>(hd->Tlm); d.NA = static_cast<int>(hd->NA);
   d.ppm = hd->ppm ? 1 : 0; d.lstm = hd->lstm ? 1 : 0; d.nc = static_cast<int>(hd->nc);
-  d.learn = hd->learn ? 1 : 0; d.analysis = hd->analysis ? 1 : 0;
+  d.learn = hd->learn ? 1 : 0; d.analysis = hd->analysis ? 1 : 0; d.sample = hd->sample ? 1 : 0;
   d.K = d.n0 + d.n1 + 1;
   d.nmax = d.n0 > d.n1 ? d.n0 : d.n1;
   if (d.nmax < 1) d.nmax = 1;
@@ -30,6 +30,7 @@ int plan_fused(const FusedDims* hd, Dims* out, bool* tables, size_t* smem_bytes)
   if (d.Kst + d.Kp + d.Kcd + d.Kpd + d.Klm != d.K) return invalid;
   if (d.ppm + d.lstm + 2 * d.M + d.NM != d.n_pred) return invalid;
   if (d.analysis && d.nc != d.n_pred + d.n0 + d.n1 + 1) return invalid;
+  if (d.sample && d.learn) return invalid;  // sampling runs with learn off
   d.P = pow2_ceil(d.WP);
   d.r0 = solve_rounds(d.n0);
   d.r1 = solve_rounds(d.n1);

@@ -76,6 +76,13 @@
 //   comes out of the coder first. Both orders compute the same values. The
 //   mixers' global step size depends on the bit count alone: all eight are
 //   made at kernel entry.
+// - Sampling (generation, learn off) is a run-time mode like the direction:
+//   `Dims::sample` says that the uniforms and the inverse temperature are
+//   there, `sc[5]` that a stream samples. Its bit is drawn in the tail
+//   against the tempered probability logistic(logit(p) * inv_temp) of the
+//   APM chain's output and then coded in encode mode, so it takes the
+//   decoder's order: the tail first, the bit to every thread through shared
+//   memory.
 // - What the compiler does to such code decided as much as the design, and
 //   each of these cost a factor of two to five in the stage it sat in: a
 //   loop whose step is a shift is not always unrolled, and an array indexed
@@ -117,7 +124,7 @@
 // int64 sizes as the Python wrapper passes them (ctypes structure)
 struct FusedDims {
   int64_t S, M, NM, n0, n1, WP, SL, n_pred, pl0, pl12, nskip, Kst, Kp, Kcd, Kpd, Klm, Tlm, NA, ppm, lstm, nc,
-      learn, analysis;
+      learn, analysis, sample;
 };
 
 // device pointers, inputs then outputs, in the order of the Python wrapper's
@@ -153,6 +160,8 @@ struct FusedIO {
   const float* in_ema;
   const int32_t* in_desc_i;
   const float* in_desc_f;
+  const float* in_sample_u;   // (S, 8), sampling only
+  const float* in_inv_temp;   // (1, 1), sampling only
   int64_t* out_coder;
   int64_t* out_win_w;
   int64_t* out_bitregs;
@@ -217,7 +226,7 @@ enum ClockCol {
 
 struct Dims {
   int S, M, NM, n0, n1, WP, SL, n_pred, pl0, pl12, nskip, Kst, Kp, Kcd, Kpd, Klm, Tlm, NA, ppm, lstm, nc, learn,
-      analysis;
+      analysis, sample;
   int K;     // n0 + n1 + 1
   int nmax;  // max(n0, n1, 1)
   int P;     // WP rounded up to a power of two
@@ -250,7 +259,7 @@ __host__ __device__ constexpr int solve_rounds(int n) {
 struct Smem {
   // float
   int st, pos, cd, pd, lm, lmscr, apm, base, dvec, ya, yb, y0, y1, amat0, amat1, upd, wdf, pcur, ptdel, mp, mpdel,
-      apmw, apmpv, ema, mixlrs, indlrs, descf, scalf;
+      apmw, apmpv, ema, mixlrs, indlrs, descf, scalf, sampu;
   // int / uint32
   int rowoff, dstoff, stepv, stepnew, maxst, steff, pair, lanesel, iblane, ibdel, ptslot, mlen, mpslot, mcdel,
       apmi0, winw, winr, scali, indrot, mbyte, mlimit, nsnext, rmnext, desci, tindblk, tptbl, tmtpred, tmtcnt,
@@ -296,6 +305,7 @@ __host__ __device__ inline Smem smem_layout(const Dims& d, bool tables) {
   L.indlrs = take(2 * d.M);
   L.descf = take(3 * d.NA);
   L.scalf = take(8);
+  L.sampu = take(d.sample ? 8 : 0);
   L.rowoff = take(d.K);
   L.dstoff = take(d.K);
   L.stepv = take(d.K);
@@ -758,6 +768,9 @@ struct TailArgs {
   int NA;
   uint32_t wpos0, rpos0;
   bool decode;
+  bool sample;           // draw the bit (encode mode): sampu[j] < logistic(logit(p) * inv_temp)
+  const float* sampu;    // the byte's 8 uniforms
+  float inv_temp;
 };
 
 static __device__ __noinline__ uint32_t coder_tail(TailState& st, const TailArgs& a, float final_logit,
@@ -782,6 +795,11 @@ static __device__ __noinline__ uint32_t coder_tail(TailState& st, const TailArgs
     a.apmpv[s] = pv;
   }
   prob = apm_p;
+  if (a.sample) {
+    // temperature sampling (runner-utils.cpp:202-206)
+    const float p_temp = logistic_fn(fmul(logit_fn(prob), a.inv_temp));
+    enc_bit = a.sampu[j] < p_temp ? 1u : 0u;
+  }
 
   // arithmetic coder (encoder.cpp:10-25 / decoder.cpp:19-39)
   uint32_t x1 = st.x1, x2 = st.x2, x = st.x;
@@ -871,6 +889,7 @@ __global__ void __launch_bounds__(kThreads, 1) fused_substeps_kernel(const Dims 
   float* apm_wgt = smf + L.descf;
   float* apm_lr = apm_wgt + 2 * NA;
   float* decay = smf + L.scalf;  // the learn stage's global step size of each sub-step
+  float* sampu = smf + L.sampu;  // the byte's 8 uniforms, when sampling
   int* rowoff = smi + L.rowoff;
   int* dstoff = smi + L.dstoff;
   uint32_t* stepv = smu + L.stepv;
@@ -974,6 +993,7 @@ __global__ void __launch_bounds__(kThreads, 1) fused_substeps_kernel(const Dims 
 #pragma unroll 1
     for (int i = tid; i < d.nc; i += kThreads) ema[i] = io.in_ema[int64_t(s) * d.nc + i];
   }
+  if (d.sample && tid < 8) sampu[tid] = io.in_sample_u[int64_t(s) * 8 + tid];
 #pragma unroll 1
   for (int i = tid; i < kWinPad; i += kThreads) {
     winw[i] = 0u;
@@ -994,6 +1014,8 @@ __global__ void __launch_bounds__(kThreads, 1) fused_substeps_kernel(const Dims 
   const uint32_t recent1 = static_cast<uint32_t>(sc[2]);
   const bool decode = sc[3] != 0;
   const bool not_first = sc[4] != 0;
+  // a sampling stream codes, in encode mode, the bit the tail draws
+  const bool sample = d.sample && !decode && sc[5] != 0;
   // the coder's registers are live in thread 0 alone
   TailState ts;
   ts.x1 = static_cast<uint32_t>(cr[0]); ts.x2 = static_cast<uint32_t>(cr[1]); ts.x = static_cast<uint32_t>(cr[2]);
@@ -1002,6 +1024,7 @@ __global__ void __launch_bounds__(kThreads, 1) fused_substeps_kernel(const Dims 
   TailArgs ta;
   ta.apm = apm; ta.apm_wgt = apm_wgt; ta.apmw = apmw; ta.apmpv = apmpv; ta.apmi0 = apmi0;
   ta.winr = winr; ta.winw = winw; ta.NA = NA; ta.wpos0 = ts.wpos; ta.rpos0 = ts.rpos; ta.decode = decode;
+  ta.sample = sample; ta.sampu = sampu; ta.inv_temp = d.sample ? io.in_inv_temp[0] : 1.0f;
   uint32_t acc = static_cast<uint32_t>(cr[5]), bits_seen = static_cast<uint32_t>(cr[6]);
   uint32_t new_bit = static_cast<uint32_t>(cr[7]);
   // the head registers are uniform within the warp that runs the head
@@ -1246,10 +1269,10 @@ __global__ void __launch_bounds__(kThreads, 1) fused_substeps_kernel(const Dims 
     if (tid == 0) stamp(j, kClkFinalDot);
 
     const uint32_t enc_bit = (data_byte >> (7 - j)) & 1u;
-    // when decoding the bit comes out of the coder; when encoding it is
-    // known, and the tail runs beside the learn stage below
+    // when decoding or sampling the bit comes out of the tail; when
+    // encoding it is known, and the tail runs beside the learn stage below
     uint32_t bit = enc_bit;
-    if (decode) {
+    if (decode || sample) {
       if (tid == 0) bit = coder_tail(ts, ta, final_logit, enc_bit, j);
       if (tid == 0) scali[0] = static_cast<int>(bit);
       __syncthreads();
@@ -1258,7 +1281,7 @@ __global__ void __launch_bounds__(kThreads, 1) fused_substeps_kernel(const Dims 
     const float bitf = static_cast<float>(bit);
 
     if (warp == 0) {
-      if (!decode && lane == 0) coder_tail(ts, ta, final_logit, enc_bit, j);
+      if (!decode && !sample && lane == 0) coder_tail(ts, ta, final_logit, enc_bit, j);
       __syncwarp();
       if (learn) {
         // APM: move the two interpolation bins toward the bit (dense over

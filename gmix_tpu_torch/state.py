@@ -239,6 +239,18 @@ def _to_numpy(path, t) -> np.ndarray:
     return a
 
 
+def _numpy_dtype(path, t) -> np.dtype:
+    """The dtype `_to_numpy` gives the leaf, without moving its data; a numpy
+    leaf's own."""
+    if isinstance(t, np.ndarray):
+        return t.dtype
+    if t.dtype == torch.int64 or (t.dtype == torch.int32 and path[-1] in U32_AS_I32):
+        return np.dtype(np.uint32)
+    if t.dtype == torch.int16:
+        return np.dtype(np.uint16)
+    return torch.empty((0,), dtype=t.dtype).numpy().dtype
+
+
 def state_from_numpy(tree, device="cpu") -> Dict:
     """gmix_tpu's state as numpy arrays (`jax.device_get`) -> the port's state."""
     return _map(tree, lambda p, a: _to_torch(p, a, device))
@@ -247,3 +259,10 @@ def state_from_numpy(tree, device="cpu") -> Dict:
 def state_to_numpy(state) -> Dict:
     """The port's state -> numpy arrays with gmix_tpu's dtypes."""
     return _map(state, _to_numpy)
+
+
+def numpy_layout(state) -> Dict[str, tuple]:
+    """'/'-joined leaf path -> (shape, numpy dtype) of `state_to_numpy(state)`,
+    read from the tensors' metadata alone; of a numpy state (`load_state`),
+    its own."""
+    return {"/".join(p): (tuple(t.shape), _numpy_dtype(p, t)) for p, t in _leaves(state)}

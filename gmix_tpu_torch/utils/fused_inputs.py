@@ -8,14 +8,17 @@ bytes, probabilities in (0, 1), byte distributions that sum to 1, bitcast
 steps counters on both sides of 2^23 (below it they are float denormals) and
 next to a weight-decay step, and a few -0.0 in the float tables. Made with
 numpy only, so that every side gets the same bits; values are finite.
+`with_sampling` turns such inputs (or a live byte step's) into a sampling
+step's.
 """
 from __future__ import annotations
 
 from typing import Dict
 
 import numpy as np
+import torch
 
-from ..core.fused import CODER_WIN, WIN_PAD, _dims, io_layout
+from ..core.fused import CODER_WIN, SC_DECODE, SC_SAMPLE, WIN_PAD, _dims, io_layout
 from ..core.meta import APM_BINS, Meta
 
 
@@ -100,4 +103,23 @@ def random_inputs(meta: Meta, S: int, seed: int, decode: bool = False, not_first
     for name, tail, _, kind in io_layout(meta, True, True)[0]:
         if kind == "s" and out[name].shape != (S,) + tuple(tail):
             raise AssertionError(f"{name}: {out[name].shape} != {(S,) + tuple(tail)}")
+    return out
+
+
+def with_sampling(fin: Dict, seed: int, inv_temp: float, encode_streams: int = 0) -> Dict:
+    """A copy of the torch inputs `fin` (of `io_layout(meta, False, ...)`) as
+    a sampling step takes them (`io_layout(meta, False, ..., sample=True)`):
+    every stream in encode mode, all but the last `encode_streams` of them
+    sampling, with seeded uniforms in [0, 1) and `inv_temp` as a one-element
+    tensor on the inputs' device."""
+    out = {k: v.clone() for k, v in fin.items()}
+    sc = out["sc"]
+    S, dev = sc.shape[0], sc.device
+    sc[:, SC_DECODE] = 0
+    sc[:, SC_SAMPLE] = 1
+    if encode_streams:
+        sc[S - encode_streams:, SC_SAMPLE] = 0
+    u = np.random.default_rng(seed).random((S, 8)).astype(np.float32)
+    out["sample_u"] = torch.as_tensor(u, device=dev)
+    out["inv_temp"] = torch.tensor([[inv_temp]], dtype=torch.float32, device=dev)
     return out

@@ -14,9 +14,11 @@ names = ["gmix_tpu_torch"] + [m.name for m in pkgutil.walk_packages(gmix_tpu_tor
 for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "gmix_tpu"))
+# generation, checkpoints and stream tiling among them
+missing = {"gmix_tpu_torch.utils.serialization", "gmix_tpu_torch.parallel.mesh"} - set(names)
 print(len(names), "modules")
-print("FORBIDDEN", bad)
-sys.exit(1 if bad or len(names) < 15 else 0)
+print("FORBIDDEN", bad, "MISSING", sorted(missing))
+sys.exit(1 if bad or missing or len(names) < 18 else 0)
 """
 
 
@@ -24,4 +26,4 @@ def test_no_module_of_the_port_imports_jax_or_gmix_tpu():
     env = dict(os.environ, PYTHONPATH=ROOT)
     out = subprocess.run([sys.executable, "-c", _SCRIPT], cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stdout + out.stderr
-    assert "FORBIDDEN []" in out.stdout
+    assert "FORBIDDEN [] MISSING []" in out.stdout

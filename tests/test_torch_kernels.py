@@ -404,6 +404,38 @@ def test_fused_kernel_matches_plain(cuda, spec_name, decode, learn, analysis):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("analysis", [True, False])
+@pytest.mark.parametrize("inv_temp", [1.0, 1.25, 1000.0], ids=["t1", "t0.8", "floor"])
+@pytest.mark.parametrize("spec_name", ["tiny", "tiny-heads", "reference"])
+def test_fused_kernel_sampling_matches_plain(cuda, spec_name, inv_temp, analysis):
+    """The sampling mode (learn off): the bits drawn against the tempered
+    probability and coded in encode mode, bitwise as in the plain version,
+    the drawn byte in the coder's `acc` lane; one stream of the five encodes
+    its data byte, as its `sc` says."""
+    from gmix_tpu_torch.core import fused
+    from gmix_tpu_torch.utils.fused_inputs import with_sampling
+
+    meta, consts, fin = _fused_case(spec_name, cuda, False, analysis, False)
+    fin = with_sampling(fin, 11, inv_temp, encode_streams=1)
+    assert sorted(fin) == sorted(n for n, _, _, kind in fused.io_layout(meta, False, analysis, True)[0]
+                                 if kind == "s" or n in fused.CALL_INPUTS)
+    kept = {n: v.clone() for n, v in fin.items()}
+    n0 = fused.fused_substeps.launches
+    got = fused.fused_substeps(meta, consts, fin, False, analysis, sample=True)
+    torch.cuda.synchronize()
+    assert fused.fused_substeps.launches == n0 + 1
+    want = fused.fused_substeps_plain(meta, consts, fin, False, analysis, sample=True)
+    _assert_fused_equal(want, got)
+    for n, v in fin.items():  # the kernel writes no input
+        assert torch.equal(v, kept[n]), n
+    # the encoding stream codes its data byte; the others their own draws
+    acc = got["coder"][:, fused.CR_ACC]
+    assert acc[-1].item() == fin["sc"][-1, fused.SC_DATA].item()
+    with pytest.raises(ValueError, match="learn off"):
+        fused.fused_substeps(meta, consts, fin, True, analysis, sample=True)
+
+
+@pytest.mark.cuda
 def test_fused_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     import gmix_tpu_torch as gt
     from gmix_tpu_torch.core import fused

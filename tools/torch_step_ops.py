@@ -1,0 +1,75 @@
+#!/usr/bin/env python3
+"""Count the aten ops of one encode byte step and one sampling byte step of
+the PyTorch port on the CPU, at ref-noppm, ref-ppm and ref-full.
+
+    python3 tools/torch_step_ops.py
+
+The specs are chip_smoke.py's, at scale_tables(spec, 12, history_bits=16)
+and 2 streams: a step's op count depends on the wiring, not on table sizes.
+The 8 sub-steps are replayed from a cache (on a GPU they are one kernel
+launch, on the CPU thousands of plain ops), so the counts are those of the
+eager code around the kernels. Both steps run at byte 64 of a predictor
+warmed over 64 bytes a stream, where no LSTM backward pass falls. Prints one
+line per spec; the counts are what predicts a GPU step's aten ops, whose
+row movers are one launch each where the CPU's plain versions are a few ops.
+"""
+import os
+import sys
+
+import numpy as np
+import torch
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+import chip_smoke as cs  # noqa: E402
+import gmix_tpu_torch as gt  # noqa: E402
+from gmix_tpu_torch.config import scale_tables  # noqa: E402
+from gmix_tpu_torch.core import step as st  # noqa: E402
+
+S, WARM = 2, 64
+
+
+def count_ops(pred, data, **kw) -> int:
+    """aten ops of the byte step at WARM on a copy of `pred`, the sub-steps'
+    outputs taken from an earlier run of the same step."""
+    real, cache = st.fused_substeps, {}
+
+    def record(*a):
+        cache["fo"] = real(*a)
+        return {k: v.clone() for k, v in cache["fo"].items()}
+
+    def replay(*a):
+        return {k: v.clone() for k, v in cache["fo"].items()}
+
+    code = torch.zeros((S, 8), dtype=torch.uint8)
+    try:
+        st.fused_substeps = record
+        p = pred.copy()
+        st._byte_step(p.state, torch.tensor(data), code, WARM, False, p.plan, **kw)
+        st.fused_substeps = replay
+        p = pred.copy()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+            st._byte_step(p.state, torch.tensor(data), code, WARM, False, p.plan, **kw)
+    finally:
+        st.fused_substeps = real
+    return sum(ka.count for ka in prof.key_averages() if ka.key.startswith("aten::"))
+
+
+def main() -> None:
+    torch.set_num_threads(1)
+    data = np.frombuffer(cs.corpus(S * (WARM + 16)), np.uint8).reshape(S, WARM + 16).copy()
+    u = torch.rand((8, S), generator=torch.Generator().manual_seed(cs.SEED))
+    inv_temp = torch.tensor([np.float32(1.0 / cs.GEN_TEMP)])
+    for name, spec in (("ref-noppm", cs.ref_noppm_spec()), ("ref-ppm", cs.ref_ppm_spec()),
+                       ("ref-full", cs.ref_full_spec())):
+        spec = scale_tables(spec, 12, history_bits=16)
+        pred = cs.Predictor(spec, S, device="cpu")
+        gt.compress_bytes(cs.corpus(S * WARM), spec, S, WARM, pred=pred)
+        enc = count_ops(pred, data)
+        smp = count_ops(pred, data, learn=False, sample_u=u, inv_temp=inv_temp)
+        print(f"{name}: aten ops a byte step, encode {enc}, sampling {smp} ({enc - smp} fewer, {smp / enc:.3f})",
+              flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -59,13 +59,37 @@ Phases; any failure ends the run with a non-zero exit:
 4. GPU against CPU, at the three specs: at scale_tables(spec, 12,
    history_bits=16), 2 streams, the GPU archive (kernels) must equal the CPU
    archive (plain versions) byte for byte, and each device must decode the
-   other's: 512 bytes at ref-noppm and ref-ppm, 1000 bytes in chunks of 500
-   at ref-full (the horizon of 100 divides the chunk: the backward pass is
-   deferred to the segment ends, the other of gmix_tpu's two orders). At
+   other's (the CPU's decodes run in processes of their own, beside the
+   rest of the run): 512 bytes at ref-noppm and ref-ppm, 1000 bytes in
+   chunks of 500 at ref-full (the horizon of 100 divides the chunk: the
+   backward pass is deferred to the segment ends, the other of gmix_tpu's
+   two orders). At
    ref-full the two trained predictors' checkpoints must be the same file,
    each must load on the other device, and the four predictors (GPU, CPU,
    and each loaded on the other device) must generate the same bytes from a
    16-byte prompt (32 bytes in chunks of 16) and end in the same checkpoint.
+5. the command line (`gmix_tpu_torch.cli.main`, called in this process so
+   that the launch counters see its kernels; every count set to 0 just
+   before a command and read just after):
+   (a) `--profile best --streams 8 --chunk 512`: compress with `--analysis`
+       4 KB of data/corpus_1m.bin that no other phase codes, then
+       decompress; the round trip exact, 6 launches a byte step each way,
+       entropy.tsv's header `analysis_columns` and a finite row, memory.tsv's
+       TOTAL equal to the state's size; bpb, model bpb, state and peak GB,
+       bytes/s and the fused kernel's instantiation are printed (the bpb
+       beside ref-full's of phase 3, a reading: other bytes, other streams);
+   (b) `--profile scaled-12 --streams 2` on the GPU and on the CPU (the CPU's
+       commands are `python -m gmix_tpu_torch.cli --device cpu` processes
+       started before phase 4, which they run beside): compress 512 bytes
+       with `--analysis`, decompress, `train` on them with a 256-byte test
+       file, `generate -k` 32 bytes at 0.8 from each device's checkpoint.
+       The archives, memory.tsv, training.tsv, the checkpoints and the
+       generated bytes must be the same files; entropy.tsv the same bits
+       and its values within 1e-6 relative or one unit of the fifth decimal
+       it prints; each device decodes the other's archive; a sampling step
+       launches 5 kernels;
+   (c) wiki-encode -> dict-encode -> compress (scaled-12, 8 streams) of a
+       small generated MediaWiki dump, and back: the same bytes.
 
 ref-full is gmix_tpu's reference wiring (`reference_spec()`: PPM, the LSTM
 byte model of 50 cells with a horizon of 100) at its published table sizes
@@ -81,30 +105,38 @@ outside the tensor cores), the published peaks of an H100 SXM.
 The line before the last is a JSON object describing each kernel (a mover's
 numbers are those of the ref-ppm byte step's one grouped launch of five
 arenas, with the four-arena group of ref-noppm and the single launches per
-arena beside them; `launches` sums the three main paths); the last line is
-{"ok": true, "device": {...}}.
+arena beside them; `launches` sums the main paths: the three specs' encode,
+decode and generation, and the command line's commands on the card); the
+last line is {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import io
 import json
 import os
+import re
+import shlex
+import signal
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
 import gmix_tpu_torch as gt
-from gmix_tpu_torch.config import ApmStage, reference_spec, scale_tables
+from gmix_tpu_torch import cli
+from gmix_tpu_torch.config import ApmStage, best_spec, reference_spec, scale_tables
 from gmix_tpu_torch.core import fused
 from gmix_tpu_torch.core import step as step_mod
-from gmix_tpu_torch.core.codec import (Predictor, compress_bytes, decompress_bytes, entropy_bits, generate_bytes,
-                                       run_chunks)
+from gmix_tpu_torch.core.codec import (Predictor, analysis_columns, compress_bytes, decompress_bytes, entropy_bits,
+                                       generate_bytes, run_chunks)
 from gmix_tpu_torch.core.meta import build_meta
 from gmix_tpu_torch.ops import rowmove
-from gmix_tpu_torch.state import state_bytes
+from gmix_tpu_torch.state import init_state, state_bytes
 from gmix_tpu_torch.utils.build import build
 from gmix_tpu_torch.utils.fused_inputs import random_inputs, with_sampling
 from gmix_tpu_torch.utils.serialization import copy_state
@@ -153,6 +185,19 @@ KNOWN_ARCHIVE_BYTES = {("ref-noppm", "main"): 9978, ("ref-noppm", "cross"): 523,
                        ("ref-full", "main"): 9081, ("ref-full", "cross"): 683}
 # phase 4's input bytes and chunk by spec (2 streams)
 CROSS_RUNS = {"ref-noppm": (512, 256), "ref-ppm": (512, 256), "ref-full": (1000, 500)}
+# phase 5, the command line. (a) best_spec() at full width: 4 KB at an
+# offset of the corpus that no other phase codes, 8 streams, chunk 512 (one
+# analysis row; the backward pass inside the wrapping byte)
+CLI_BEST = ("--profile", "best", "--streams", "8", "--chunk", "512")
+CLI_BEST_OFFSET, CLI_BEST_BYTES, CLI_BEST_PER = 32 * 1024, 4096, 512
+# (b) GPU against CPU at scaled-12, 2 streams: 512 bytes coded and trained on
+# in chunks of 128 (two analysis rows), a 256-byte test file, 32 bytes
+# generated at GEN_TEMP from a 16-byte prompt in chunks of 16
+CLI_CROSS = ("--profile", "scaled-12", "--streams", "2")
+CLI_CROSS_OFFSET, CLI_CROSS_BYTES, CLI_TEST_BYTES, CLI_CHUNK = 40 * 1024, 512, 256, 128
+CLI_PROMPT, CLI_GEN, CLI_GEN_CHUNK = 16, 32, 16
+# (c) the preprocessing chain: a dump of this many pages, 8 streams
+CLI_WIKI_PAGES, CLI_WIKI_ARGS = 8, ("--profile", "scaled-12", "--streams", "8", "--chunk", "128")
 
 
 def ref_full_spec():
@@ -171,6 +216,9 @@ def ref_ppm_spec():
 
 def ref_noppm_spec():
     return dataclasses.replace(ref_ppm_spec(), ppm=None, roll_ctxs=())
+
+
+SPECS = {"ref-noppm": ref_noppm_spec, "ref-ppm": ref_ppm_spec, "ref-full": ref_full_spec}
 
 
 def rows_per_byte(meta):
@@ -907,8 +955,39 @@ def _leaves(tree, prefix=()):
             yield prefix + (k,), v
 
 
-def phase_cross(name, spec, dev):
-    """The same archive from the GPU and from the CPU, and cross-decodes."""
+def cpu_env() -> dict:
+    """The environment of a process that runs the port on the CPU beside
+    this one: one torch thread, the checkout importable."""
+    return dict(os.environ, OMP_NUM_THREADS="1",
+                PYTHONPATH=os.pathsep.join(p for p in (ROOT, os.environ.get("PYTHONPATH")) if p))
+
+
+def start_cpu_decode(d: str, name: str, blob: bytes, chunk: int):
+    """The CPU's decode of phase 4's archive of `name` in a process of its
+    own, so that it runs beside the rest of the run; the bytes land in
+    d/<name>.gxtc.out (finish_cpu_decodes)."""
+    path = os.path.join(d, f"{name}.gxtc")
+    write_bytes(path, blob)
+    code = (f"import chip_smoke as cs; spec = cs.scale_tables(cs.SPECS[{name!r}](), 12, history_bits=16); "
+            f"cs.write_bytes({path + '.out'!r}, cs.decompress_bytes(cs.read_bytes({path!r}), spec, {chunk}, device='cpu'))")
+    return subprocess.Popen([sys.executable, "-c", code], cwd=ROOT, env=cpu_env(), start_new_session=True)
+
+
+def finish_cpu_decodes(decodes: dict) -> None:
+    """Wait for phase 4's CPU decodes: each must give the input back."""
+    for name, (proc, path, data) in decodes.items():
+        try:
+            rc = proc.wait(timeout=900)
+        except subprocess.TimeoutExpired:
+            raise RuntimeError(f"phase 4 {name}: the CPU's decode did not end within 900 s")
+        if rc != 0 or read_bytes(path + ".out") != data:
+            raise RuntimeError(f"phase 4 {name}: the CPU does not decode the GPU archive (exit code {rc})")
+
+
+def phase_cross(name, spec, dev, d: str):
+    """The same archive from the GPU and from the CPU, and cross-decodes:
+    the GPU's here, the CPU's started in the background. Returns the CPU
+    decode's (process, archive path, expected bytes)."""
     spec12 = scale_tables(spec, 12, history_bits=16)
     n_bytes, chunk = CROSS_RUNS[name]
     data = corpus(n_bytes)
@@ -930,8 +1009,7 @@ def phase_cross(name, spec, dev):
         raise RuntimeError(f"phase 4 {name}: GPU and CPU archives differ ({len(blob_gpu)} vs {len(blob_cpu)} bytes, first at {diff})")
     if decompress_bytes(blob_cpu, spec12, chunk, device=dev) != data:
         raise RuntimeError(f"phase 4 {name}: the GPU does not decode the CPU archive")
-    if decompress_bytes(blob_gpu, spec12, chunk, device="cpu") != data:
-        raise RuntimeError(f"phase 4 {name}: the CPU does not decode the GPU archive")
+    decode = (start_cpu_decode(d, name, blob_gpu, chunk), os.path.join(d, f"{name}.gxtc"), data)
     known = KNOWN_ARCHIVE_BYTES.get((name, "cross"))
     if known is not None and len(blob_gpu) != known:
         raise RuntimeError(f"phase 4 {name}: the archive is {len(blob_gpu)} bytes, it has always been {known}")
@@ -939,8 +1017,8 @@ def phase_cross(name, spec, dev):
            "cpu_encode_s": t2 - t1, "identical": True}
     log(f"phase 4: {json.dumps(out)}")
     if spec.lstm is not None:
-        out["checkpoints"] = phase_cross_checkpoints(name, spec12, pred_gpu, pred_cpu, data_end=n_bytes)
-    return out
+        phase_cross_checkpoints(name, spec12, pred_gpu, pred_cpu, data_end=n_bytes)
+    return decode
 
 
 def same_file(path_a: str, path_b: str, what: str) -> None:
@@ -989,6 +1067,279 @@ def phase_cross_checkpoints(name, spec12, pred_gpu, pred_cpu, data_end: int) -> 
     return row
 
 
+# ---------------------------------------------------------------------------
+# phase 5: the command line
+# ---------------------------------------------------------------------------
+
+
+def flag(argv, name: str) -> int:
+    """The integer after `name` in a command line."""
+    return int(argv[list(argv).index(name) + 1])
+
+
+def padded_per(n_bytes: int, streams: int, chunk: int) -> int:
+    """Byte steps a stream for n_bytes (the codec's padding)."""
+    per = -(-max(n_bytes, 1) // streams)
+    return -(-per // chunk) * chunk
+
+
+def step_launches(steps: int, sampling: int = 0):
+    """(gather, scatter, fused) launches of `steps` encode or decode steps
+    and `sampling` sampling steps with PPM and the LSTM: 3 + 2 + 1 and
+    3 + 1 + 1 a step."""
+    return (3 * (steps + sampling), 2 * steps + sampling, steps + sampling)
+
+
+def cli_run(argv, what: str, launches=None):
+    """`cli.main(argv)` in this process, so that the launch counters see its
+    kernels (set to 0 just before, read just after; with `launches` they
+    must equal it). Its printed lines are logged. Returns (printed, wall
+    seconds, launches)."""
+    out = io.StringIO()
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(list(argv))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = read_launches()
+    for line in out.getvalue().splitlines():
+        log(f"phase 5: {what}: {line}")
+    if rc != 0:
+        raise RuntimeError(f"phase 5 {what}: exit code {rc}")
+    if launches is not None and got != tuple(launches):
+        raise RuntimeError(f"phase 5 {what}: launches (gather, scatter, fused) {got}, expected {tuple(launches)}")
+    return out.getvalue(), wall, got
+
+
+def read_bytes(path: str) -> bytes:
+    with open(path, "rb") as f:
+        return f.read()
+
+
+def write_bytes(path: str, data: bytes) -> None:
+    with open(path, "wb") as f:
+        f.write(data)
+
+
+def tsv(path: str):
+    with open(path) as f:
+        return [line.split("\t") for line in f.read().splitlines()]
+
+
+def cli_cross_inputs(d: str) -> None:
+    """Phase 5 (b)'s input, test file and prompt, from the corpus, in d."""
+    data = corpus(CLI_CROSS_OFFSET + CLI_CROSS_BYTES + CLI_TEST_BYTES + CLI_PROMPT)[CLI_CROSS_OFFSET:]
+    write_bytes(os.path.join(d, "in.txt"), data[:CLI_CROSS_BYTES])
+    write_bytes(os.path.join(d, "test.txt"), data[CLI_CROSS_BYTES:CLI_CROSS_BYTES + CLI_TEST_BYTES])
+    write_bytes(os.path.join(d, "prompt.txt"), data[CLI_CROSS_BYTES + CLI_TEST_BYTES:])
+
+
+def cli_cross_commands(device: str):
+    """Phase 5 (b)'s commands, run in a directory that holds the inputs:
+    compress with analysis, decompress, train (analysis/training.tsv and
+    ck.gxt), generate from that checkpoint."""
+    base = ["--device", device, *CLI_CROSS]
+    return {
+        "compress": base + ["--chunk", str(CLI_CHUNK), "compress", "--analysis", "an", "in.txt", "out.gxtc"],
+        "decompress": base + ["--chunk", str(CLI_CHUNK), "decompress", "out.gxtc", "back.txt"],
+        "train": base + ["--chunk", str(CLI_CHUNK), "train", "in.txt", "test.txt", "--out-checkpoint", "ck.gxt"],
+        "generate": base + ["--chunk", str(CLI_GEN_CHUNK), "generate", "-k", "ck.gxt", "prompt.txt", "gen.txt",
+                            str(CLI_GEN), str(GEN_TEMP)],
+    }
+
+
+def start_cli_cpu(root: str):
+    """Phase 5 (b)'s CPU commands, as `python -m gmix_tpu_torch.cli` processes
+    one after another in the background (one torch thread), so that they run
+    beside phase 4 and not after it. Returns (process, directory)."""
+    d = os.path.join(root, "cpu")
+    os.makedirs(d)
+    cli_cross_inputs(d)
+    script = " && ".join(shlex.join([sys.executable, "-m", "gmix_tpu_torch.cli", *argv])
+                         for argv in cli_cross_commands("cpu").values())
+    with open(os.path.join(d, "log.txt"), "w") as f:
+        proc = subprocess.Popen(["bash", "-c", script], cwd=d, env=cpu_env(), stdout=f, stderr=subprocess.STDOUT,
+                                start_new_session=True)
+    return proc, d
+
+
+def stop(proc) -> None:
+    """Kill a process started in the background and whatever it runs."""
+    if proc.poll() is None:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.wait()
+
+
+def wiki_dump(n_pages: int) -> bytes:
+    """A small MediaWiki export of the shape the wiki transform and the
+    dictionary are made for: the site header, pages with title, id,
+    revision, timestamp and contributor, a redirect every fifth page,
+    entities, links and a language link, and a page cut off at the end.
+    The text is common English words (the corpus's first part), drawn
+    Zipf-distributed from a seed."""
+    words = corpus(8192).split(b"\n")[:1000]
+    rng = np.random.default_rng(SEED)
+    out = [b'<mediawiki xmlns="http://www.mediawiki.org/xml/export-0.3/">\n'
+           b"  <siteinfo>\n    <sitename>Wikipedia</sitename>\n  </siteinfo>\n"]
+    for i in range(n_pages):
+        title = words[100 + i].capitalize()
+        body = b" ".join(words[j % len(words)] for j in rng.zipf(1.3, 48))
+        text = (b"#REDIRECT [[" + words[101 + i].capitalize() + b"]]" if i % 5 == 4 else
+                b"'''" + title + b"''' is " + body + b" &quot;" + words[i] + b"&quot; &amp; [[" + words[i + 1]
+                + b"]].\n\n[[de:" + title + b"]]")
+        out.append(b"  <page>\n    <title>%s</title>\n    <id>%d</id>\n    <revision>\n      <id>%d</id>\n"
+                   b"      <timestamp>2004-06-%02dT09:33:17Z</timestamp>\n      <contributor>\n"
+                   b"        <username>Editor%d</username>\n        <id>%d</id>\n      </contributor>\n"
+                   b'      <text xml:space="preserve">%s</text>\n    </revision>\n  </page>\n'
+                   % (title, 10 + 3 * i, 135 + 13 * i, 1 + i % 28, i % 3, 700 + i % 3, text))
+    out.append(b"  <page>\n    <title>Truncated article that was cut mid-")
+    return b"".join(out)
+
+
+def phase_cli_best(d: str, dev, ref_full_bpb: float, ref_full_inst: dict) -> dict:
+    """(a) best_spec() at full width through the command line: compress
+    with analysis, decompress; the round trip exact, 6 launches a byte step
+    each way, the analysis files whole."""
+    spec = best_spec()
+    data = corpus(CLI_BEST_OFFSET + CLI_BEST_BYTES)[CLI_BEST_OFFSET:]
+    inp, arc, back, an = (os.path.join(d, n) for n in ("best.txt", "best.gxtc", "best.back", "best_analysis"))
+    write_bytes(inp, data)
+    S = flag(CLI_BEST, "--streams")
+    expect = step_launches(CLI_BEST_PER)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    printed, enc_s, enc_l = cli_run([*CLI_BEST, "compress", "--analysis", an, inp, arc], "best compress", expect)
+    _, dec_s, dec_l = cli_run([*CLI_BEST, "decompress", arc, back], "best decompress", expect)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if read_bytes(back) != data:
+        raise RuntimeError("phase 5 best: decompress did not reproduce the input")
+    ent = tsv(os.path.join(an, "entropy.tsv"))
+    if ent[0] != ["bits", *analysis_columns(spec)] or len(ent) != 2:
+        raise RuntimeError(f"phase 5 best: entropy.tsv has {len(ent)} lines and header {ent[0][:4]}...")
+    row = np.array([float(v) for v in ent[1]])
+    # bits_seen counts the bits after a stream's first
+    if not np.isfinite(row).all() or row[0] != CLI_BEST_PER * 8 - 1:
+        raise RuntimeError(f"phase 5 best: entropy.tsv row {ent[1][:4]}... is not finite or not at bit {CLI_BEST_PER * 8 - 1}")
+    mem = tsv(os.path.join(an, "memory.tsv"))
+    meta = build_meta(spec)
+    want = state_bytes(init_state(meta, S, device="meta"))  # sizes only, nothing allocated
+    total = int(mem[-1][1])
+    if mem[-1][0] != "TOTAL" or total != want or total != sum(int(b) for _, b in mem[1:-1]):
+        raise RuntimeError(f"phase 5 best: memory.tsv TOTAL {mem[-1]} against memory_bytes() {want}")
+    inst = fused.fused_instantiation(meta, fused.const_inputs(meta, True, dev), True, True, S, dev)
+    model_bpb = float(re.search(r"model entropy ([0-9.]+) bits/byte", printed).group(1))
+    out = {"spec": "best", "streams": S, "chunk": CLI_BEST_PER, "bytes": len(data), "archive_bytes": len(read_bytes(arc)),
+           "bpb": 8 * len(read_bytes(arc)) / len(data), "model_bpb": model_bpb,
+           "ref_full_main_bpb": ref_full_bpb, "state_gb": total / 1e9, "peak_gb": peak_gb,
+           "encode_s": enc_s, "decode_s": dec_s, "encode_bytes_per_s": len(data) / enc_s,
+           "decode_bytes_per_s": len(data) / dec_s, "launches_per_byte_step": sum(expect) // CLI_BEST_PER,
+           "launches_encode": list(enc_l), "launches_decode": list(dec_l), "instantiation": inst,
+           "same_instantiation_as_ref_full": inst == ref_full_inst}
+    log(f"phase 5: {json.dumps(out)}")
+    return out
+
+
+def phase_cli_cross(root: str, cpu_proc, cpu_dir: str) -> dict:
+    """(b) the same commands on the GPU (here) and on the CPU (the background
+    processes): the same archive, each device decodes the other's (the CPU
+    its own, the same bytes), the same memory.tsv, entropy.tsv's bits column
+    equal and its values within 1e-6 relative or one unit of the printed
+    fifth decimal, the same training.tsv and checkpoint, the same generated
+    bytes."""
+    d = os.path.join(root, "gpu")
+    os.makedirs(d)
+    cli_cross_inputs(d)
+    per = padded_per(CLI_CROSS_BYTES, 2, CLI_CHUNK)
+    train_steps = per + padded_per(CLI_TEST_BYTES, 2, CLI_CHUNK)
+    expect = {"compress": step_launches(per), "train": step_launches(train_steps),
+              "generate": step_launches(padded_per(CLI_PROMPT, 1, CLI_GEN_CHUNK), padded_per(CLI_GEN, 1, CLI_GEN_CHUNK))}
+    cmds = cli_cross_commands("cuda")
+    walls, launches = {}, {}
+    with contextlib.chdir(d):
+        for k in ("compress", "train", "generate"):
+            _, walls[k], launches[k] = cli_run(cmds[k], f"scaled-12 gpu {k}", expect[k])
+    t0 = time.perf_counter()
+    try:
+        rc = cpu_proc.wait(timeout=900)
+    except subprocess.TimeoutExpired:
+        stop(cpu_proc)
+        raise RuntimeError("phase 5 scaled-12: the CPU commands did not end within 900 s")
+    cpu_wait_s = time.perf_counter() - t0
+    cpu_log = read_bytes(os.path.join(cpu_dir, "log.txt")).decode(errors="replace")
+    for line in cpu_log.replace("\r", "\n").splitlines():
+        if line and "%" not in line:  # the progress lines
+            log(f"phase 5: scaled-12 cpu: {line}")
+    if rc != 0:
+        raise RuntimeError(f"phase 5 scaled-12: the CPU commands failed ({rc})")
+    gpu_file, cpu_file = (lambda n: os.path.join(d, n)), (lambda n: os.path.join(cpu_dir, n))
+    data = read_bytes(gpu_file("in.txt"))
+    for name in ("out.gxtc", "an/memory.tsv", "analysis/training.tsv", "ck.gxt", "gen.txt"):
+        if read_bytes(gpu_file(name)) != read_bytes(cpu_file(name)):
+            raise RuntimeError(f"phase 5 scaled-12: {name} differs between the GPU and the CPU")
+    ent_g, ent_c = tsv(gpu_file("an/entropy.tsv")), tsv(cpu_file("an/entropy.tsv"))
+    if ent_g[0] != ent_c[0] or [r[0] for r in ent_g] != [r[0] for r in ent_c] or len(ent_g) != 1 + per // CLI_CHUNK:
+        raise RuntimeError("phase 5 scaled-12: entropy.tsv's header or bits column differs between the GPU and the CPU")
+    g, c = (np.array([[float(v) for v in r[1:]] for r in e[1:]]) for e in (ent_g, ent_c))
+    np.testing.assert_allclose(g, c, rtol=1e-6, atol=1e-5)
+    if read_bytes(cpu_file("back.txt")) != data:
+        raise RuntimeError("phase 5 scaled-12: the CPU does not decode the archive")
+    with contextlib.chdir(d):
+        _, walls["decompress"], launches["decompress"] = cli_run(
+            [*cmds["decompress"][:-2], cpu_file("out.gxtc"), "back.txt"], "scaled-12 gpu decompress of the cpu archive",
+            expect["compress"])
+    if read_bytes(gpu_file("back.txt")) != data:
+        raise RuntimeError("phase 5 scaled-12: the GPU does not decode the CPU's archive")
+    out = {"spec": "scaled-12", "streams": 2, "bytes": len(data), "chunk": CLI_CHUNK,
+           "archive_bytes": len(read_bytes(gpu_file("out.gxtc"))), "same_archive": True, "same_memory_tsv": True,
+           "same_training_tsv": True, "same_checkpoint": True, "same_generated_bytes": True,
+           "generated_bytes": len(read_bytes(gpu_file("gen.txt"))), "gpu_wall_s": walls,
+           "cpu_wait_s": cpu_wait_s, "launches": {k: list(v) for k, v in launches.items()},
+           "sampling_launches": padded_per(CLI_GEN, 1, CLI_GEN_CHUNK)}
+    log(f"phase 5: {json.dumps(out)}")
+    return out
+
+
+def phase_cli_wiki(d: str) -> dict:
+    """(c) wiki-encode -> dict-encode -> compress on the card, and back:
+    byte-identical."""
+    f = lambda n: os.path.join(d, n)  # noqa: E731
+    dump = wiki_dump(CLI_WIKI_PAGES)
+    write_bytes(f("dump.xml"), dump)
+    walls, launches = {}, {}
+    cli_run(["wiki-encode", f("dump.xml"), f("dump.gwp")], "wiki-encode", (0, 0, 0))
+    cli_run(["dict-encode", f("dump.gwp"), f("dump.dict")], "dict-encode", (0, 0, 0))
+    expect = step_launches(padded_per(os.path.getsize(f("dump.dict")), flag(CLI_WIKI_ARGS, "--streams"),
+                                      flag(CLI_WIKI_ARGS, "--chunk")))
+    _, walls["compress"], launches["compress"] = cli_run([*CLI_WIKI_ARGS, "compress", f("dump.dict"), f("dump.gxtc")],
+                                                         "wiki chain compress", expect)
+    _, walls["decompress"], launches["decompress"] = cli_run(
+        [*CLI_WIKI_ARGS, "decompress", f("dump.gxtc"), f("back.dict")], "wiki chain decompress", expect)
+    cli_run(["dict-decode", f("back.dict"), f("back.gwp")], "dict-decode", (0, 0, 0))
+    cli_run(["wiki-decode", f("back.gwp"), f("back.xml")], "wiki-decode", (0, 0, 0))
+    if read_bytes(f("back.xml")) != dump:
+        raise RuntimeError("phase 5 wiki chain: the output is not the input")
+    out = {"dump_bytes": len(dump), "wiki_bytes": os.path.getsize(f("dump.gwp")),
+           "dict_bytes": os.path.getsize(f("dump.dict")), "archive_bytes": os.path.getsize(f("dump.gxtc")),
+           "identical": True, "wall_s": walls, "launches": {k: list(v) for k, v in launches.items()}}
+    log(f"phase 5: wiki chain {json.dumps(out)}")
+    return out
+
+
+def phase_cli(root: str, cpu_proc, cpu_dir: str, dev, ref_full_bpb: float, ref_full_inst: dict) -> dict:
+    """Phase 5: (a), (c), then (b) (its CPU half has run beside phase 4)."""
+    t0 = time.perf_counter()
+    out = {"best": phase_cli_best(root, dev, ref_full_bpb, ref_full_inst), "wiki": phase_cli_wiki(root),
+           "cross": phase_cli_cross(root, cpu_proc, cpu_dir)}
+    runs = [out["best"]["launches_encode"], out["best"]["launches_decode"], *out["wiki"]["launches"].values(),
+            *out["cross"]["launches"].values()]
+    out["launches"] = [sum(r[i] for r in runs) for i in range(3)]
+    out["wall_s"] = time.perf_counter() - t0
+    log(f"phase 5: the command line in {out['wall_s']:.1f} s, launches (gather, scatter, fused) {out['launches']}")
+    return out
+
+
 def code_sizes(lib_path) -> dict:
     """Instructions of each kernel in the built library, counted from
     `cuobjdump -sass` (16 bytes each); empty where the toolkit has no
@@ -1020,6 +1371,14 @@ def main() -> int:
         print("chip_smoke: no CUDA device; the port's GPU path cannot run here", file=sys.stderr)
         return 2
     dev = torch.device("cuda", 0)
+    # the CPU's work (phase 4, the CPU half of phase 5) is eager torch on
+    # tensors of a few KB: one thread a process runs it fastest
+    torch.set_num_threads(1)
+    t_start = time.perf_counter()
+
+    def elapsed(done: str) -> None:
+        log(f"{done} at {time.perf_counter() - t_start:.1f} s")
+
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
@@ -1034,7 +1393,7 @@ def main() -> int:
         if "Compiling entry" in line or "registers" in line or "spill" in line or "smem" in line:
             log(f"  ptxas: {line.strip()}")
 
-    specs = {"ref-noppm": ref_noppm_spec(), "ref-ppm": ref_ppm_spec(), "ref-full": ref_full_spec()}
+    specs = {name: make() for name, make in SPECS.items()}
     pred = Predictor(specs["ref-noppm"], STREAMS, device=dev)
     fused_row = phase_fused(pred, dev)
     if fused_only:
@@ -1053,17 +1412,35 @@ def main() -> int:
     fused_full_row = phase_fused_heads("ref-full", pred, dev)
     del pred
     torch.cuda.empty_cache()
+    elapsed("phase 2 done")
     main_out = {name: phase_main(name, spec, dev) for name, spec in specs.items()}
-    for name, spec in specs.items():
-        phase_cross(name, spec, dev)
+    elapsed("phase 3 done")
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
+        cpu_proc, cpu_dir = start_cli_cpu(tmp)
+        decodes = {}
+        try:
+            for name, spec in specs.items():
+                decodes[name] = phase_cross(name, spec, dev, tmp)
+            elapsed("phase 4 done but for the CPU's decodes")
+            cli_out = phase_cli(tmp, cpu_proc, cpu_dir, dev, main_out["ref-full"]["bpb"],
+                                fused_full_row["instantiation"])
+            elapsed("phase 5 done")
+            finish_cpu_decodes(decodes)
+            elapsed("phase 4's CPU decodes done")
+        finally:
+            for proc in [cpu_proc] + [proc for proc, _, _ in decodes.values()]:
+                stop(proc)
 
     def launches(i):
-        """Kernel i's launches on each main path: encode + decode, and the
-        two generate_bytes calls (prompt and sampling, sampling alone)."""
+        """Kernel i's launches on each main path: encode + decode, the two
+        generate_bytes calls (prompt and sampling, sampling alone), and the
+        command line's commands on the card (phase 5)."""
         by_path = {}
         for name, out in main_out.items():
             by_path[name] = out["launches_encode"][i] + out["launches_decode"][i]
             by_path[f"{name} generate"] = out["generate"]["launches"][i] + out["generate"]["sampling_alone_launches"][i]
+        by_path["cli"] = cli_out["launches"][i]
         return by_path
 
     def mover(direction, replaces_key):
@@ -1119,15 +1496,14 @@ def main() -> int:
                                                         "encode_call_ms")},
             # the prompt's replay makes one encode launch a byte (asserted)
             "launches": sum(out["generate"]["launches"][2] - GEN_PROMPT + out["generate"]["sampling_alone_launches"][2]
-                            for out in main_out.values()),
+                            for out in main_out.values()) + cli_out["cross"]["sampling_launches"],
             "inv_temps": list(INV_TEMPS),
         },
     }]
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
-    # the run used one device, whatever the host holds
-    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": 1}}),
-          flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}), flush=True)
     return 0
 
 

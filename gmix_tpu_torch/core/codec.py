@@ -13,7 +13,8 @@ generation draws its uniforms.
 from __future__ import annotations
 
 import struct
-from typing import Callable, Optional
+from dataclasses import dataclass
+from typing import Callable, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -23,7 +24,7 @@ from ..ops import coder as coder_ops
 from ..state import init_state, numpy_layout, state_bytes, state_from_numpy
 from ..utils import threefry
 from ..utils.serialization import copy_state, load_state, save_state
-from .meta import Meta, build_meta
+from .meta import Meta, analysis_names, build_meta
 from .step import CODER_WIN, StepPlan, _byte_step, gen_chunk, lstm_bptt
 
 MAGIC = b"GXTC"
@@ -102,6 +103,12 @@ class Predictor:
 
     def memory_bytes(self) -> int:
         return state_bytes(self.state)
+
+
+@dataclass
+class CodecResult:
+    payloads: list  # list[bytes] per stream
+    entropy_bits: float  # total cross-entropy over all coded bits
 
 
 def _pad_streams(data: bytes, num_streams: int, chunk: int):
@@ -344,3 +351,36 @@ def generate_bytes(
 
 def entropy_bits(pred: Predictor) -> float:
     return float(pred.state["metrics"]["ent"].double().sum())
+
+
+def analysis_columns(spec: EnsembleSpec) -> List[str]:
+    return analysis_names(spec)
+
+
+def analysis_snapshot(pred: Predictor) -> np.ndarray:
+    """(S, C) per-column entropy EMA in bits (reference: analysis/entropy.tsv,
+    predictor.cpp:471-503), read back from the device once."""
+    return pred.state["metrics"]["ema"].cpu().numpy()
+
+
+def memory_report(pred: Predictor) -> List[Tuple[str, int]]:
+    """(component, bytes) rows (reference: analysis/memory.tsv via
+    Model::GetMemoryUsage, predictor.cpp:488-503). The rows are named and
+    ordered as gmix_tpu's: `jax.tree_util.keystr` of each leaf's path, such
+    as `['ltm']['ind']['st']`, with the keys sorted at every level. The bytes
+    are those the port holds on its device, so the rows sum to
+    `pred.memory_bytes()`: the u32 lanes the port carries as int64 (state.py:
+    `stm` `bits_seen`, `ctx`, `recent` and every other leaf of
+    `init_state`'s int64 default) show twice gmix_tpu's bytes."""
+    rows = []
+
+    def walk(tree, prefix):
+        for k in sorted(tree):
+            v, name = tree[k], f"{prefix}['{k}']"
+            if isinstance(v, dict):
+                walk(v, name)
+            else:
+                rows.append((name, v.numel() * v.element_size()))
+
+    walk(pred.state, "")
+    return rows

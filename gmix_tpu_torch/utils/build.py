@@ -1,4 +1,5 @@
-"""Build the port's CUDA kernels and load them through ctypes.
+"""Build the port's CUDA kernels and load them through ctypes; build the
+preprocessors' host libraries (`build_host_library`).
 
 `gmix_tpu_torch/csrc/*.cu` compile with `nvcc` for `sm_90a`, one process per
 object and all at once, and link into one shared library with a plain C
@@ -112,6 +113,25 @@ def build() -> BuildResult:
             f.unlink(missing_ok=True)
     _DIGEST_PATH.write_text(digest)
     return BuildResult(LIB_PATH, time.perf_counter() - t0, True, log)
+
+
+def build_host_library(src: Path, name: str) -> Path:
+    """`build/<name>` from the C++ source `src` (g++, no CUDA), compiled when
+    it is missing or older than `src`. The library is written under a name of
+    this process's own and renamed into place, so processes that build it at
+    the same time never load a half-written file."""
+    lib = BUILD_DIR / name
+    if lib.exists() and lib.stat().st_mtime >= src.stat().st_mtime:
+        return lib
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = lib.with_name(f"{name}.{os.getpid()}.tmp")
+    try:
+        subprocess.run(["g++", "-std=c++17", "-O2", "-fPIC", "-shared", str(src), "-o", str(tmp)],
+                       check=True, capture_output=True)
+        os.replace(tmp, lib)
+    finally:
+        tmp.unlink(missing_ok=True)
+    return lib
 
 
 _lib: Optional[ctypes.CDLL] = None

@@ -90,6 +90,20 @@ Phases; any failure ends the run with a non-zero exit:
        launches 5 kernels;
    (c) wiki-encode -> dict-encode -> compress (scaled-12, 8 streams) of a
        small generated MediaWiki dump, and back: the same bytes.
+6. stream sharding (gmix_tpu_torch.parallel), after the rest:
+   (a) ref-full at 16 streams split over a mesh of two entries, both this
+       card, in this process, beside the unsharded predictor: 2 KB of the
+       corpus that no other phase codes, chunk 128. The archives must be the
+       same bytes, each predictor must decode the other's, their checkpoints
+       must be the same file, and each shard must launch 6 kernels a byte
+       step; the wall times of both, a reading;
+   (b) two processes over gloo on this card, 8 streams each, code phase 3's
+       16 KB at ref-full with compress_bytes_multihost: each must return
+       phase 3's archive byte for byte and launch 6 kernels a byte step;
+       each prints its launches, encode bytes/s and peak memory, and the
+       aggregate bytes/s is printed beside phase 3's one process (a reading);
+   (c) a world of one rank over nccl: phase 4's ref-noppm run through
+       compress_bytes_multihost must give phase 4's GPU archive.
 
 ref-full is gmix_tpu's reference wiring (`reference_spec()`: PPM, the LSTM
 byte model of 50 cells with a horizon of 100) at its published table sizes
@@ -106,8 +120,9 @@ The line before the last is a JSON object describing each kernel (a mover's
 numbers are those of the ref-ppm byte step's one grouped launch of five
 arenas, with the four-arena group of ref-noppm and the single launches per
 arena beside them; `launches` sums the main paths: the three specs' encode,
-decode and generation, and the command line's commands on the card); the
-last line is {"ok": true, "device": {...}}.
+decode and generation, the command line's commands on the card, the sharded
+predictor's encode and decode (`mesh`) and the ranks' encodes
+(`distributed`)); the last line is {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -119,6 +134,7 @@ import os
 import re
 import shlex
 import signal
+import socket
 import subprocess
 import sys
 import tempfile
@@ -136,6 +152,8 @@ from gmix_tpu_torch.core.codec import (Predictor, analysis_columns, compress_byt
                                        generate_bytes, run_chunks)
 from gmix_tpu_torch.core.meta import build_meta
 from gmix_tpu_torch.ops import rowmove
+from gmix_tpu_torch.parallel import distributed
+from gmix_tpu_torch.parallel.mesh import make_mesh, stream_sharding
 from gmix_tpu_torch.state import init_state, state_bytes
 from gmix_tpu_torch.utils.build import build
 from gmix_tpu_torch.utils.fused_inputs import random_inputs, with_sampling
@@ -198,6 +216,15 @@ CLI_CROSS_OFFSET, CLI_CROSS_BYTES, CLI_TEST_BYTES, CLI_CHUNK = 40 * 1024, 512, 2
 CLI_PROMPT, CLI_GEN, CLI_GEN_CHUNK = 16, 32, 16
 # (c) the preprocessing chain: a dump of this many pages, 8 streams
 CLI_WIKI_PAGES, CLI_WIKI_ARGS = 8, ("--profile", "scaled-12", "--streams", "8", "--chunk", "128")
+# phase 6, stream sharding. (a) ref-full at full width, 16 streams split
+# over a mesh of SHARDS entries all on the one card: 2 KB at an offset of the
+# corpus that no other phase codes, chunk 128 (128 byte steps; the backward
+# pass inside the wrapping byte)
+SHARDS, SHARD_OFFSET, SHARD_BYTES, SHARD_CHUNK = 2, 48 * 1024, 2048, 128
+# (b) RANKS processes over gloo on the one card, phase 3's ref-full run
+# (16 streams in all, 16 KB, chunk 1024); (c) one rank over nccl, phase 4's
+# run of NCCL_SPEC
+RANKS, NCCL_SPEC = 2, "ref-noppm"
 
 
 def ref_full_spec():
@@ -876,6 +903,7 @@ def phase_main(name, spec, dev):
         launches_encode=list(enc_launches), launches_decode=list(dec_launches),
     )
     log(f"phase 3: {json.dumps(out)}")
+    out["archive"] = blob  # phase 6 (b) must reproduce it
     log(f"phase 3: {name} per byte step after {per} bytes per stream: {json.dumps(profile_steps(pred, dev))}")
     if spec.lstm is not None:
         log(f"phase 3: {name} one backward pass of the LSTM: {json.dumps(time_bptt(pred))}")
@@ -1340,6 +1368,160 @@ def phase_cli(root: str, cpu_proc, cpu_dir: str, dev, ref_full_bpb: float, ref_f
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 6: stream sharding
+# ---------------------------------------------------------------------------
+
+
+def timed(fn):
+    """(fn(), wall seconds, launches): every count set to 0 just before, the
+    device drained before and after."""
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, read_launches()
+
+
+def phase_shards(spec, dev, d: str) -> dict:
+    """(a) SHARDS shards of ref-full on the one card, in this process, beside
+    the unsharded predictor: the same archive, each decodes the other's, the
+    same checkpoint file, and every shard launches an unsharded step's 6
+    kernels at every byte step."""
+    data = corpus(SHARD_OFFSET + SHARD_BYTES)[SHARD_OFFSET:]
+    per = padded_per(SHARD_BYTES, STREAMS, SHARD_CHUNK)
+    sharding = stream_sharding(make_mesh(devices=[dev] * SHARDS))
+    make = {"unsharded": lambda: Predictor(spec, STREAMS, device=dev),
+            "sharded": lambda: Predictor(spec, STREAMS, sharding=sharding)}
+    blobs, walls, launches, peak_gb, save_s = {}, {}, {}, {}, {}
+    for kind in make:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        pred = make[kind]()
+        blobs[kind], walls[f"{kind} encode"], launches[f"{kind} encode"] = timed(
+            lambda: compress_bytes(data, spec, STREAMS, SHARD_CHUNK, pred=pred))
+        peak_gb[kind] = torch.cuda.max_memory_allocated() / 1e9
+        t0 = time.perf_counter()
+        pred.save(os.path.join(d, f"{kind}.gxt"))
+        save_s[kind] = time.perf_counter() - t0
+        del pred
+    for kind, other in (("unsharded", "sharded"), ("sharded", "unsharded")):
+        torch.cuda.empty_cache()
+        pred = make[kind]()
+        back, walls[f"{kind} decode"], launches[f"{kind} decode"] = timed(
+            lambda: decompress_bytes(blobs[other], spec, SHARD_CHUNK, pred=pred))
+        del pred
+        if back != data:
+            raise RuntimeError(f"phase 6 shards: the {kind} predictor does not decode the {other} archive")
+    if blobs["sharded"] != blobs["unsharded"]:
+        raise RuntimeError(f"phase 6 shards: the sharded archive ({len(blobs['sharded'])} bytes) is not the unsharded "
+                           f"one ({len(blobs['unsharded'])} bytes)")
+    if read_bytes(os.path.join(d, "sharded.gxt")) != read_bytes(os.path.join(d, "unsharded.gxt")):
+        raise RuntimeError("phase 6 shards: the sharded checkpoint is not the unsharded file")
+    for run, got in launches.items():
+        n = SHARDS if run.startswith("sharded") else 1
+        if got != step_launches(n * per):
+            raise RuntimeError(f"phase 6 shards: {run} launched (gather, scatter, fused) {got} in {per} byte steps of "
+                               f"{n} shard(s), expected {step_launches(n * per)}: 3 + 2 + 1 a shard and step")
+    out = {"spec": "ref-full", "streams": STREAMS, "shards": SHARDS, "mesh": [str(x) for x in sharding.mesh.devices],
+           "bytes": len(data), "chunk": SHARD_CHUNK, "byte_steps": per, "archive_bytes": len(blobs["sharded"]),
+           "same_archive": True, "cross_decodes": True, "same_checkpoint": True,
+           "checkpoint_bytes": os.path.getsize(os.path.join(d, "sharded.gxt")), "save_s": save_s, "wall_s": walls,
+           "ms_per_byte_step": {k: 1e3 * v / per for k, v in walls.items()},
+           "sharded_over_unsharded_encode_wall": walls["sharded encode"] / walls["unsharded encode"],
+           "peak_gb": peak_gb, "launches": {k: list(v) for k, v in launches.items()},
+           "launches_per_shard_and_step": 6}
+    log(f"phase 6: two shards on one card {json.dumps(out)}")
+    return out
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def rank_main(rank: int, world: int, port: int, d: str) -> None:
+    """Phase 6 (b)'s rank: join the gloo group, code phase 3's ref-full 16 KB
+    with compress_bytes_multihost (this rank's STREAMS / world streams on
+    its card), write the container to d/rank<r>.gxtc and print one JSON line
+    of its launches, wall time and memory."""
+    torch.set_num_threads(1)
+    distributed.initialize(f"tcp://localhost:{port}", world, rank, backend="gloo")
+    spec, data = ref_full_spec(), corpus(MAIN_BYTES)
+    distributed.dist.barrier()
+    blob, wall, launches = timed(lambda: distributed.compress_bytes_multihost(data, spec, STREAMS, CHUNK))
+    distributed.dist.destroy_process_group()
+    write_bytes(os.path.join(d, f"rank{rank}.gxtc"), blob)
+    print(json.dumps({"rank": rank, "device": str(torch.device("cuda", torch.cuda.current_device())),
+                      "streams": STREAMS // world, "launches": list(launches), "encode_s": wall,
+                      "encode_bytes_per_s": len(data) / world / wall,
+                      "peak_gb": torch.cuda.max_memory_allocated() / 1e9}), flush=True)
+
+
+def phase_ranks(d: str, main_full: dict) -> dict:
+    """(b) RANKS processes over gloo on the one card: each returns phase 3's
+    ref-full archive byte for byte and launches 6 kernels a byte step; the
+    aggregate encode bytes/s beside phase 3's one process (a reading)."""
+    port = free_port()
+    procs = [subprocess.Popen([sys.executable, "-c", f"import chip_smoke as cs; cs.rank_main({r}, {RANKS}, {port}, {d!r})"],
+                              cwd=ROOT, env=cpu_env(), stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              start_new_session=True) for r in range(RANKS)]
+    t0 = time.perf_counter()
+    try:
+        outs = [p.communicate(timeout=600)[0].decode(errors="replace") for p in procs]
+    except subprocess.TimeoutExpired:
+        raise RuntimeError("phase 6 ranks: the ranks did not end within 600 s")
+    finally:
+        for p in procs:
+            stop(p)
+    wall = time.perf_counter() - t0
+    rows = []
+    for r, (p, text) in enumerate(zip(procs, outs)):
+        lines = text.splitlines()
+        for line in lines[-5:]:
+            log(f"phase 6: rank {r}: {line}")
+        if p.returncode != 0:
+            raise RuntimeError(f"phase 6 ranks: rank {r} failed (exit code {p.returncode})")
+        rows.append(json.loads(next(line for line in reversed(lines) if line.startswith('{"rank"'))))
+        if read_bytes(os.path.join(d, f"rank{r}.gxtc")) != main_full["archive"]:
+            raise RuntimeError(f"phase 6 ranks: rank {r}'s container is not phase 3's ref-full archive")
+        per = MAIN_BYTES // STREAMS
+        if tuple(rows[-1]["launches"]) != step_launches(per):
+            raise RuntimeError(f"phase 6 ranks: rank {r} launched {rows[-1]['launches']}, expected {step_launches(per)}")
+    out = {"spec": "ref-full", "ranks": RANKS, "backend": "gloo", "streams": STREAMS, "bytes": MAIN_BYTES,
+           "chunk": CHUNK, "archive_bytes": len(main_full["archive"]), "same_archive_as_phase_3": True,
+           "aggregate_encode_bytes_per_s": MAIN_BYTES / max(r["encode_s"] for r in rows),
+           "one_process_encode_bytes_per_s": main_full["encode_bytes_per_s"], "processes_wall_s": wall,
+           "launches": [sum(r["launches"][i] for r in rows) for i in range(3)], "per_rank": rows}
+    log(f"phase 6: {RANKS} ranks on one card {json.dumps(out)}")
+    return out
+
+
+def phase_nccl(d: str) -> dict:
+    """(c) a world of one rank over nccl on the card, in this process: phase
+    4's GPU archive of NCCL_SPEC at scaled-12, 2 streams, byte for byte."""
+    spec12 = scale_tables(SPECS[NCCL_SPEC](), 12, history_bits=16)
+    n_bytes, chunk = CROSS_RUNS[NCCL_SPEC]
+    distributed.initialize(f"tcp://localhost:{free_port()}", 1, 0)
+    try:
+        blob, wall, launches = timed(lambda: distributed.compress_bytes_multihost(corpus(n_bytes), spec12, 2, chunk))
+        backend = str(distributed.dist.get_backend())
+    finally:
+        distributed.dist.destroy_process_group()
+    if blob != read_bytes(os.path.join(d, f"{NCCL_SPEC}.gxtc")):
+        raise RuntimeError(f"phase 6 nccl: the container is not phase 4's {NCCL_SPEC} GPU archive")
+    per = n_bytes // 2
+    if launches != (per, per, per):
+        raise RuntimeError(f"phase 6 nccl: launched {launches} in {per} byte steps, expected 1 + 1 + 1 a step")
+    out = {"spec": f"{NCCL_SPEC} scaled-12", "ranks": 1, "backend": backend, "streams": 2, "bytes": n_bytes,
+           "chunk": chunk, "archive_bytes": len(blob), "same_archive_as_phase_4": True, "wall_s": wall,
+           "launches": list(launches)}
+    log(f"phase 6: one rank over nccl {json.dumps(out)}")
+    return out
+
+
 def code_sizes(lib_path) -> dict:
     """Instructions of each kernel in the built library, counted from
     `cuobjdump -sass` (16 bytes each); empty where the toolkit has no
@@ -1428,19 +1610,30 @@ def main() -> int:
             elapsed("phase 5 done")
             finish_cpu_decodes(decodes)
             elapsed("phase 4's CPU decodes done")
+            shards_out = phase_shards(specs["ref-full"], dev, tmp)
+            elapsed("phase 6 (a) done")
+            ranks_out = phase_ranks(tmp, main_out["ref-full"])
+            elapsed("phase 6 (b) done")
+            nccl_out = phase_nccl(tmp)
+            elapsed("phase 6 done")
         finally:
             for proc in [cpu_proc] + [proc for proc, _, _ in decodes.values()]:
                 stop(proc)
 
     def launches(i):
         """Kernel i's launches on each main path: encode + decode, the two
-        generate_bytes calls (prompt and sampling, sampling alone), and the
-        command line's commands on the card (phase 5)."""
+        generate_bytes calls (prompt and sampling, sampling alone), the
+        command line's commands on the card (phase 5), and phase 6's sharded
+        and multi-process runs."""
         by_path = {}
         for name, out in main_out.items():
             by_path[name] = out["launches_encode"][i] + out["launches_decode"][i]
             by_path[f"{name} generate"] = out["generate"]["launches"][i] + out["generate"]["sampling_alone_launches"][i]
         by_path["cli"] = cli_out["launches"][i]
+        # phase 6: the sharded predictor's encode and decode; the ranks' and
+        # the nccl rank's encodes
+        by_path["mesh"] = sum(v[i] for k, v in shards_out["launches"].items() if k.startswith("sharded"))
+        by_path["distributed"] = ranks_out["launches"][i] + nccl_out["launches"][i]
         return by_path
 
     def mover(direction, replaces_key):

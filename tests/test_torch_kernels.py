@@ -330,6 +330,26 @@ def test_fused_kernel_other_instantiations_match_plain(cuda, spec_name, learn, d
 
 
 @pytest.mark.cuda
+def test_fused_kernel_opts_in_to_its_shared_memory_on_every_device(cuda):
+    """Dynamic shared memory above 48 KB needs an opt-in that holds for the
+    current device's context only: the reference spec's instantiation (more
+    than 48 KB) and its clocks instantiation launch on every visible device
+    in turn and equal the plain version there."""
+    from gmix_tpu_torch.core import fused
+
+    for i in range(torch.cuda.device_count()):
+        dev = torch.device("cuda", i)
+        meta, consts, fin = _fused_case("reference", dev, True, True, False)
+        assert fused.fused_instantiation(meta, consts, True, True, 5, dev)["shared_bytes"] > 48 * 1024
+        got = fused.fused_substeps(meta, consts, fin, True, True)
+        got_clocks, _ = fused.fused_substeps_clocks(meta, consts, fin, True, True)
+        torch.cuda.synchronize(dev)
+        want = fused.fused_substeps_plain(meta, consts, fin, True, True)
+        _assert_fused_equal(want, got)
+        _assert_fused_equal(want, got_clocks)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("spec_name", ["tiny", "ref-noppm", "reference", "ref-ppm"])
 def test_fused_instantiation_of_the_reference_specs(cuda, spec_name):
     from gmix_tpu_torch.core import fused

@@ -39,23 +39,31 @@ Phases; any failure ends the run with a non-zero exit:
      launched the same way (`launch_floor_ms`);
 3. the main path at full width, at ref-noppm, ref-ppm and ref-full:
    compress_bytes then decompress_bytes of the first 16 KB of
-   data/corpus_1m.bin on the GPU (16 streams, 1 KB per stream); the output
-   must equal the input, and per byte step and direction the fused kernel
-   must have launched exactly once and each mover once (ref-noppm: 3
+   data/corpus_1m.bin on the GPU (16 streams, 1 KB per stream), which replay
+   CUDA graphs of the byte step (the compiled chunk, core/step.py); the
+   output must equal the input, and per byte step and direction the fused
+   kernel must have launched exactly once and each mover once (ref-noppm: 3
    launches a byte step) or twice (ref-ppm: 5; the PPM count update moves its
    own rows first); at ref-full the gather launches three times (6: the
    prediction's `ppm_tbl` rows come before the LSTM's forward pass, the other
    arenas after it) and the LSTM must have made its 10 backward passes per
    direction (chunk 1024: inside the byte that wraps the horizon window).
-   Then a short torch.profiler window of byte steps: wall ms, CUDA kernels,
-   aten ops, device busy ms and idle share per step; at ref-full also the
-   wall time of one backward pass. Then generate_bytes on the warm
-   predictor: a 256-byte prompt (replayed with learning), 256 sampled bytes
-   a stream at temperature 0.8 in one chunk of 256; a sampling byte step
-   must launch the kernels of an encode step less the byte-end scatter
-   (ref-noppm 2, ref-ppm 4, ref-full 5). Then 256 bytes more without a
-   prompt, timed, after which every long-term-memory leaf must be as it
-   was; a profiler window of sampling byte steps as above;
+   The launches of a graph are counted at every replay. Each graph's
+   capture seconds, launches a replay and the graph pool's bytes are
+   printed. Then the same bytes through the eager loop (the byte steps
+   dispatched op by op) and through graph replay on a copy of the
+   predictor: two windows of STEP_WINDOW bytes for the wall ms a step (the
+   first with the capture), then TRACE_STEPS bytes under torch.profiler for
+   CUDA kernels, aten ops, device busy ms and idle share a step, for each; the two states must be equal leaf for leaf after, and
+   each window must launch the counts above. At ref-full also one backward
+   pass op by op against its graph (wall, capture, LSTM leaves equal).
+   Then generate_bytes on the warm predictor: a 256-byte prompt (replayed
+   with learning), 256 sampled bytes a stream at temperature 0.8 in one
+   chunk of 256; a sampling byte step must launch the kernels of an encode
+   step less the byte-end scatter (ref-noppm 2, ref-ppm 4, ref-full 5).
+   Then 256 bytes more without a prompt, timed, after which every
+   long-term-memory leaf must be as it was; the sampling step eager against
+   graphs as above;
 4. GPU against CPU, at the three specs: at scale_tables(spec, 12,
    history_bits=16), 2 streams, the GPU archive (kernels) must equal the CPU
    archive (plain versions) byte for byte, and each device must decode the
@@ -122,7 +130,9 @@ arenas, with the four-arena group of ref-noppm and the single launches per
 arena beside them; `launches` sums the main paths: the three specs' encode,
 decode and generation, the command line's commands on the card, the sharded
 predictor's encode and decode (`mesh`) and the ranks' encodes
-(`distributed`)); the last line is {"ok": true, "device": {...}}.
+(`distributed`), all replays of CUDA graphs; `launches_per_replay` gives
+each of phase 3's graphs' launches of the kernel); the last line is
+{"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -165,7 +175,13 @@ MAIN_BYTES = 16 * 1024
 CHUNK = 1024
 SEED = 1234
 WARM_BYTES = 48  # byte steps before the fused kernel's inputs are taken
-PROFILE_STEPS = 10
+# bytes a window of phase 3's eager-against-graphs comparison (two windows:
+# the first with the graphs' capture, then one timed). Near the reference
+# horizon (100) but no multiple of it, so that the backward pass runs inside
+# the wrapping byte, and at ref-full each window from byte 1024 holds one
+# such byte (1099, 1199); then TRACE_STEPS bytes twice (capture, trace)
+# under torch.profiler, which hold none
+STEP_WINDOW, TRACE_STEPS = 96, 16
 # generation on the warm predictor of phase 3: prompt and sampled bytes a
 # stream, temperature, chunk; phase 4's at scaled-12 (the CPU is slow)
 GEN_PROMPT, GEN_BYTES, GEN_TEMP, GEN_CHUNK = 256, 256, 0.8, 256
@@ -759,44 +775,47 @@ def phase_grouped(direction, names, tables, counts, rng, gen, dev):
 # ---------------------------------------------------------------------------
 
 
-def profile_steps(pred, dev, sample: bool = False):
-    """Wall time of PROFILE_STEPS byte steps untraced, then the same number
-    under torch.profiler: CUDA kernels, aten ops and device busy time per
-    byte step, and the device's idle share of the traced window. Encode
-    steps, or with `sample` sampling steps (learn off, seeded uniforms,
-    temperature GEN_TEMP)."""
+def pool_bytes(plan):
+    """Bytes that a plan's CUDA graph memory pool holds on the card: the
+    caching allocator's segments of that pool (None where this torch's
+    snapshot does not name a segment's pool)."""
+    if plan._pool is None:
+        return 0
+    try:
+        ident = tuple(plan._pool)
+        segs = torch.cuda.memory_snapshot()
+    except (TypeError, RuntimeError):
+        return None
+    if segs and "segment_pool_id" not in segs[0]:
+        return None
+    return sum(seg["total_size"] for seg in segs if tuple(seg.get("segment_pool_id", ())) == ident)
+
+
+def graph_summary(fn) -> dict:
+    """Each graph of a compiled chunk by variant: its capture seconds and the
+    (gather, scatter, fused) launches one replay adds to the counters."""
+    out = {}
+    for key, g in fn.graphs.items():
+        per = dict(g.launches)
+        out["/".join(map(str, key))] = {"capture_s": g.capture_s,
+                                        "launches_per_replay": [sum(per.get(w, 0) for w in group) for group in WRAPPERS]}
+    return out
+
+
+def trace_window(run, n: int) -> dict:
+    """`run()` (n byte steps, ending in a synchronize) under torch.profiler:
+    CUDA kernels, aten ops and device busy time per byte step, and the
+    device's idle share of the traced window."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    S = pred.num_streams
-    n = PROFILE_STEPS
-    data = np.frombuffer(corpus(MAIN_BYTES + S * 3 * n)[MAIN_BYTES:], np.uint8).reshape(S, 3 * n)
-    data_buf = torch.as_tensor(data.copy(), device=dev)
-    code_buf = torch.zeros((S, 1), dtype=torch.uint8, device=dev)
-    gen = torch.Generator(device=dev).manual_seed(SEED)
-    u = torch.rand((3 * n + 1, 8, S), generator=gen, device=dev)
-    inv_temp = torch.tensor([np.float32(1.0 / GEN_TEMP)], device=dev)
-
-    def steps(t0):
-        for t in range(t0, t0 + n):
-            if sample:
-                step_mod._byte_step(pred.state, data_buf, code_buf, t, False, pred.plan, learn=False,
-                                    sample_u=u[t], inv_temp=inv_temp)
-            else:
-                step_mod._byte_step(pred.state, data_buf, code_buf, t, False, pred.plan)
-        torch.cuda.synchronize()
-
-    steps(1)  # warm-up (t > 0: not the stream's first bit)
-    t0 = time.perf_counter()
-    steps(1 + n)
-    wall = time.perf_counter() - t0
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        steps(2 * n)
+        run()
         traced = time.perf_counter() - t0
     kernels = aten = 0
     busy_us = 0.0
-    own_us = {}  # device us per launch of each hand-written kernel, in place
+    own_us = {}  # device us per launch of each hand-written kernel
     for ka in prof.key_averages():
         if ka.device_type == DeviceType.CUDA:
             us = getattr(ka, "self_device_time_total", None) or getattr(ka, "self_cuda_time_total", 0.0)
@@ -807,9 +826,7 @@ def profile_steps(pred, dev, sample: bool = False):
                     own_us[own] = {"us_per_launch": us / ka.count, "launches_per_step": ka.count / n}
         elif ka.key.startswith("aten::"):
             aten += ka.count
-    out = {"byte_steps": n, "wall_ms_per_step": 1e3 * wall / n, "traced_wall_ms_per_step": 1e3 * traced / n}
-    if sample:
-        out["sampled_bytes_per_s"] = S * n / wall
+    out = {"traced_wall_ms_per_step": 1e3 * traced / n}
     if kernels and busy_us > 0:
         out.update(cuda_kernels_per_step=kernels / n, aten_ops_per_step=aten / n,
                    device_busy_ms_per_step=busy_us / 1e3 / n, device_idle_share=1.0 - (busy_us / 1e6) / traced,
@@ -819,25 +836,121 @@ def profile_steps(pred, dev, sample: bool = False):
     return out
 
 
-def time_bptt(pred, reps: int = 3) -> dict:
-    """Wall time of one backward pass with its Adam step (the device drained
-    before and after), and its aten ops under torch.profiler."""
+def eager_against_graphs(name, pred, dev, expect, sample: bool = False):
+    """The same bytes through the compiled chunk's eager loop (`_eager`: the
+    byte steps dispatched op by op) on `pred` and through its CUDA graphs on
+    a copy of it: a first window of STEP_WINDOW bytes (the graphs' capture
+    included), a second one timed, then TRACE_STEPS bytes under
+    torch.profiler (a chunk of that length, whose graph is captured before
+    the trace). Every state leaf must be equal after, and every byte step
+    must launch `expect` (gather, scatter, fused) both ways. Encode steps, or
+    with `sample` sampling steps (seeded uniforms, temperature GEN_TEMP).
+    With an LSTM also one backward pass op by op against its graph, three
+    times each, the LSTM's leaves equal after. Returns the readings."""
+    S, n, m = pred.num_streams, STEP_WINDOW, TRACE_STEPS
+    twin = pred.copy()
+    t0 = MAIN_BYTES // S
+    total = 2 * n + 2 * m  # the traced chunk runs twice: capture, then trace
+    data = np.frombuffer(corpus(MAIN_BYTES + S * total)[MAIN_BYTES:], np.uint8).reshape(S, total)
+    bufs = {}
+    for k in ("eager", "graphs"):
+        bufs[k] = torch.zeros((S, t0 + total), dtype=torch.uint8, device=dev)
+        bufs[k][:, t0:] = torch.as_tensor(data, device=dev)
+    code = torch.zeros((S, 1), dtype=torch.uint8, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    u = torch.rand((total * 8, S), generator=gen, device=dev)
+    inv_temp = torch.tensor([np.float32(1.0 / GEN_TEMP)], device=dev)
+    owners = {"eager": pred, "graphs": twin}
+
+    def fn(k, length):
+        """The compiled chunk of `length` bytes: the predictor's own for the
+        graphs, a fresh one for the eager loop."""
+        if sample:
+            return step_mod.make_gen_chunk_fn(pred.meta, length) if k == "eager" else \
+                step_mod.get_gen_chunk_fn(twin.plan, length)
+        return step_mod.make_chunk_fn(pred.meta, length) if k == "eager" else step_mod.get_chunk_fn(twin.plan, length)
+
+    def run(k, f, at, length):
+        p = owners[k]
+        call = f._eager if k == "eager" else f
+        if sample:
+            call(p.state, p.plan, bufs[k], t0 + at, u[8 * at : 8 * (at + length)], inv_temp)
+        else:
+            call(p.state, p.plan, bufs[k], code, t0 + at)
+        torch.cuda.synchronize()
+
+    out = {}
+    for k in ("eager", "graphs"):
+        row = {}
+        long_fn, short_fn = fn(k, n), fn(k, m)
+        reset_launches()
+        torch.cuda.synchronize()
+        t_start = time.perf_counter()
+        run(k, long_fn, 0, n)
+        row["first_window_s"] = time.perf_counter() - t_start
+        t_start = time.perf_counter()
+        run(k, long_fn, n, n)
+        row["wall_ms_per_step"] = 1e3 * (time.perf_counter() - t_start) / n
+        run(k, short_fn, 2 * n, m)
+        row.update(trace_window(lambda: run(k, short_fn, 2 * n + m, m), m))
+        if "device_busy_ms_per_step" in row:
+            # the traced window's device time against the untraced wall (the
+            # profiler's own host work stretches the traced wall)
+            row["idle_share_of_untraced_wall"] = 1.0 - row["device_busy_ms_per_step"] / row["wall_ms_per_step"]
+        got = read_launches()
+        if got != tuple(e * total for e in expect):
+            raise RuntimeError(f"phase 3 {name}: the {k} windows launched {got} in {total} steps, expected {expect} a step")
+        if k == "graphs":
+            row["graphs"] = {**graph_summary(long_fn), **{f"{v} ({m} bytes)": g for v, g in graph_summary(short_fn).items()}}
+            row["pool_bytes"] = pool_bytes(twin.plan)
+        out[k] = row
+    for (path, a), (_, b) in zip(_leaves(pred.state), _leaves(twin.state)):
+        if not torch.equal(a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8)):
+            raise RuntimeError(f"phase 3 {name}: eager and graph windows differ at {'.'.join(path)}")
+    if not torch.equal(bufs["eager"], bufs["graphs"]):
+        raise RuntimeError(f"phase 3 {name}: eager and graph windows coded other bytes")
+    out["wall_eager_over_graphs"] = out["eager"]["wall_ms_per_step"] / out["graphs"]["wall_ms_per_step"]
+    if pred.spec.lstm is not None and not sample:
+        out["backward_pass"] = bptt_against_graph(name, pred, twin)
+    del twin, owners
+    torch.cuda.empty_cache()
+    return out
+
+
+def bptt_against_graph(name, pred, twin, reps: int = 3) -> dict:
+    """One LSTM backward pass with its Adam step op by op on `pred` and as a
+    CUDA graph (captured once) on `twin`, `reps` times each, the device
+    drained around each: wall times, the eager pass's aten ops and the
+    capture time; the two LSTM states equal after."""
     from torch.profiler import ProfilerActivity, profile
 
-    times = []
-    for _ in range(reps):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        step_mod.lstm_bptt(pred.state, pred.plan)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
+    def timed_reps(run):
+        times = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        return 1e3 * float(np.median(times))
+
+    eager_ms = timed_reps(lambda: step_mod.lstm_bptt(pred.state, pred.plan))
+    graph = step_mod.CapturedStep(twin.plan, lambda: step_mod.lstm_bptt(twin.state, twin.plan))
+    graph_ms = timed_reps(graph.replay)
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         step_mod.lstm_bptt(pred.state, pred.plan)
         torch.cuda.synchronize()
+    graph.replay()
+    torch.cuda.synchronize()
     aten = sum(ka.count for ka in prof.key_averages() if ka.key.startswith("aten::"))
+    for part in ("stm", "ltm"):
+        for (path, a), (_, b) in zip(_leaves(pred.state[part]["lstm"]), _leaves(twin.state[part]["lstm"])):
+            if not torch.equal(a, b):
+                raise RuntimeError(f"phase 3 {name}: the backward pass's graph differs from its eager run at {path}")
     Hz = pred.spec.lstm.horizon
-    return {"wall_ms": 1e3 * float(np.median(times)), "aten_ops": aten, "horizon": Hz,
-            "wall_ms_per_byte_amortised": 1e3 * float(np.median(times)) / Hz}
+    return {"eager_wall_ms": eager_ms, "graph_wall_ms": graph_ms, "capture_s": graph.capture_s, "aten_ops": aten,
+            "horizon": Hz, "eager_wall_ms_per_byte_amortised": eager_ms / Hz,
+            "graph_wall_ms_per_byte_amortised": graph_ms / Hz}
 
 
 def phase_main(name, spec, dev):
@@ -858,6 +971,9 @@ def phase_main(name, spec, dev):
     enc_launches = read_launches()
     ent = entropy_bits(pred)
     bptt_enc = int(pred.state["stm"]["lstm"]["update_steps"]) if spec.lstm is not None else 0
+    # the encoder's graphs: capture seconds, launches a replay, pool bytes
+    out["encode_graphs"] = graph_summary(step_mod.get_chunk_fn(pred.plan, CHUNK))
+    out["encode_pool_bytes"] = pool_bytes(pred.plan)
     del pred
     torch.cuda.empty_cache()
     pred = Predictor(spec, STREAMS, device=dev)
@@ -869,6 +985,8 @@ def phase_main(name, spec, dev):
     out["decode_s"] = time.perf_counter() - t0
     dec_launches = read_launches()
     out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["decode_graphs"] = graph_summary(step_mod.get_chunk_fn(pred.plan, CHUNK))
+    out["decode_pool_bytes"] = pool_bytes(pred.plan)
     if back != data:
         raise RuntimeError("phase 3: decompress_bytes did not reproduce the input")
     if not np.isfinite(ent) or ent <= 0:
@@ -904,9 +1022,9 @@ def phase_main(name, spec, dev):
     )
     log(f"phase 3: {json.dumps(out)}")
     out["archive"] = blob  # phase 6 (b) must reproduce it
-    log(f"phase 3: {name} per byte step after {per} bytes per stream: {json.dumps(profile_steps(pred, dev))}")
-    if spec.lstm is not None:
-        log(f"phase 3: {name} one backward pass of the LSTM: {json.dumps(time_bptt(pred))}")
+    out["steps"] = eager_against_graphs(name, pred, dev, (gathers, scatters, 1))
+    log(f"phase 3: {name} per encode byte step after {per} bytes per stream, eager against graphs: "
+        f"{json.dumps(out['steps'])}")
     out["generate"] = phase_generate(name, pred, dev, (gathers, scatters, 1))
     del pred
     torch.cuda.empty_cache()
@@ -958,11 +1076,7 @@ def phase_generate(name, pred, dev, per_encode_step):
             raise RuntimeError(f"phase 3 {name} generate: long-term memory leaf {'.'.join(path)} changed")
     del ltm0
     torch.cuda.empty_cache()
-    reset_launches()
-    window = profile_steps(pred, dev, sample=True)
-    n_steps = 3 * PROFILE_STEPS
-    if read_launches() != tuple(e * n_steps for e in expect):
-        raise RuntimeError(f"phase 3 {name}: the sampling window launched {read_launches()} in {n_steps} steps")
+    window = eager_against_graphs(name, pred, dev, expect, sample=True)
     row = {"spec": name, "streams": S, "prompt_bytes": GEN_PROMPT, "sampled_bytes": GEN_BYTES, "temperature": GEN_TEMP,
            "chunk": GEN_CHUNK, "wall_s": wall, "launches": list(launches), "sampling_step_launches": sum(expect),
            "sampling_alone_launches": list(sampling), "sampling_alone_wall_s": wall_sampling,
@@ -970,7 +1084,8 @@ def phase_generate(name, pred, dev, per_encode_step):
            "sampled_bytes_per_s": S * GEN_BYTES / wall_sampling, "ltm_unchanged": True,
            "distinct_bytes_stream0": len(set(outs[0] + more[0]))}
     log(f"phase 3: {name} generate {json.dumps(row)}")
-    log(f"phase 3: {name} per sampling byte step: {json.dumps(window)}")
+    log(f"phase 3: {name} per sampling byte step, eager against graphs: {json.dumps(window)}")
+    row["sample_graphs"] = window["graphs"]["graphs"]
     row["window"] = window
     return row
 
@@ -1649,6 +1764,7 @@ def main() -> int:
             "replaces": REPLACES[replaces_key],
             "launches": sum(by_path.values()),
             "launches_by_path": by_path,
+            "launches_per_replay": per_replay(0 if direction == "gather" else 1),
             "max_abs_err": max(five["max_abs_err"], four["max_abs_err"], max(r[f"{direction}_err"] for r in per_arena)),
             **{k: five[k] for k in keys},
             "bound_by": "bytes",
@@ -1661,6 +1777,16 @@ def main() -> int:
                            "bound_ms": r["bound_ms"], "library_ms": r[f"{direction}_library_ms"]} for r in per_arena],
         }
 
+    def per_replay(i):
+        """Kernel i's launches in one replay of each graph of phase 3: the
+        encoder's (a byte, the byte that wraps the LSTM's window) and the
+        sampling step's, by spec."""
+        rows = {}
+        for name, out in main_out.items():
+            for variant, g in {**out["encode_graphs"], **out["generate"]["sample_graphs"]}.items():
+                rows[f"{name} {variant}"] = g["launches_per_replay"][i]
+        return rows
+
     fused_by_path = launches(2)
     kernels = [mover("gather", "gather_rows"), mover("scatter", "scatter_rows"), {
         "name": "fused_substeps",
@@ -1669,6 +1795,7 @@ def main() -> int:
         "replaces": REPLACES["fused_substeps"],
         "launches": sum(fused_by_path.values()),
         "launches_by_path": fused_by_path,
+        "launches_per_replay": per_replay(2),
         "max_abs_err": max(fused_row["max_abs_err"], fused_ppm_row["max_abs_err"], fused_full_row["max_abs_err"]),
         "ms": fused_row["ms"],
         "call_ms": fused_row["call_ms"],

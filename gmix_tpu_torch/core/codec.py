@@ -5,10 +5,12 @@ Port of `gmix_tpu.core.codec` (the predictor with save/load/copy,
 compress/decompress, generation). The input is split into `num_streams`
 contiguous blocks, each coded by an independent model replica (one lane of
 every batched state tensor). Streams are padded to a common length that is a
-multiple of `chunk`; the port runs eagerly, so `chunk` only sets that
-padding, which keeps the container identical to gmix_tpu's, the order of an
-LSTM's backward pass (`run_chunks`), and how often `progress` is called and
-generation draws its uniforms.
+multiple of `chunk`, the length of the compiled chunk that codes them
+(`Predictor.chunk_fn`, gmix_tpu's jitted chunk program): on a CUDA device
+the byte step replayed as CUDA graphs, on the CPU the same step op by op.
+`chunk` also sets the order of an LSTM's backward pass (`run_chunks`), how
+often `progress` is called and generation draws its uniforms, and how often
+the encoder's bytes come back to the host.
 
 A predictor may hold its streams split over the devices of a mesh
 (`sharding=parallel.mesh.stream_sharding(mesh)`, gmix_tpu's `sharding=`):
@@ -27,12 +29,12 @@ import torch
 
 from ..config import EnsembleSpec
 from ..ops import coder as coder_ops
-from ..parallel.mesh import gather_state, shard_rows, shard_state
-from ..state import init_state, numpy_layout, state_from_numpy
+from ..parallel.mesh import gather_state, make_mesh, shard_rows, shard_state
+from ..state import copy_into, init_state, into_storage, numpy_layout, state_from_numpy
 from ..utils import threefry
 from ..utils.serialization import copy_state, load_state, save_state
 from .meta import Meta, analysis_names, build_meta
-from .step import CODER_WIN, StepPlan, _byte_step, gen_chunk, lstm_bptt
+from .step import CODER_WIN, StepPlan, get_chunk_fn, get_gen_chunk_fn
 
 MAGIC = b"GXTC"
 # the container version of gmix_tpu.core.codec (v4: deterministic polynomial
@@ -59,7 +61,14 @@ class Predictor:
     CUDA device unless `device` says otherwise), or, with a `sharding`
     (`parallel.mesh.stream_sharding(mesh)`), split over the mesh's devices:
     `shards` is then one unsharded predictor per mesh entry, in stream order,
-    each with S / n streams, its own StepPlan and its state on its device."""
+    each with S / n streams, its own StepPlan and its state on its device.
+
+    On a CUDA device the predictor codes through CUDA graphs of the byte step
+    (`chunk_fn`, `gen_fn`), captured at their first use against the
+    storage of its state's leaves. Those leaves keep their storage for the
+    predictor's life: a state assigned (`state = st`: `st` becomes the
+    state, holding them) or loaded is copied into them, and a leaf replaced
+    in the dict is copied into its place before the next chunk runs."""
 
     def __init__(
         self,
@@ -99,6 +108,13 @@ class Predictor:
     @state.setter
     def state(self, value) -> None:
         if self.shards is None:
+            held = getattr(self, "_state", None)
+            if held is not None and value is not held:
+                # the compiled chunks' graphs hold the leaves' storage: the
+                # dict given becomes the state, with the held leaves refilled
+                # from it, and the LSTM's epoch is read again
+                into_storage(value, held)
+                self.plan.forget_epoch()
             self._state = value
             return
         if len(value) != len(self.shards):
@@ -109,6 +125,42 @@ class Predictor:
     def _parts(self) -> List["Predictor"]:
         """The unsharded predictors that hold the streams, in stream order."""
         return [self] if self.shards is None else self.shards
+
+    # --- compiled chunks (gmix_tpu codec.py:85-112) ---
+    def chunk_fn(self, n: int, learn: bool = True):
+        """The compiled chunk of `n` byte steps (`core.step.get_chunk_fn`:
+        made once per shard and kept with its plan). `fn(data_buf, code_buf,
+        t0, decode=False)` runs bytes [t0, t0 + n) of this predictor's state
+        and returns the encoder's (win, nw) of each byte; a sharded
+        predictor's takes and returns lists, one per shard, each shard's
+        graphs on its device (gmix_tpu's `make_sharded_chunk_fn`)."""
+        fns = [(p, get_chunk_fn(p.plan, n, learn, p.analysis)) for p in self._parts()]
+
+        def fn(data_buf, code_buf, t0: int, decode: bool = False):
+            if self.shards is None:
+                return fns[0][1](self.state, self.plan, data_buf, code_buf, t0, decode)
+            outs = [f(p.state, p.plan, d, c, t0, decode) for (p, f), d, c in zip(fns, data_buf, code_buf)]
+            return [w for w, _ in outs], [nw for _, nw in outs]
+
+        return fn
+
+    def gen_fn(self, n: int):
+        """The compiled sampling chunk of `n` bytes (`core.step.
+        get_gen_chunk_fn`). `fn(data_buf, t0, u, inv_temp)` samples bytes
+        [t0, t0 + n) into `data_buf` from `u`, the (n * 8, S) uniforms;
+        a sharded predictor's takes lists of data buffers, uniforms and
+        inverse temperatures, one per shard (gmix_tpu's
+        `make_sharded_gen_fn`)."""
+        fns = [(p, get_gen_chunk_fn(p.plan, n)) for p in self._parts()]
+
+        def fn(data_buf, t0: int, u, inv_temp) -> None:
+            if self.shards is None:
+                fns[0][1](self.state, self.plan, data_buf, t0, u, inv_temp)
+                return
+            for (p, f), d, u_p, it in zip(fns, data_buf, u, inv_temp):
+                f(p.state, p.plan, d, t0, u_p, it)
+
+        return fn
 
     # --- checkpoint / copy (gmix_tpu codec.py:116-143) ---
     def save(self, path: str) -> None:
@@ -133,9 +185,12 @@ class Predictor:
                 raise RuntimeError(
                     f"{path}: checkpoint mismatch at {k}: {got[k][0]}/{got[k][1]} vs {shape}/{dtype}")
         if self.shards is None:
-            self.state = state_from_numpy(loaded, self.device)
+            # converted and copied into the leaves one at a time
+            copy_into(self.state, loaded)
+            self.plan.forget_epoch()
         else:
-            self.state = shard_state(state_from_numpy(loaded), self.sharding.mesh)
+            # split on the CPU; each shard copies its part onto its device
+            self.state = shard_state(state_from_numpy(loaded), make_mesh(devices=["cpu"] * self.sharding.mesh.size))
 
     def copy(self) -> "Predictor":
         """An independent predictor in the same state (and the same
@@ -225,11 +280,15 @@ def run_chunks(
     strings for decode). `progress(t + chunk)` is called after each chunk
     [t, t + chunk).
 
+    The bytes run through the predictor's compiled chunk of `chunk` bytes
+    (`Predictor.chunk_fn`): on a CUDA device CUDA graphs of the byte step,
+    replayed once a byte; on the CPU the same steps op by op.
+
     A sharded predictor takes (and returns) a list of buffers for each, one
-    per shard on its device, holding its rows of the (S, ·) buffer. Its
-    shards are stepped in turn at every byte, so one device runs a byte
-    while the host dispatches the next shard's; the streams never interact,
-    so the order changes no bit.
+    per shard on its device, holding its rows of the (S, ·) buffer. Each
+    chunk runs on every shard in turn (on CUDA devices the replays are
+    queued without waiting, so shards on different cards run side by side);
+    the streams never interact, so the order changes no bit.
 
     `chunk` also decides when an LSTM's backward pass runs, by gmix_tpu's
     rule (`make_chunk_fn_raw`): when learning and the horizon divides
@@ -253,25 +312,21 @@ def _run(pred: Predictor, data_bufs: List[torch.Tensor], code_bufs: List[torch.T
         raise ValueError(f"{len(data_bufs)} data and {len(code_bufs)} code buffers for {len(parts)} shards")
     S = sum(d.shape[0] for d in data_bufs)
     Hz = pred.spec.lstm.horizon if pred.spec.lstm is not None else 0
-    defer = learn and Hz > 0 and chunk % Hz == 0
-    if defer and t0 % Hz:
+    if learn and Hz > 0 and chunk % Hz == 0 and t0 % Hz:
         raise ValueError("t0 must be a multiple of the LSTM horizon when the horizon divides chunk")
+    fn = pred.chunk_fn(chunk, learn)
+    sharded = pred.shards is not None
     wins, nws = [[] for _ in parts], [[] for _ in parts]
     for c0 in range(t0, t0 + n_bytes, chunk):
-        cw, cn = [[] for _ in parts], [[] for _ in parts]
-        for t in range(c0, c0 + chunk):
-            for i, p in enumerate(parts):
-                win, nw = _byte_step(p.state, data_bufs[i], code_bufs[i], t, decode, p.plan,
-                                     learn=learn, analysis=p.analysis, bptt=not defer)
-                if defer and (t + 1 - c0) % Hz == 0:
-                    lstm_bptt(p.state, p.plan)
-                if not decode:
-                    cw[i].append(win)
-                    cn[i].append(nw)
+        # every shard's chunk is queued before any output is read back
+        if sharded:
+            out_w, out_n = fn(data_bufs, code_bufs, c0, decode)
+        else:
+            out_w, out_n = ([x] for x in fn(data_bufs[0], code_bufs[0], c0, decode))
         if not decode:
             for i in range(len(parts)):
-                wins[i].append(torch.stack(cw[i]).cpu().numpy())
-                nws[i].append(torch.stack(cn[i]).cpu().numpy())
+                wins[i].append(out_w[i].cpu().numpy())
+                nws[i].append(out_n[i].cpu().numpy())
         if progress is not None:
             progress(c0 + chunk)
     if decode:
@@ -390,8 +445,9 @@ def decompress_bytes(
         x0 = (x0 << 8) | codes[:, i]
     parts = pred._parts()
     for p, x in zip(parts, _rows(pred, x0)):
-        p.state["coder"]["x"] = x
-        p.state["coder"]["rpos"] = torch.full((p.num_streams,), 4, dtype=torch.int64, device=p.device)
+        # into the leaves' own storage (the compiled chunks hold it)
+        p.state["coder"]["x"].copy_(x)
+        p.state["coder"]["rpos"].fill_(4)
     data_bufs = [torch.zeros((p.num_streams, per), dtype=torch.uint8, device=p.device) for p in parts]
     _run(pred, data_bufs, _rows(pred, codes), per, True, True, 0, chunk, progress)
     return torch.cat([d.cpu() for d in data_bufs]).numpy().reshape(-1)[:orig].tobytes()
@@ -443,15 +499,18 @@ def generate_bytes(
     data_bufs = [torch.zeros((p.num_streams, t0 + n), dtype=torch.uint8, device=p.device) for p in parts]
     key = threefry.key(seed)
     inv_temp = [torch.tensor([np.float32(1.0 / temperature)], dtype=torch.float32, device=p.device) for p in parts]
+    fn = pred.gen_fn(chunk)
     for t in range(t0, t0 + n, chunk):
         key, sub = threefry.split(key)
         # one draw for all S streams; each shard takes its columns
         u = threefry.uniform(sub, (chunk * 8, S), 0.0, 1.0)
-        a = 0
-        for i, p in enumerate(parts):
-            u_p = torch.as_tensor(np.ascontiguousarray(u[:, a : a + p.num_streams]), device=p.device)
-            gen_chunk(p.state, data_bufs[i], t, u_p, inv_temp[i], p.plan)
-            a += p.num_streams
+        cols = np.cumsum([0] + [p.num_streams for p in parts])
+        u_parts = [torch.as_tensor(np.ascontiguousarray(u[:, a:b]), device=p.device)
+                   for a, b, p in zip(cols[:-1], cols[1:], parts)]
+        if pred.shards is None:
+            fn(data_bufs[0], t, u_parts[0], inv_temp[0])
+        else:
+            fn(data_bufs, t, u_parts, inv_temp)
         if progress is not None:
             progress(t - t0 + chunk)
     out = torch.cat([d.cpu() for d in data_bufs]).numpy()

@@ -246,7 +246,7 @@ def const_inputs(meta: Meta, learn: bool, device="cpu") -> FusedConsts:
 
 
 def pack_inputs(meta: Meta, stm: Dict, coder: Dict, metrics: Dict, work: Dict, data_byte: torch.Tensor,
-                win_r: torch.Tensor, decode: bool, not_first: bool, analysis: bool,
+                win_r: torch.Tensor, decode: bool, not_first, analysis: bool,
                 sample_u: Optional[torch.Tensor] = None, inv_temp: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
     """The per-stream kernel inputs of one byte (gmix_tpu step.py, the fused
     branch of `_byte_step`). `work` holds the gathered working sets under
@@ -254,13 +254,14 @@ def pack_inputs(meta: Meta, stm: Dict, coder: Dict, metrics: Dict, work: Dict, d
     `lm_tbl` as the list of per-mixer tables. `win_r` is (S, CODER_WIN).
     A sampling step passes `sample_u` (8, S) and `inv_temp` (a one-element
     float32 tensor on the device), which go in as `io_layout(..., sample=True)`
-    names them, with `sc[:, SC_SAMPLE]` set."""
+    names them, with `sc[:, SC_SAMPLE]` set. `not_first` (the byte is not
+    the stream's first) is a host bool or a 0-d bool tensor on the device."""
     S = data_byte.shape[0]
     zero = torch.zeros((S,), dtype=I64, device=data_byte.device)
     sample = sample_u is not None
     fin = {
         "sc": torch.stack([data_byte, stm["last_byte"], stm["recent"][:, 1], zero + int(decode),
-                           zero + int(not_first), zero + int(sample), zero, zero], dim=1),
+                           zero + not_first, zero + int(sample), zero, zero], dim=1),
         "coder": torch.stack([coder["x1"], coder["x2"], coder["x"], coder["wpos"], coder["rpos"],
                               stm["acc"], stm["bits_seen"], stm["new_bit"]], dim=1),
         "win_r": torch.nn.functional.pad(win_r, (0, WIN_PAD - CODER_WIN)),
@@ -886,6 +887,10 @@ class _LaunchPlan:
         check_launch(self.lib, self.lib.gmix_fused_substeps_plan(self.dims_ref, picked), "fused_substeps")
         self.instantiation = {"lane_groups": int(picked[0]), "tables_in_shared_memory": bool(picked[1]),
                               "shared_bytes": int(picked[2])}
+        # the shared-memory opt-in on this device now, not at the first
+        # launch: a CUDA graph capture records the launch and runs nothing
+        with torch.cuda.device(dev):
+            check_launch(self.lib, self.lib.gmix_fused_substeps_prepare(self.dims_ref), "fused_substeps")
 
 
 def _launch_plan(meta, consts, learn: bool, analysis: bool, sample: bool, S: int, dev) -> _LaunchPlan:
@@ -951,15 +956,27 @@ def fused_substeps_clocks(meta: Meta, consts: Dict[str, torch.Tensor], fin: Dict
     return _launch(meta, consts, fin, learn, analysis, False, clocks=True)
 
 
+def prepare(meta: Meta, consts: Dict[str, torch.Tensor], learn: bool, analysis: bool, sample: bool, S: int,
+            device) -> None:
+    """Make the launch of this kind on a CUDA `device` ready before a CUDA
+    graph capture records it: the launch plan, and with it the kernel's
+    shared-memory opt-in on that device."""
+    _launch_plan(meta, consts, learn, analysis, sample, S, _cuda_device(device))
+
+
+def _cuda_device(device) -> torch.device:
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
 def fused_instantiation(meta: Meta, consts: Dict[str, torch.Tensor], learn: bool, analysis: bool, S: int, device) -> Dict:
     """Which instantiation of the kernel a launch at these sizes takes: the
     32-lane groups of a mixer row it is unrolled for, whether the byte's
     look-up tables have room in shared memory beside the working rows (else
     they stay in global memory), and the block's shared memory in bytes."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and dev.index is None:
-        dev = torch.device("cuda", torch.cuda.current_device())
-    return dict(_launch_plan(meta, consts, learn, analysis, False, S, dev).instantiation)
+    return dict(_launch_plan(meta, consts, learn, analysis, False, S, _cuda_device(device)).instantiation)
 
 
 # kernel launch counter: one per launch of the CUDA kernel, none for the

@@ -32,18 +32,33 @@ bit, and because the port is held bitwise against it:
   order.
 
 The step updates the state dict in place: the arenas are scattered into
-where they lie instead of being copied every byte. u32 values are int64
-tensors in [0, 2^32) (see state.py).
+where they lie instead of being copied every byte, and every other leaf
+that a step computes anew is copied back into its own storage at the step's
+end, so that no leaf moves. u32 values are int64 tensors in [0, 2^32) (see
+state.py).
+
+The compiled chunk (gmix_tpu's `make_chunk_fn` / `get_chunk_fn` and their
+sampling counterparts, at the end of this module) runs the same step: on a
+CUDA device as CUDA graphs that the host replays once a byte, on the CPU op
+by op. The step is written for the graphs: the byte index is a 0-d device
+tensor (the stream's first byte selects with it), the LSTM's epoch is read
+from its device leaf, and no op reads a value back to the host. What the
+host still decides (the direction, learn, analysis, sampling, the byte that
+wraps the LSTM's window, the deferred backward pass) picks the graph.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+import time
+import weakref
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from ..ops import rowmove as _rowmove
 from ..ops.murmur import MASK32, mul32, murmur3_u32, murmur3_u64
 from ..ops.rowmove import gather_rows, gather_rows_many, scatter_rows_many
+from . import fused as _fused
 from .fused import (  # noqa: F401  (_tri_solve: held against gmix_tpu's by the step tests)
     CODER_WIN,
     _onehot_rows,
@@ -71,6 +86,8 @@ class StepPlan:
         self.meta = meta
         self.S = num_streams
         self.device = torch.device(device)
+        if self.device.type == "cuda" and self.device.index is None:
+            self.device = torch.device("cuda", torch.cuda.current_device())
         self.fused = const_inputs(meta, True, self.device)
 
         def t(a, dtype=I64):
@@ -132,51 +149,83 @@ class StepPlan:
         if spec.lstm is not None:
             self.lstm = LstmPlan(spec.lstm, num_streams, self.device)
             self.lstm_ctx_slot = int(meta.slots["lstm_ctx"])
-            self._epoch = 0
+        # the host's copy of the LSTM's epoch and the leaf it was read from
+        self._epoch: Optional[int] = None
+        self._epoch_leaf: Optional[torch.Tensor] = None
+        # the compiled chunks of this plan's state (`get_chunk_fn`), their
+        # CUDA graphs' one memory pool and the stream they are captured on
+        self.fn_cache: Dict = {}
+        self._pool = None
+        self._capture_stream = None
 
-    def epoch(self, lst: Dict) -> int:
-        """The LSTM's epoch as a host integer. The byte step sets the state's
-        0-d `epoch` leaf to one of `lstm.epoch_leaves` and remembers its value;
-        only a leaf that came from elsewhere (a state taken from outside) is
-        read back from the device, once."""
-        if lst["epoch"] is not self.lstm.epoch_leaves[self._epoch]:
-            self._epoch = int(lst["epoch"])
-            lst["epoch"] = self.lstm.epoch_leaves[self._epoch]
+    def host_epoch(self, lst: Dict) -> int:
+        """The LSTM's epoch as a host integer, kept beside the state's 0-d
+        `epoch` leaf: read from the device once for a leaf this plan has not
+        seen (a state from outside, or after `forget_epoch`), then advanced
+        by `advance_epoch` without reading the device. The byte step reads
+        the leaf itself; the host's copy only chooses which graph runs (the
+        byte that wraps the window, the deferred backward pass)."""
+        if lst["epoch"] is not self._epoch_leaf:
+            self._epoch, self._epoch_leaf = int(lst["epoch"]), lst["epoch"]
         return self._epoch
+
+    def advance_epoch(self, lst: Dict) -> None:
+        """After a byte's forward pass (`lst` the state's LSTM leaves)."""
+        self._epoch = (self.host_epoch(lst) + 1) % self.meta.spec.lstm.horizon
+
+    def forget_epoch(self) -> None:
+        """The state's leaves were refilled from outside: read the epoch again."""
+        self._epoch_leaf = None
+
+    def wraps(self, state: Dict) -> bool:
+        """Whether the next byte's forward pass wraps the LSTM's window (its
+        byte end then runs the backward pass, or leaves it to the caller)."""
+        lst = state["stm"].get("lstm")
+        return lst is not None and self.host_epoch(lst) == self.meta.spec.lstm.horizon - 1
 
     def take_epoch(self, src: "StepPlan", src_lst: Dict, lst: Dict) -> None:
         """For `lst`, a copy of the LSTM state `src_lst` that the plan `src`
-        runs: take over src's host epoch and give the copy its leaf from this
-        plan's constants, so that neither plan reads the device when the two
-        run side by side. A leaf that src has not set stays, to be read once."""
-        if src_lst["epoch"] is src.lstm.epoch_leaves[src._epoch]:
-            self._epoch = src._epoch
-            lst["epoch"] = self.lstm.epoch_leaves[self._epoch]
+        runs: take over src's host epoch, so that neither plan reads the
+        device when the two run side by side. A leaf that src has not read
+        stays, to be read once."""
+        if src._epoch_leaf is not None and src_lst["epoch"] is src._epoch_leaf:
+            self._epoch, self._epoch_leaf = src._epoch, lst["epoch"]
 
-    def lstm_forward(self, stm: Dict, ltm: Dict) -> None:
-        """The LSTM's forward pass at the state's epoch, which it advances."""
-        e = self.epoch(stm["lstm"])
-        _lstm_forward(stm, ltm, self.lstm, e, self.lstm_ctx_slot)
-        self._epoch = (e + 1) % self.meta.spec.lstm.horizon
+    def graph_pool(self):
+        """The memory pool that every CUDA graph of this plan is captured
+        into, and the stream they are captured on (made on first use)."""
+        if self._pool is None:
+            with torch.cuda.device(self.device):
+                self._pool = torch.cuda.graph_pool_handle()
+                self._capture_stream = torch.cuda.Stream(self.device)
+        return self._pool, self._capture_stream
 
 
-def _boundary(stm: Dict, t: int, plan: StepPlan) -> None:
+def _as_index(t, device) -> torch.Tensor:
+    """A byte index as a 0-d int64 tensor on `device`: a tensor as it is, a
+    host integer filled into a new one (a fill, no copy from host memory)."""
+    if torch.is_tensor(t):
+        return t
+    return torch.full((), int(t), dtype=I64, device=device)
+
+
+def _boundary(stm: Dict, t, plan: StepPlan) -> None:
     """Byte-boundary contexts (gmix_tpu.core.step._boundary up to the PPM
     prediction and the LSTM's forward pass, which follow in `_byte_inputs`);
-    updates stm in place."""
+    updates stm in place. `t`, the byte index, is a 0-d device tensor (or a
+    host integer): the stream's first byte selects with it, as gmix_tpu's
+    `not_first = t > 0` does, so one program serves every byte."""
     meta = plan.meta
     spec = meta.spec
     s_ix = plan.s_ix
+    not_first = _as_index(t, plan.device) > 0
     completed = stm["acc"]
     # PPM count update with the completed byte, against the PRE-update
     # contexts, at every byte (the stream's first included)
     if spec.ppm is not None:
         _ppm_update(stm, completed, plan)
-    if t > 0:
-        last_byte = completed
-        recent = torch.cat([completed[:, None], stm["recent"][:, :-1]], dim=1)
-    else:
-        last_byte, recent = stm["last_byte"], stm["recent"]
+    last_byte = torch.where(not_first, completed, stm["last_byte"])
+    recent = torch.where(not_first, torch.cat([completed[:, None], stm["recent"][:, :-1]], dim=1), stm["recent"])
     ctx = stm["ctx"].clone()
     ctx[:, plan.byte_ctx_cols] = torch.cat([last_byte[:, None], recent[:, 1:10]], dim=1)
 
@@ -198,10 +247,10 @@ def _boundary(stm: Dict, t: int, plan: StepPlan) -> None:
     # The difference is masked to 32 bits before the multiply: it can be
     # negative, and an unmasked product overflows int64.
     if spec.roll_ctxs:
-        h_new = stm["roll_h"]
-        if t > 0:
-            old_b = stm["recent"][:, plan.roll_old_ix]
-            h_new = (mul32((h_new - old_b * plan.roll_pows) & MASK32, ROLL_BASE) + completed[:, None]) & MASK32
+        h_old = stm["roll_h"]
+        old_b = stm["recent"][:, plan.roll_old_ix]
+        h_rolled = (mul32((h_old - old_b * plan.roll_pows) & MASK32, ROLL_BASE) + completed[:, None]) & MASK32
+        h_new = torch.where(not_first, h_rolled, h_old)
         ctx[:, plan.roll_slots] = murmur3_u32(h_new)
         stm["roll_h"] = h_new
 
@@ -222,15 +271,20 @@ def _boundary(stm: Dict, t: int, plan: StepPlan) -> None:
     stm.update(last_byte=last_byte, recent=recent, acc=torch.zeros_like(completed), ctx=ctx)
 
 
-def _byte_inputs(state: Dict, data_buf: torch.Tensor, code_buf: torch.Tensor, t: int,
+def _byte_inputs(state: Dict, data_buf: torch.Tensor, code_buf: torch.Tensor, t,
                  decode: bool, plan: StepPlan, analysis: bool = True,
-                 sample_u: Optional[torch.Tensor] = None, inv_temp: Optional[torch.Tensor] = None):
+                 sample_u: Optional[torch.Tensor] = None, inv_temp: Optional[torch.Tensor] = None,
+                 col: Optional[torch.Tensor] = None):
     """The byte step up to the sub-steps: boundary contexts, the match
     pointer logic, the gathers of the per-byte working sets and the coder
     window. Updates `state["stm"]` in place and returns (fin, work, ix): the
     packed inputs of `fused_substeps`, the working sets they were packed
     from, and the row indices the byte end scatters back to. `sample_u` and
-    `inv_temp` make it a sampling step (`_byte_step`)."""
+    `inv_temp` make it a sampling step (`_byte_step`). `t` is the byte index
+    (a 0-d device tensor or a host integer), `col` the byte's column of
+    `data_buf` when that is not `t` (a compiled chunk's window of the
+    input). With an LSTM the forward pass advances the state's epoch leaf;
+    the plan's host copy of it is the caller's to advance."""
     meta = plan.meta
     spec = meta.spec
     stm, ltm, coder, metrics = state["stm"], state["ltm"], state["coder"], state["metrics"]
@@ -241,8 +295,10 @@ def _byte_inputs(state: Dict, data_buf: torch.Tensor, code_buf: torch.Tensor, t:
     NA = len(spec.apm)
 
     # ---- byte boundary: contexts ----
+    t = _as_index(t, plan.device)
+    col = t if col is None else col
     _boundary(stm, t, plan)
-    data_byte = data_buf[:, t].to(I64)
+    data_byte = data_buf.index_select(1, col.reshape(1))[:, 0].to(I64)
     work: Dict = {"max_steps": ltm["mix_max_steps"]}
 
     # ---- with an LSTM: the PPM prediction from rows gathered on their own,
@@ -252,7 +308,7 @@ def _byte_inputs(state: Dict, data_buf: torch.Tensor, code_buf: torch.Tensor, t:
         if spec.ppm is not None:
             ppm_cv, ppm_ix = _ppm_index(stm["ctx"], plan)
             _ppm_predict(stm, gather_rows(stm["ppm_tbl"], ppm_ix), ppm_cv, plan)
-        plan.lstm_forward(stm, ltm)
+        _lstm_forward(stm, ltm, plan.lstm, plan.lstm_ctx_slot)
         lst = stm["lstm"]
         work["lstm_probs"] = lst["probs"]
         work["lstm_regs"] = torch.stack([lst["top"], lst["bot"], lst["mid"], torch.zeros_like(lst["top"])], dim=1)
@@ -354,12 +410,13 @@ def _byte_inputs(state: Dict, data_buf: torch.Tensor, code_buf: torch.Tensor, t:
     return fin, work, ix
 
 
-def _byte_finish(state: Dict, data_buf: torch.Tensor, t: int, plan: StepPlan, fo: Dict, work: Dict,
-                 ix: Dict, learn: bool, bptt: bool = True):
+def _byte_finish(state: Dict, data_buf: torch.Tensor, col: torch.Tensor, plan: StepPlan, fo: Dict, work: Dict,
+                 ix: Dict, learn: bool, bptt: bool = True, wrap: bool = False):
     """The byte step after the sub-steps: registers back into the state, the
     byte-end scatters, the history append, the match-table write and the
-    LSTM's byte end (`bptt`: see `_byte_step`). Returns the encoder's renorm
-    bytes of this input byte (win, nw)."""
+    LSTM's byte end (`bptt`, `wrap`: see `_step`). Writes the byte to
+    `data_buf` at column `col` (a 0-d device tensor) and returns the
+    encoder's renorm bytes of this input byte (win, nw)."""
     meta = plan.meta
     spec = meta.spec
     stm, ltm, coder, metrics = state["stm"], state["ltm"], state["coder"], state["metrics"]
@@ -433,54 +490,419 @@ def _byte_finish(state: Dict, data_buf: torch.Tensor, t: int, plan: StepPlan, fo
             old = ltm["match_tbl"][s_ix, ix["match_ix"]]
             ltm["match_tbl"][s_ix, ix["match_ix"]] = torch.where(append[:, None], newp[:, None], old)
         if spec.lstm is not None:
-            _lstm_perceive(stm, ltm, cur_byte, plan.lstm, plan.epoch(stm["lstm"]), bptt)
+            _lstm_perceive(stm, ltm, cur_byte, plan.lstm, wrap, bptt)
 
     # the reconstructed byte (decode reconstructs; encode rewrites it)
-    data_buf[:, t] = cur_byte.to(data_buf.dtype)
+    data_buf.index_copy_(1, col.reshape(1), cur_byte.to(data_buf.dtype)[:, None])
     return win_out, nw_out
 
 
-def _byte_step(state: Dict, data_buf: torch.Tensor, code_buf: torch.Tensor, t: int,
+def _leaf_refs(state: Dict, refs: Optional[List] = None) -> List[Tuple[Dict, str, torch.Tensor]]:
+    """(dict, key, tensor) of every leaf of a state, in order."""
+    refs = [] if refs is None else refs
+    for k, v in state.items():
+        if isinstance(v, dict):
+            _leaf_refs(v, refs)
+        else:
+            refs.append((state, k, v))
+    return refs
+
+
+def _keep_storage(refs: List[Tuple[Dict, str, torch.Tensor]]) -> None:
+    """Put every leaf that a step has rebound back into the tensor that held
+    it before: the new value is copied into the old storage and the dict
+    holds the old tensor again. A captured graph reads and writes the state
+    at fixed addresses, so a step leaves each leaf where it found it (the
+    arenas are written in place by the row movers and need no copy). A new
+    value that shares storage with some leaf is copied aside first, so that
+    no copy reads what another one has overwritten."""
+    moved = [(d, k, old, d[k]) for d, k, old in refs if d[k] is not old]
+    if not moved:
+        return
+    held = {old.untyped_storage().data_ptr() for _, _, old in refs}
+    staged = []
+    for d, k, old, new in moved:
+        if new.shape != old.shape or new.dtype != old.dtype or new.device != old.device:
+            raise RuntimeError(f"byte step: leaf {k!r} came back as {tuple(new.shape)} {new.dtype} on {new.device}, "
+                               f"was {tuple(old.shape)} {old.dtype} on {old.device}")
+        staged.append((d, k, old, new.clone() if new.untyped_storage().data_ptr() in held else new))
+    for d, k, old, new in staged:
+        old.copy_(new)
+        d[k] = old
+
+
+def _step(state: Dict, data_buf: torch.Tensor, code_buf: torch.Tensor, t: torch.Tensor, col: torch.Tensor,
+          decode: bool, plan: StepPlan, learn: bool, analysis: bool, bptt: bool, wrap: bool,
+          sample_u: Optional[torch.Tensor] = None, inv_temp: Optional[torch.Tensor] = None):
+    """One byte step with every host choice made, on device tensors alone:
+    what a graph of the compiled chunk captures, and what `_byte_step` runs
+    op by op. `t` is the byte index and `col` its column of `data_buf`, both
+    0-d int64 tensors on the state's device; `wrap` says that this byte's
+    forward pass wraps the LSTM's window (its byte end then runs the backward
+    pass when `bptt` is on). Every state leaf keeps its storage
+    (`_keep_storage`)."""
+    refs = _leaf_refs(state)
+    fin, work, ix = _byte_inputs(state, data_buf, code_buf, t, decode, plan, analysis, sample_u, inv_temp, col)
+    fo = fused_substeps(plan.meta, plan.fused, fin, learn, analysis, sample_u is not None)
+    out = _byte_finish(state, data_buf, col, plan, fo, work, ix, learn, bptt, wrap)
+    _keep_storage(refs)
+    return out
+
+
+def _byte_step(state: Dict, data_buf: torch.Tensor, code_buf: torch.Tensor, t,
                decode: bool, plan: StepPlan, learn: bool = True, analysis: bool = True, bptt: bool = True,
                sample_u: Optional[torch.Tensor] = None, inv_temp: Optional[torch.Tensor] = None):
-    """One byte for all S streams: boundary work, 8 bit sub-steps, byte-end
-    learn. Updates `state` and `data_buf[:, t]` in place and returns the
-    encoder's renorm bytes of this input byte: (win (S, 40) u8, nw (S,) u8).
-    Decode reads the code stream from `code_buf` (S, cap) u8.
+    """One byte for all S streams, op by op: boundary work, 8 bit sub-steps,
+    byte-end learn. Updates `state` and `data_buf[:, t]` in place, every
+    leaf in its own storage, and returns the encoder's renorm bytes of this
+    input byte: (win (S, 40) u8, nw (S,) u8). Decode reads the code stream
+    from `code_buf` (S, cap) u8. `t` is a host integer or a 0-d int64 tensor
+    on the state's device.
 
     With an LSTM and `bptt` (gmix_tpu's mode "cond") the byte that wraps the
     horizon window runs the backward pass at its end, before the output
     layer's SGD; without `bptt` (mode "defer") the caller runs `lstm_bptt`
     after that byte, which then reads the slot the SGD has just written.
+    Which byte wraps, the plan knows on the host (`StepPlan.host_epoch`).
 
     A sampling step (learn off, encode) takes `sample_u` (8, S) float32
     uniforms and `inv_temp`, a one-element float32 tensor, both on the
     state's device: the byte's bits are drawn in the sub-steps and coded, and
     the drawn byte is written to `data_buf[:, t]`."""
-    fin, work, ix = _byte_inputs(state, data_buf, code_buf, t, decode, plan, analysis, sample_u, inv_temp)
-    fo = fused_substeps(plan.meta, plan.fused, fin, learn, analysis, sample_u is not None)
-    return _byte_finish(state, data_buf, t, plan, fo, work, ix, learn, bptt)
-
-
-def gen_chunk(state: Dict, data_buf: torch.Tensor, t0: int, u: torch.Tensor, inv_temp: torch.Tensor,
-              plan: StepPlan) -> None:
-    """Sample `u.shape[0] // 8` bytes from byte offset t0 into `data_buf`
-    (gmix_tpu's `make_gen_chunk_fn_raw`): learn off, encode, the LSTM's
-    backward pass "cond" (with learn off it never runs), analysis on as in
-    gmix_tpu's generation chunk, whatever the predictor's flag; the code
-    bytes go to a sink and are dropped. `u` is the chunk's (chunk * 8, S)
-    float32 uniforms on the device: byte i draws its 8 bits from rows
-    8 i .. 8 i + 7. Nothing is read back from the device."""
-    S = data_buf.shape[0]
-    chunk = u.shape[0] // 8
-    u = u.view(chunk, 8, S)
-    code_buf = torch.zeros((S, 8), dtype=torch.uint8, device=data_buf.device)  # sink
-    for i in range(chunk):
-        _byte_step(state, data_buf, code_buf, t0 + i, False, plan, learn=False, analysis=True, bptt=True,
-                   sample_u=u[i], inv_temp=inv_temp)
+    wrap = plan.wraps(state)
+    t = _as_index(t, plan.device)
+    out = _step(state, data_buf, code_buf, t, t, decode, plan, learn, analysis, bptt, wrap, sample_u, inv_temp)
+    if plan.meta.spec.lstm is not None:
+        plan.advance_epoch(state["stm"]["lstm"])
+    return out
 
 
 def lstm_bptt(state: Dict, plan: StepPlan) -> None:
     """The LSTM's backward pass and Adam step on the recorded window, for a
-    caller that defers it to the end of a horizon-aligned segment."""
+    caller that defers it to the end of a horizon-aligned segment; every leaf
+    keeps its storage."""
+    refs = _leaf_refs(state)
     _lstm_bptt(state["stm"]["lstm"], state["ltm"]["lstm"], plan.lstm)
+    _keep_storage(refs)
+
+
+# ---------------------------------------------------------------------------
+# the compiled chunk: the byte step captured as CUDA graphs
+# ---------------------------------------------------------------------------
+
+
+def _counted():
+    """The wrappers that count their kernel's launches."""
+    return (_rowmove.gather_rows, _rowmove.gather_rows_many, _rowmove.scatter_rows, _rowmove.scatter_rows_many,
+            _fused.fused_substeps)
+
+
+class CapturedStep:
+    """One CUDA graph of byte-step work, captured on its plan's device and
+    stream into the plan's memory pool, and the hand-written launches it
+    holds. Capturing records the work and runs none of it; the wrappers'
+    launch counts, which Python raises while the work is recorded, are set
+    back, and each replay adds the graph's launches to them."""
+
+    def __init__(self, plan: StepPlan, body: Callable[[], None]):
+        _rowmove.prepare(plan.device)
+        counters = _counted()
+        before = [w.launches for w in counters]
+        pool, stream = plan.graph_pool()
+        self.graph = torch.cuda.CUDAGraph()
+        t0 = time.perf_counter()
+        try:
+            with torch.cuda.device(plan.device), torch.cuda.graph(self.graph, pool=pool, stream=stream):
+                body()
+        finally:
+            self.launches = [(w, w.launches - n) for w, n in zip(counters, before) if w.launches != n]
+            for w, n in zip(counters, before):
+                w.launches = n
+        self.capture_s = time.perf_counter() - t0
+
+    def replay(self) -> None:
+        self.graph.replay()
+        for w, n in self.launches:
+            w.launches += n
+
+
+class _Compiled:
+    """What the two compiled chunks share: the static tensors their graphs
+    read and write, the graphs by variant, and the plan and state leaves the
+    graphs were captured for (the first CUDA call's)."""
+
+    def __init__(self, meta: Meta, chunk: int):
+        if chunk <= 0:
+            raise ValueError(f"a chunk of {chunk} bytes")
+        self.meta = meta
+        self.chunk = chunk
+        self.horizon = meta.spec.lstm.horizon if meta.spec.lstm is not None else 0
+        self.graphs: Dict = {}
+        # the plan (weakly: the plan keeps this chunk in its cache) and the
+        # state leaves that the graphs were captured for
+        self._plan: Optional[weakref.ref] = None
+        self._leaves: List[Tuple[Tuple[str, ...], torch.Tensor]] = []
+        self.buf: Dict[str, torch.Tensor] = {}
+
+    def _bind(self, state: Dict, plan: StepPlan, data_buf: torch.Tensor, t0: int) -> None:
+        """Check the call and make the static tensors on its first CUDA call:
+        the byte index `t`, the column `col` of the chunk's input window
+        `data`, the encoder's `win` / `nw` per byte. At every call a state
+        leaf that was replaced since the capture (a tensor the graphs do not
+        know) is copied into the one they know, which takes its place."""
+        S = plan.S
+        if data_buf.dim() != 2 or data_buf.shape[0] != S or data_buf.device != plan.device:
+            raise ValueError(f"data buffer {tuple(data_buf.shape)} on {data_buf.device}, expected ({S}, n) on {plan.device}")
+        if t0 < 0 or t0 + self.chunk > data_buf.shape[1]:
+            raise ValueError(f"bytes [{t0}, {t0 + self.chunk}) of a {data_buf.shape[1]}-byte buffer")
+        if self._plan is None:
+            self._plan = weakref.ref(plan)
+            self._leaves = [(path, leaf) for path, leaf in _leaf_paths(state)]
+            dev, c = plan.device, self.chunk
+            self.buf = {
+                "t": torch.zeros((), dtype=I64, device=dev),
+                "col": torch.zeros((), dtype=I64, device=dev),
+                "data": torch.zeros((S, c), dtype=data_buf.dtype, device=dev),
+                "win": torch.zeros((c, S, CODER_WIN), dtype=torch.uint8, device=dev),
+                "nw": torch.zeros((c, S), dtype=torch.uint8, device=dev),
+                "sink": torch.zeros((S, 1), dtype=torch.uint8, device=dev),
+            }
+        elif plan is not self._plan():
+            raise ValueError("a compiled chunk runs the plan (and the state) it was first called with")
+        refilled = False
+        for path, leaf in self._leaves:
+            d = state
+            for k in path[:-1]:
+                d = d[k]
+            cur = d[path[-1]]
+            if cur is not leaf:
+                if cur.shape != leaf.shape or cur.dtype != leaf.dtype:
+                    raise ValueError(f"state leaf {'/'.join(path)}: {tuple(cur.shape)} {cur.dtype}, the graphs hold "
+                                     f"{tuple(leaf.shape)} {leaf.dtype}")
+                leaf.copy_(cur)
+                d[path[-1]] = leaf
+                refilled = True
+        if refilled:
+            plan.forget_epoch()
+        if data_buf.dtype != self.buf["data"].dtype:
+            raise ValueError(f"data buffer of {data_buf.dtype}, the graphs hold {self.buf['data'].dtype}")
+
+    def _graph(self, key, plan: StepPlan, body: Callable[[], Callable[[], None]]) -> CapturedStep:
+        """The graph of variant `key`, captured from `body()` when first
+        needed."""
+        g = self.graphs.get(key)
+        if g is None:
+            g = self.graphs[key] = CapturedStep(plan, body())
+        return g
+
+    def _window_in(self, data_buf: torch.Tensor, t0: int) -> None:
+        b = self.buf
+        b["data"].copy_(data_buf[:, t0 : t0 + self.chunk])
+        b["t"].fill_(t0)
+        b["col"].zero_()
+
+    def _advance(self) -> None:
+        """The graph's last ops: on to the next byte."""
+        self.buf["t"].add_(1)
+        self.buf["col"].add_(1)
+
+
+def _leaf_paths(state: Dict, prefix: Tuple[str, ...] = ()):
+    for k, v in state.items():
+        if isinstance(v, dict):
+            yield from _leaf_paths(v, prefix + (k,))
+        else:
+            yield prefix + (k,), v
+
+
+class ChunkFn(_Compiled):
+    """`chunk` byte steps over [t0, t0 + chunk) of one predictor's state
+    (gmix_tpu's `make_chunk_fn_raw`):
+
+        win, nw = fn(state, plan, data_buf, code_buf, t0, decode)
+
+    updates the state and `data_buf[:, t0:t0 + chunk]` in place and returns
+    the encoder's renorm bytes of each byte, win (chunk, S, 40) u8 and nw
+    (chunk, S) u8. `code_buf` (S, cap) u8 is the decoder's code stream
+    (encode does not read it). With an LSTM whose horizon divides `chunk`,
+    when learning, the backward pass is deferred to after every horizon-th
+    byte of the chunk (t0 must then be horizon-aligned); otherwise it runs
+    inside the byte that wraps the window.
+
+    On CPU tensors the steps run op by op (`_eager`, which is the plain
+    version of the graphs). On a CUDA device the call replays CUDA graphs of
+    `_step`, one per variant the host picks: the direction, the byte that
+    wraps the LSTM's window, and the deferred backward pass alone. A graph is
+    captured when its variant is first needed, for the plan and the state
+    leaves of the first call (nothing runs while it is captured: the first
+    byte too is a replay). The byte index is a device tensor that each
+    replay advances; the chunk's input bytes, the code stream and the
+    encoder's (win, nw) go through static buffers, copied in and out once a
+    call. A capture or a replay that fails raises."""
+
+    def __init__(self, meta: Meta, chunk: int, learn: bool = True, analysis: bool = True):
+        super().__init__(meta, chunk)
+        self.learn = learn
+        self.analysis = analysis
+        self.defer = learn and self.horizon > 0 and chunk % self.horizon == 0
+
+    def _eager(self, state: Dict, plan: StepPlan, data_buf: torch.Tensor, code_buf: torch.Tensor, t0: int,
+               decode: bool = False):
+        wins, nws = [], []
+        for t in range(t0, t0 + self.chunk):
+            win, nw = _byte_step(state, data_buf, code_buf, t, decode, plan, learn=self.learn,
+                                 analysis=self.analysis, bptt=not self.defer)
+            if self.defer and (t + 1 - t0) % self.horizon == 0:
+                lstm_bptt(state, plan)
+            wins.append(win)
+            nws.append(nw)
+        return torch.stack(wins), torch.stack(nws)
+
+    def __call__(self, state: Dict, plan: StepPlan, data_buf: torch.Tensor, code_buf: torch.Tensor, t0: int,
+                 decode: bool = False):
+        if data_buf.device.type == "cpu":
+            return self._eager(state, plan, data_buf, code_buf, t0, decode)
+        return self._replayed(state, plan, data_buf, code_buf, t0, decode)
+
+    def _replayed(self, state: Dict, plan: StepPlan, data_buf: torch.Tensor, code_buf: torch.Tensor, t0: int,
+                  decode: bool = False):
+        """The graphs' loop: bind, buffers in, one replay a byte (and the
+        deferred backward pass), buffers out."""
+        if self.defer and t0 % self.horizon:
+            raise ValueError("t0 must be a multiple of the LSTM horizon when the horizon divides the chunk")
+        self._bind(state, plan, data_buf, t0)
+        if decode:
+            self._code_in(code_buf)
+        _fused.prepare(self.meta, plan.fused, self.learn, self.analysis, False, plan.S, plan.device)
+        self._window_in(data_buf, t0)
+        lst = state["stm"].get("lstm")
+        for i in range(self.chunk):
+            wrap = self.learn and plan.wraps(state)
+            self._graph(("decode" if decode else "encode", "wrap" if wrap else "byte"), plan,
+                        lambda: self._byte_body(state, plan, decode, wrap)).replay()
+            if lst is not None:
+                plan.advance_epoch(lst)
+            if self.defer and (i + 1) % self.horizon == 0:
+                self._graph(("bptt",), plan, lambda: lambda: lstm_bptt(state, plan)).replay()
+        data_buf[:, t0 : t0 + self.chunk].copy_(self.buf["data"])
+        return self.buf["win"].clone(), self.buf["nw"].clone()
+
+    def _code_in(self, code_buf: torch.Tensor) -> None:
+        """The decoder's code stream into the static code buffer: zeros past
+        the call's bytes read as the reads past its end do (0). The buffer
+        grows (to a power of two) for a longer stream, and the decode graphs,
+        which hold its address, are captured again."""
+        S, n = code_buf.shape
+        code = self.buf.get("code")
+        if code is None or code.shape[1] < n:
+            cap = 1 << max(n - 1, 63).bit_length()
+            self.buf["code"] = code = torch.zeros((S, cap), dtype=torch.uint8, device=code_buf.device)
+            self.graphs = {k: g for k, g in self.graphs.items() if k[0] != "decode"}
+        code[:, :n].copy_(code_buf)
+        code[:, n:].zero_()
+
+    def _byte_body(self, state: Dict, plan: StepPlan, decode: bool, wrap: bool) -> Callable[[], None]:
+        b = self.buf
+
+        def body() -> None:
+            win, nw = _step(state, b["data"], b["code"] if decode else b["sink"], b["t"], b["col"], decode, plan,
+                            self.learn, self.analysis, not self.defer, wrap)
+            at = b["col"].reshape(1)
+            b["win"].index_copy_(0, at, win[None])
+            b["nw"].index_copy_(0, at, nw[None])
+            self._advance()
+
+        return body
+
+
+class GenChunkFn(_Compiled):
+    """`chunk` sampled bytes from byte offset t0 (gmix_tpu's
+    `make_gen_chunk_fn_raw`):
+
+        fn(state, plan, data_buf, t0, u, inv_temp)
+
+    learn off, encode, analysis on as in gmix_tpu's generation chunk,
+    whatever the predictor's flag; the code bytes go to a sink and are
+    dropped. `u` is the chunk's (chunk * 8, S) float32 uniforms on the
+    device: byte i draws its 8 bits from rows 8 i .. 8 i + 7; `inv_temp` a
+    one-element float32 tensor. The sampled bytes land in
+    `data_buf[:, t0:t0 + chunk]`. Nothing is read back from the device.
+
+    On CPU tensors the steps run op by op (`_eager`); on a CUDA device one
+    CUDA graph of the sampling step is replayed per byte (learn off, so no
+    byte runs the backward pass), with the uniforms and the temperature
+    copied into static buffers once a call."""
+
+    def _eager(self, state: Dict, plan: StepPlan, data_buf: torch.Tensor, t0: int, u: torch.Tensor,
+               inv_temp: torch.Tensor) -> None:
+        S = data_buf.shape[0]
+        u = u.view(self.chunk, 8, S)
+        code_buf = torch.zeros((S, 8), dtype=torch.uint8, device=data_buf.device)  # sink
+        for i in range(self.chunk):
+            _byte_step(state, data_buf, code_buf, t0 + i, False, plan, learn=False, analysis=True, bptt=True,
+                       sample_u=u[i], inv_temp=inv_temp)
+
+    def __call__(self, state: Dict, plan: StepPlan, data_buf: torch.Tensor, t0: int, u: torch.Tensor,
+                 inv_temp: torch.Tensor) -> None:
+        if data_buf.device.type == "cpu":
+            return self._eager(state, plan, data_buf, t0, u, inv_temp)
+        self._replayed(state, plan, data_buf, t0, u, inv_temp)
+
+    def _replayed(self, state: Dict, plan: StepPlan, data_buf: torch.Tensor, t0: int, u: torch.Tensor,
+                  inv_temp: torch.Tensor) -> None:
+        """The graph's loop: bind, buffers in, one replay a byte, bytes out."""
+        self._bind(state, plan, data_buf, t0)
+        b = self.buf
+        if "u" not in b:
+            b["u"] = torch.zeros((self.chunk, 8, plan.S), dtype=torch.float32, device=plan.device)
+            b["inv_temp"] = torch.zeros((1,), dtype=torch.float32, device=plan.device)
+        _fused.prepare(self.meta, plan.fused, False, True, True, plan.S, plan.device)
+        b["u"].copy_(u.view(self.chunk, 8, plan.S))
+        b["inv_temp"].copy_(inv_temp.reshape(1))
+        self._window_in(data_buf, t0)
+        lst = state["stm"].get("lstm")
+        for _ in range(self.chunk):
+            self._graph(("sample",), plan, lambda: self._sample_body(state, plan)).replay()
+            if lst is not None:
+                plan.advance_epoch(lst)
+        data_buf[:, t0 : t0 + self.chunk].copy_(b["data"])
+
+    def _sample_body(self, state: Dict, plan: StepPlan) -> Callable[[], None]:
+        b = self.buf
+
+        def body() -> None:
+            u = b["u"].index_select(0, b["col"].reshape(1))[0]
+            _step(state, b["data"], b["sink"], b["t"], b["col"], False, plan, False, True, True, False,
+                  sample_u=u, inv_temp=b["inv_temp"])
+            self._advance()
+
+        return body
+
+
+def make_chunk_fn(meta: Meta, chunk: int, learn: bool = True, analysis: bool = True) -> ChunkFn:
+    """A compiled chunk of `chunk` byte steps (`ChunkFn`), not yet captured."""
+    return ChunkFn(meta, chunk, learn, analysis)
+
+
+def make_gen_chunk_fn(meta: Meta, chunk: int) -> GenChunkFn:
+    """A compiled sampling chunk of `chunk` bytes (`GenChunkFn`), not yet
+    captured."""
+    return GenChunkFn(meta, chunk)
+
+
+def get_chunk_fn(plan: StepPlan, chunk: int, learn: bool = True, analysis: bool = True) -> ChunkFn:
+    """The plan's compiled chunk of this kind, made once (gmix_tpu caches one
+    jitted program per spec and chunk; a graph is bound to the storage of
+    one state, so the port caches per plan, i.e. per predictor or shard)."""
+    key = ("chunk", chunk, learn, analysis)
+    if key not in plan.fn_cache:
+        plan.fn_cache[key] = make_chunk_fn(plan.meta, chunk, learn, analysis)
+    return plan.fn_cache[key]
+
+
+def get_gen_chunk_fn(plan: StepPlan, chunk: int) -> GenChunkFn:
+    """The plan's compiled sampling chunk of `chunk` bytes, made once."""
+    key = ("gen", chunk)
+    if key not in plan.fn_cache:
+        plan.fn_cache[key] = make_gen_chunk_fn(plan.meta, chunk)
+    return plan.fn_cache[key]

@@ -55,6 +55,18 @@ int launch_q(const Dims& d, const FusedIO& io, size_t bytes, bool clocks, cudaSt
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+template <bool kTables>
+int prepare_q(const Dims& d) {
+  switch (d.P / 32) {
+    case 1: return prepare_fused_variant<1, kTables>();
+    case 2: return prepare_fused_variant<2, kTables>();
+    case 4: return prepare_fused_variant<4, kTables>();
+    case 8: return prepare_fused_variant<8, kTables>();
+    case 16: return prepare_fused_variant<16, kTables>();
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 int launch_fused(const FusedDims* hd, const FusedIO* io, void* stream, bool clocks) {
   Dims d;
   bool tables;
@@ -96,6 +108,18 @@ int gmix_fused_substeps_plan(const FusedDims* hd, int64_t* out) {
   out[1] = tables ? 1 : 0;
   out[2] = static_cast<int64_t>(bytes);
   return 0;
+}
+
+// What the first launch with these sizes on the current device does before
+// it launches: raise the chosen instantiation's dynamic shared-memory limit.
+// A CUDA graph capture records launches and runs none, so the codec calls
+// this before it captures. Launches nothing.
+int gmix_fused_substeps_prepare(const FusedDims* hd) {
+  Dims d;
+  bool tables;
+  size_t bytes;
+  if (int rc = plan_fused(hd, &d, &tables, &bytes)) return rc;
+  return tables ? prepare_q<true>(d) : prepare_q<false>(d);
 }
 
 }  // extern "C"

@@ -12,27 +12,44 @@
 
 namespace gmix {
 
-template <>
-int launch_fused_variant<GMIX_Q, GMIX_TABLES != 0>(const Dims& d, const FusedIO& io, size_t smem_bytes, bool clocks,
-                                                   cudaStream_t stream) {
-  // the dynamic shared-memory limit is an attribute of the current device's
-  // context: it is raised once per device and instantiation, before the
-  // first launch on that device
+namespace {
+
+// The dynamic shared-memory limit is an attribute of the current device's
+// context: it is raised once per device and instantiation, before the first
+// launch on that device (or before a CUDA graph capture records one: the
+// capture only records).
+int raise_smem_limit(bool clocks) {
   constexpr int kMaxDevices = 64;
   static bool raised[kMaxDevices][2] = {};
   int dev = 0;
   cudaError_t rc = cudaGetDevice(&dev);
   if (rc != cudaSuccess) return static_cast<int>(rc);
   if (dev < 0 || dev >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
-  auto kernel = clocks ? fused_substeps_kernel<GMIX_Q, GMIX_TABLES != 0, true>
-                       : fused_substeps_kernel<GMIX_Q, GMIX_TABLES != 0, false>;
   if (!raised[dev][clocks]) {
+    auto kernel = clocks ? fused_substeps_kernel<GMIX_Q, GMIX_TABLES != 0, true>
+                         : fused_substeps_kernel<GMIX_Q, GMIX_TABLES != 0, false>;
     rc = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
     if (rc != cudaSuccess) return static_cast<int>(rc);
     raised[dev][clocks] = true;
   }
+  return 0;
+}
+
+}  // namespace
+
+template <>
+int launch_fused_variant<GMIX_Q, GMIX_TABLES != 0>(const Dims& d, const FusedIO& io, size_t smem_bytes, bool clocks,
+                                                   cudaStream_t stream) {
+  if (int rc = raise_smem_limit(clocks)) return rc;
+  auto kernel = clocks ? fused_substeps_kernel<GMIX_Q, GMIX_TABLES != 0, true>
+                       : fused_substeps_kernel<GMIX_Q, GMIX_TABLES != 0, false>;
   kernel<<<static_cast<unsigned int>(d.S), kThreads, smem_bytes, stream>>>(d, io);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <>
+int prepare_fused_variant<GMIX_Q, GMIX_TABLES != 0>() {
+  return raise_smem_limit(false);
 }
 
 }  // namespace gmix

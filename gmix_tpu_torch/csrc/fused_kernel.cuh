@@ -1530,11 +1530,17 @@ __global__ void __launch_bounds__(kThreads, 1) fused_substeps_kernel(const Dims 
 
 // Launch the instantiation for Q lane groups, with the tables in shared
 // memory or not. Defined once per pair by fused_inst.cu; fused.cu picks. Returns the launch's cudaError_t.
+// prepare_fused_variant does what the first launch on a device does before
+// it launches (raise the dynamic shared-memory limit) and launches nothing.
 template <int Q, bool kTables>
 int launch_fused_variant(const Dims& d, const FusedIO& io, size_t smem_bytes, bool clocks, cudaStream_t stream);
+template <int Q, bool kTables>
+int prepare_fused_variant();
 #define GMIX_DECLARE_VARIANT(Q_)                                                                         \
   template <> int launch_fused_variant<Q_, false>(const Dims&, const FusedIO&, size_t, bool, cudaStream_t); \
-  template <> int launch_fused_variant<Q_, true>(const Dims&, const FusedIO&, size_t, bool, cudaStream_t);
+  template <> int launch_fused_variant<Q_, true>(const Dims&, const FusedIO&, size_t, bool, cudaStream_t);  \
+  template <> int prepare_fused_variant<Q_, false>();                                                     \
+  template <> int prepare_fused_variant<Q_, true>();
 GMIX_DECLARE_VARIANT(1)
 GMIX_DECLARE_VARIANT(2)
 GMIX_DECLARE_VARIANT(4)

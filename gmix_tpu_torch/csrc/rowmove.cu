@@ -217,6 +217,16 @@ int gmix_empty_launch(void* stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// Load both movers' kernels on the current device (what their first launch
+// does), so that a CUDA graph capture, which records launches only, finds
+// them loaded. Launches nothing.
+int gmix_rowmove_prepare(void) {
+  cudaFuncAttributes attr;
+  cudaError_t rc = cudaFuncGetAttributes(&attr, gather_rows_many_kernel);
+  if (rc == cudaSuccess) rc = cudaFuncGetAttributes(&attr, scatter_rows_many_kernel);
+  return static_cast<int>(rc);
+}
+
 const char* gmix_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

@@ -162,6 +162,14 @@ def scatter_rows(tbl: torch.Tensor, idx: torch.Tensor, upd: torch.Tensor) -> tor
     return tbl
 
 
+def prepare(device) -> None:
+    """Load the movers' kernels on `device` (a CUDA device), as their first
+    launch would, before a CUDA graph capture records a launch."""
+    lib = load_kernels()
+    with torch.cuda.device(torch.device(device)):
+        check_launch(lib, lib.gmix_rowmove_prepare(), "rowmove prepare")
+
+
 def empty_launch(device) -> None:
     """Launch the library's empty kernel on `device`'s current stream: the
     device-side cost of a launch, for measurement beside the movers' times."""

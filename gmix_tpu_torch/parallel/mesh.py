@@ -8,14 +8,14 @@ S / n streams, and every other leaf (the LSTM's 0-d `epoch` and
 `update_steps`, shared by all streams) is replicated, as gmix_tpu's
 `_state_specs` places them.
 
-gmix_tpu's `make_sharded_chunk_fn` and `make_sharded_gen_fn` have no
-counterpart here: they are the shard loop of `core.codec.run_chunks` and
-`generate_bytes`, which step every shard's own unsharded predictor (its
-state, its `StepPlan`, its device) byte by byte. JAX needed `shard_map`
-because a jitted chunk program fed stream-sharded arrays kept global stream
-indices against local shards in its row scatters, and dropped the writes;
-the port has no such trap, since each shard runs the unsharded step on its
-own local tensors and never sees a global index.
+gmix_tpu's `make_sharded_chunk_fn` and `make_sharded_gen_fn` are a
+sharded `core.codec.Predictor`'s `chunk_fn` and `gen_fn`: every shard's own
+unsharded predictor (its state, its `StepPlan`, its device) runs its own
+compiled chunk, CUDA graphs captured on its device, in turn. JAX needed
+`shard_map` because a jitted chunk program fed stream-sharded arrays kept
+global stream indices against local shards in its row scatters, and
+dropped the writes; the port has no such trap, since each shard runs the
+unsharded step on its own local tensors and never sees a global index.
 
 A mesh may name one device more than once: `["cpu"] * 4` gives four shards
 on the CPU (as gmix_tpu's tests use 8 virtual CPU devices), and

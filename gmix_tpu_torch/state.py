@@ -13,7 +13,8 @@ with a leading stream axis S. Dtypes follow what torch can compute with:
 
 `state_to_numpy` restores gmix_tpu's dtypes and `state_from_numpy` takes them
 back, so a state moves between the two packages leaf for leaf. The port
-updates the arenas in place rather than copying them every byte.
+updates the arenas in place rather than copying them every byte, and keeps
+every leaf in its storage for the life of a predictor (`copy_into`).
 """
 from __future__ import annotations
 
@@ -249,6 +250,46 @@ def _numpy_dtype(path, t) -> np.dtype:
     if t.dtype == torch.int16:
         return np.dtype(np.uint16)
     return torch.empty((0,), dtype=t.dtype).numpy().dtype
+
+
+def copy_into(dst: Dict, src, prefix: tuple = ()) -> None:
+    """Copy every leaf of `src` into the leaf of `dst` at the same path, in
+    place, so that no leaf of `dst` changes its storage (a CUDA graph of the
+    byte step holds it). `src` holds the port's tensors, on any device, or
+    gmix_tpu's numpy arrays (`load_state`), converted one leaf at a time.
+    Paths, shapes and dtypes must match."""
+    if sorted(src) != sorted(dst):
+        raise ValueError(f"state at {'/'.join(prefix) or 'the root'}: keys {sorted(src)} for {sorted(dst)}")
+    for k, d in dst.items():
+        path, v = prefix + (k,), src[k]
+        if isinstance(d, dict):
+            copy_into(d, v, path)
+            continue
+        if not torch.is_tensor(v):
+            v = _to_torch(path, v, "cpu")
+        if v is d:
+            continue
+        if v.shape != d.shape or v.dtype != d.dtype:
+            raise ValueError(f"state leaf {'/'.join(path)}: {tuple(v.shape)} {v.dtype} for {tuple(d.shape)} {d.dtype}")
+        d.copy_(v)
+
+
+def into_storage(state: Dict, held: Dict) -> Dict:
+    """`state` with the storage of `held`: its values are copied into the
+    leaves of `held` (`copy_into`), which then take the place of its own
+    leaves in the dict; returns `state`, the same dict."""
+    copy_into(held, state)
+    _adopt(state, held)
+    return state
+
+
+def _adopt(dst: Dict, src: Dict) -> None:
+    """Every leaf of `src` into `dst` at the same path."""
+    for k, v in src.items():
+        if isinstance(v, dict):
+            _adopt(dst[k], v)
+        else:
+            dst[k] = v
 
 
 def state_from_numpy(tree, device="cpu") -> Dict:

@@ -151,6 +151,8 @@ def load_kernels() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         lib.gmix_empty_launch.argtypes = [ptr]
         lib.gmix_empty_launch.restype = ctypes.c_int
+        lib.gmix_rowmove_prepare.argtypes = []
+        lib.gmix_rowmove_prepare.restype = ctypes.c_int
         # (FusedDims* of int64 sizes, FusedIO* of device pointers, stream);
         # core/fused.py declares the two structures
         for name in ("gmix_fused_substeps", "gmix_fused_substeps_clocks"):
@@ -160,6 +162,10 @@ def load_kernels() -> ctypes.CDLL:
         # (FusedDims*, int64[3] out: Q, tables in shared memory, shared bytes)
         lib.gmix_fused_substeps_plan.argtypes = [ptr, ptr]
         lib.gmix_fused_substeps_plan.restype = ctypes.c_int
+        # (FusedDims*): the instantiation's shared-memory opt-in on the
+        # current device, before a CUDA graph capture
+        lib.gmix_fused_substeps_prepare.argtypes = [ptr]
+        lib.gmix_fused_substeps_prepare.restype = ctypes.c_int
         lib.gmix_cuda_error_string.argtypes = [ctypes.c_int]
         lib.gmix_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib

@@ -59,11 +59,10 @@ def test_lstm_is_the_same_on_the_card_and_on_the_cpu(cuda, bptt):
         st = init_state(meta, n_streams, device=dev)
         lp = lstm.LstmPlan(spec.lstm, n_streams, dev)
         for t in range(25):
-            e = t % horizon
             st["stm"]["ppm_probs"] = torch.as_tensor(aux[t], device=dev)
-            lstm._lstm_forward(st["stm"], st["ltm"], lp, e, int(meta.slots["lstm_ctx"]))
-            e_cur = (e + 1) % horizon
-            lstm._lstm_perceive(st["stm"], st["ltm"], torch.as_tensor(syms[t], device=dev), lp, e_cur, bptt)
+            lstm._lstm_forward(st["stm"], st["ltm"], lp, int(meta.slots["lstm_ctx"]))
+            e_cur = (t + 1) % horizon
+            lstm._lstm_perceive(st["stm"], st["ltm"], torch.as_tensor(syms[t], device=dev), lp, e_cur == 0, bptt)
             if not bptt and e_cur == 0:
                 lstm._lstm_bptt(st["stm"]["lstm"], st["ltm"]["lstm"], lp)
             st["stm"]["last_byte"] = torch.as_tensor(syms[t], device=dev)

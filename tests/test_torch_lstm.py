@@ -137,7 +137,7 @@ def test_forward_matches_eager_gmix_tpu(cells, warm):
         with jax.disable_jit():
             j_stm, j_ltm = j_step._lstm_forward(_jax_tree(tree["stm"]), _jax_tree(tree["ltm"]), meta)
         st = state_from_numpy(tree)
-        t_lstm._lstm_forward(st["stm"], st["ltm"], _plan(cells), epoch, slot)
+        t_lstm._lstm_forward(st["stm"], st["ltm"], _plan(cells), slot)
         got = state_to_numpy(st)
         _compare(jax.device_get({"stm": j_stm, "ltm": j_ltm}), {"stm": got["stm"], "ltm": got["ltm"]}, exact=False)
         assert int(got["stm"]["lstm"]["epoch"]) == (epoch + 1) % HZ
@@ -158,7 +158,8 @@ def test_perceive_without_bptt_is_bitwise(cells):
             j_stm, j_ltm = j_step._lstm_perceive(
                 _jax_tree(tree["stm"]), _jax_tree(tree["ltm"]), jnp.asarray(inp.astype(np.int32)), meta, "defer")
         st = state_from_numpy(tree)
-        t_lstm._lstm_perceive(st["stm"], st["ltm"], torch.tensor(inp.astype(np.int64)), _plan(cells), e_cur, bptt=False)
+        t_lstm._lstm_perceive(st["stm"], st["ltm"], torch.tensor(inp.astype(np.int64)), _plan(cells), e_cur == 0,
+                              bptt=False)
         got = state_to_numpy(st)
         _compare(jax.device_get({"stm": j_stm, "ltm": j_ltm}), {"stm": got["stm"], "ltm": got["ltm"]}, exact=True)
         last_e = (e_cur - 1) % HZ
@@ -236,7 +237,7 @@ def test_both_bptt_orders_match_gmix_tpu_and_differ():
                 j_lst, j_lw = j_step._lstm_bptt(j_stm["lstm"], j_ltm["lstm"], meta)
                 j_stm, j_ltm = dict(j_stm, lstm=j_lst), dict(j_ltm, lstm=j_lw)
         st = state_from_numpy(tree)
-        t_lstm._lstm_perceive(st["stm"], st["ltm"], t_inp, lp, 0, bptt=mode == "cond")
+        t_lstm._lstm_perceive(st["stm"], st["ltm"], t_inp, lp, True, bptt=mode == "cond")
         if mode == "defer":
             t_lstm._lstm_bptt(st["stm"]["lstm"], st["ltm"]["lstm"], lp)
         got = state_to_numpy(st)

@@ -1,6 +1,9 @@
 #!/usr/bin/env python3
 """Count the aten ops of one encode byte step and one sampling byte step of
-the PyTorch port on the CPU, at ref-noppm, ref-ppm and ref-full.
+the PyTorch port on the CPU, at ref-noppm, ref-ppm and ref-full, and the
+state leaves that each step (and, with the LSTM, its backward pass) copies
+back into their storage at its end (core/step.py `_keep_storage`), with
+their bytes at chip_smoke.py's 16 streams.
 
     python3 tools/torch_step_ops.py
 
@@ -55,6 +58,27 @@ def count_ops(pred, data, **kw) -> int:
     return sum(ka.count for ka in prof.key_averages() if ka.key.startswith("aten::"))
 
 
+def moved_leaves(pred, run) -> list:
+    """(name, bytes at cs.STREAMS streams) of each leaf that `run(p)` on a
+    copy `p` of `pred` copies back into its storage."""
+    real, seen = st._keep_storage, []
+
+    def spy(refs):
+        seen.extend((k, d[k]) for d, k, old in refs if d[k] is not old)
+        real(refs)
+
+    try:
+        st._keep_storage = spy
+        run(pred.copy())
+    finally:
+        st._keep_storage = real
+    return [(k, (t.numel() // S) * cs.STREAMS * t.element_size() if t.dim() else t.element_size()) for k, t in seen]
+
+
+def report(name: str, moved: list) -> str:
+    return f"{name} {len(moved)} leaves, {sum(b for _, b in moved)} bytes ({', '.join(k for k, _ in moved)})"
+
+
 def main() -> None:
     torch.set_num_threads(1)
     data = np.frombuffer(cs.corpus(S * (WARM + 16)), np.uint8).reshape(S, WARM + 16).copy()
@@ -69,6 +93,15 @@ def main() -> None:
         smp = count_ops(pred, data, learn=False, sample_u=u, inv_temp=inv_temp)
         print(f"{name}: aten ops a byte step, encode {enc}, sampling {smp} ({enc - smp} fewer, {smp / enc:.3f})",
               flush=True)
+        code = torch.zeros((S, 8), dtype=torch.uint8)
+        rows = [report("encode step:", moved_leaves(pred, lambda p: st._byte_step(
+                    p.state, torch.tensor(data), code, WARM, False, p.plan))),
+                report("sampling step:", moved_leaves(pred, lambda p: st._byte_step(
+                    p.state, torch.tensor(data), code, WARM, False, p.plan, learn=False, sample_u=u,
+                    inv_temp=inv_temp)))]
+        if spec.lstm is not None:
+            rows.append(report("backward pass:", moved_leaves(pred, lambda p: st.lstm_bptt(p.state, p.plan))))
+        print(f"{name}: copied back into their storage at {cs.STREAMS} streams: " + "; ".join(rows), flush=True)
 
 
 if __name__ == "__main__":

@@ -5,6 +5,7 @@
     python3 chip_smoke.py --fused-only   # phases 0-1 and the fused kernel's
                                          # part of phase 2 (under a minute),
                                          # with each kernel's code size
+    python3 chip_smoke.py --bench-only   # phases 0-1 and 7
 
 Phases; any failure ends the run with a non-zero exit:
 
@@ -112,6 +113,19 @@ Phases; any failure ends the run with a non-zero exit:
        aggregate bytes/s is printed beside phase 3's one process (a reading);
    (c) a world of one rank over nccl: phase 4's ref-noppm run through
        compress_bytes_multihost must give phase 4's GPU archive.
+7. the bench (`gmix_tpu_torch.bench.main`, in this process, the counts set
+   to 0 just before each run and read just after), at ref-full's published
+   sizes. First one stream trained at S=1 (the bench's warm start) must
+   equal lane 0 of two streams coding the same bytes, every leaf bitwise.
+   (a) 16 streams from a 2000-byte warm start, 32 KB that no other phase
+       codes, chunk 1000, two passes each way;
+   (b) `--streams auto`: as many streams as fit the card, 8000 bytes in
+       chunks of 200 after a 1000-byte warm start; its stream count,
+       estimate and peak memory are printed.
+   Each run must be exact in every pass with the same archive (the bench
+   raises otherwise), its cross-entropy finite at every chunk, every byte
+   step (warm start, graph capture and passes) must launch 3 + 2 + 1
+   kernels, and the state must be the bytes the bench estimated.
 
 ref-full is gmix_tpu's reference wiring (`reference_spec()`: PPM, the LSTM
 byte model of 50 cells with a horizon of 100) at its published table sizes
@@ -129,9 +143,10 @@ numbers are those of the ref-ppm byte step's one grouped launch of five
 arenas, with the four-arena group of ref-noppm and the single launches per
 arena beside them; `launches` sums the main paths: the three specs' encode,
 decode and generation, the command line's commands on the card, the sharded
-predictor's encode and decode (`mesh`) and the ranks' encodes
-(`distributed`), all replays of CUDA graphs; `launches_per_replay` gives
-each of phase 3's graphs' launches of the kernel); the last line is
+predictor's encode and decode (`mesh`), the ranks' encodes (`distributed`)
+and the bench's two runs (`bench`), all replays of CUDA graphs;
+`launches_per_replay` gives each of phase 3's graphs' launches of the
+kernel); the last line is
 {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
@@ -154,7 +169,8 @@ import numpy as np
 import torch
 
 import gmix_tpu_torch as gt
-from gmix_tpu_torch import cli
+from gmix_tpu_torch import bench, cli
+from gmix_tpu_torch.bench import padded_per
 from gmix_tpu_torch.config import ApmStage, best_spec, reference_spec, scale_tables
 from gmix_tpu_torch.core import fused
 from gmix_tpu_torch.core import step as step_mod
@@ -241,6 +257,16 @@ SHARDS, SHARD_OFFSET, SHARD_BYTES, SHARD_CHUNK = 2, 48 * 1024, 2048, 128
 # (16 streams in all, 16 KB, chunk 1024); (c) one rank over nccl, phase 4's
 # run of NCCL_SPEC
 RANKS, NCCL_SPEC = 2, "ref-noppm"
+# phase 7, the bench (gmix_tpu_torch.bench.main in this process) at the
+# published sizes. (a) 16 streams: one stream trained on the corpus' first
+# 2000 bytes (two chunks of 1000), broadcast to all, then 32 KB at an offset
+# that no other phase codes, chunk 1000, two passes each way; (b) as many
+# streams as fit the card, 8000 bytes at another such offset in chunks of
+# 200 (one chunk a stream from 40 streams up) after a 1000-byte warm start
+BENCH_A = ("--profile", "ref", "--streams", "16", "--warm", "2000", "--offset", str(64 * 1024), "--bytes", "32768",
+           "--chunk", "1000", "--passes", "2")
+BENCH_B = ("--profile", "ref", "--streams", "auto", "--warm", "1000", "--offset", str(100 * 1024), "--bytes", "8000",
+           "--chunk", "200", "--passes", "2")
 
 
 def ref_full_spec():
@@ -1220,12 +1246,6 @@ def flag(argv, name: str) -> int:
     return int(argv[list(argv).index(name) + 1])
 
 
-def padded_per(n_bytes: int, streams: int, chunk: int) -> int:
-    """Byte steps a stream for n_bytes (the codec's padding)."""
-    per = -(-max(n_bytes, 1) // streams)
-    return -(-per // chunk) * chunk
-
-
 def step_launches(steps: int, sampling: int = 0):
     """(gather, scatter, fused) launches of `steps` encode or decode steps
     and `sampling` sampling steps with PPM and the LSTM: 3 + 2 + 1 and
@@ -1637,6 +1657,81 @@ def phase_nccl(d: str) -> dict:
     return out
 
 
+def bench_run(argv, what: str) -> dict:
+    """`bench.main(argv)` in this process, so that the launch counters see
+    its kernels (set to 0 just before, read just after), its printed rows
+    logged; the byte steps it made (the warm start's, one chunk each way to
+    capture the graphs, the passes') must have launched 3 + 2 + 1 kernels
+    each. Returns its config and result rows, passes and launches."""
+    out = io.StringIO()
+    torch.cuda.empty_cache()
+    held_gb = torch.cuda.memory_allocated() / 1e9
+    reset_launches()
+    with contextlib.redirect_stdout(out):
+        rc = bench.main(list(argv))
+    got = read_launches()
+    rows = [json.loads(line) for line in out.getvalue().splitlines()]
+    for row in rows:
+        log(f"phase 7: {what}: {json.dumps(row)}")
+    if rc != 0:
+        raise RuntimeError(f"phase 7 {what}: exit code {rc}")
+    config, result = rows[0], rows[-1]
+    passes = [r for r in rows if r["bench"] == "pass"]
+    warm_steps = config["warm_bytes"] // min(config["chunk"], bench.WARM_CHUNK) * min(config["chunk"], bench.WARM_CHUNK)
+    steps = warm_steps + 2 * config["chunk"] + 2 * config["passes"] * result["byte_steps"]
+    if got != step_launches(steps):
+        raise RuntimeError(f"phase 7 {what}: launches (gather, scatter, fused) {got} in {steps} byte steps, "
+                           f"expected {step_launches(steps)}: 3 + 2 + 1 a step")
+    if not (result["exact"] and np.isfinite(result["model_bpb"]) and len(passes) == 2 * config["passes"]):
+        raise RuntimeError(f"phase 7 {what}: {result}")
+    if round(result["state_gb"] * 1e9) != config["state_estimate_bytes"]:
+        raise RuntimeError(f"phase 7 {what}: the state holds {result['state_gb']} GB, the estimate was "
+                           f"{config['state_estimate_bytes']} bytes")
+    return {"config": config, "result": result, "passes": passes, "launches": list(got), "byte_steps": steps,
+            "held_before_gb": held_gb}
+
+
+def phase_bench_warm_lane(spec, dev) -> dict:
+    """One stream at S=1 (the bench's warm start) against lane 0 of two
+    streams coding the same bytes beside other ones, on the card: the
+    streams never interact, so every leaf must be the same bits."""
+    n, chunk = flag(BENCH_A, "--warm"), flag(BENCH_A, "--chunk")
+    data = corpus(n)
+    one = bench.pretrain_state(spec, data, chunk, dev)
+    pred = Predictor(spec, 2, device=dev, analysis=False)
+    arr = np.stack([np.frombuffer(data, np.uint8), np.frombuffer(corpus(2 * n)[n:], np.uint8)])
+    run_chunks(pred, torch.as_tensor(arr, device=dev), torch.zeros((2, 1), dtype=torch.uint8, device=dev), n,
+               decode=False, chunk=chunk)
+    for path, leaf in _leaves(pred.state):
+        lane = leaf[0:1] if leaf.dim() else leaf
+        want = one
+        for k in path:
+            want = want[k]
+        if not torch.equal(lane.cpu().reshape(-1).view(torch.uint8), want.reshape(-1).view(torch.uint8)):
+            raise RuntimeError(f"phase 7: the S=1 warm start differs from lane 0 of S=2 at {'.'.join(path)}")
+    del pred
+    out = {"spec": "ref-full", "bytes": n, "chunk": chunk, "same_as_lane_0": True}
+    log(f"phase 7: S=1 against lane 0 of S=2 {json.dumps(out)}")
+    return out
+
+
+def phase_bench(dev) -> dict:
+    """(a) and (b): every pass exact and the same archive (bench.main raises
+    otherwise), 3 + 2 + 1 launches a byte step, the state equal to its
+    estimate; (b)'s stream count, estimate and peak printed."""
+    lane = phase_bench_warm_lane(ref_full_spec(), dev)
+    a = bench_run(BENCH_A, "16 streams")
+    b = bench_run(BENCH_B, "auto streams")
+    cfg, res = b["config"], b["result"]
+    out = {"warm_lane": lane, "a": a, "b": b, "launches": [x + y for x, y in zip(a["launches"], b["launches"])],
+           "auto": {"streams": cfg["streams"], "state_estimate_gb": cfg["state_estimate_bytes"] / 1e9,
+                    "headroom_gb": cfg["headroom_bytes"] / 1e9, "budget_gb": cfg["budget_bytes"] / 1e9,
+                    "peak_gb": res["peak_gb"], "peak_reserved_gb": res["peak_reserved_gb"],
+                    "held_before_gb": b["held_before_gb"]}}
+    log(f"phase 7: auto streams {json.dumps(out['auto'])}")
+    return out
+
+
 def code_sizes(lib_path) -> dict:
     """Instructions of each kernel in the built library, counted from
     `cuobjdump -sass` (16 bytes each); empty where the toolkit has no
@@ -1661,8 +1756,9 @@ def code_sizes(lib_path) -> dict:
 
 def main() -> int:
     fused_only = sys.argv[1:] == ["--fused-only"]
-    if sys.argv[1:] and not fused_only:
-        print("usage: chip_smoke.py [--fused-only]", file=sys.stderr)
+    bench_only = sys.argv[1:] == ["--bench-only"]
+    if sys.argv[1:] and not (fused_only or bench_only):
+        print("usage: chip_smoke.py [--fused-only | --bench-only]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's GPU path cannot run here", file=sys.stderr)
@@ -1690,6 +1786,12 @@ def main() -> int:
         if "Compiling entry" in line or "registers" in line or "spill" in line or "smem" in line:
             log(f"  ptxas: {line.strip()}")
 
+    if bench_only:
+        bench_out = phase_bench(dev)
+        elapsed("phase 7 done")
+        print(smi, flush=True)
+        print(json.dumps({"ok": True, "partial": "the bench only", "launches": bench_out["launches"]}), flush=True)
+        return 0
     specs = {name: make() for name, make in SPECS.items()}
     pred = Predictor(specs["ref-noppm"], STREAMS, device=dev)
     fused_row = phase_fused(pred, dev)
@@ -1734,6 +1836,8 @@ def main() -> int:
         finally:
             for proc in [cpu_proc] + [proc for proc, _, _ in decodes.values()]:
                 stop(proc)
+    bench_out = phase_bench(dev)
+    elapsed("phase 7 done")
 
     def launches(i):
         """Kernel i's launches on each main path: encode + decode, the two
@@ -1749,6 +1853,8 @@ def main() -> int:
         # the nccl rank's encodes
         by_path["mesh"] = sum(v[i] for k, v in shards_out["launches"].items() if k.startswith("sharded"))
         by_path["distributed"] = ranks_out["launches"][i] + nccl_out["launches"][i]
+        # phase 7: the bench's runs, warm starts and graph captures included
+        by_path["bench"] = bench_out["launches"][i]
         return by_path
 
     def mover(direction, replaces_key):

@@ -184,20 +184,30 @@ def init_state(meta: Meta, num_streams: int, seed: int = DEFAULT_SEED, device="c
             "update_steps": zeros((), i32),
         }
 
-    coder = {
-        "x1": zeros((S,)),
-        "x2": full((S,), 0xFFFFFFFF, i64),
-        "x": zeros((S,)),
-        "wpos": zeros((S,)),
-        "rpos": zeros((S,)),
+    return {"stm": stm, "ltm": ltm, "coder": coder_state(S, device), "metrics": metrics_state(meta, S, device)}
+
+
+def coder_state(num_streams: int, device="cpu") -> Dict:
+    """The arithmetic coder's registers of a fresh stream, `num_streams`
+    times: `init_state`'s `coder`."""
+    S, i64 = num_streams, torch.int64
+    return {
+        "x1": torch.zeros((S,), dtype=i64, device=device),
+        "x2": torch.full((S,), 0xFFFFFFFF, dtype=i64, device=device),
+        "x": torch.zeros((S,), dtype=i64, device=device),
+        "wpos": torch.zeros((S,), dtype=i64, device=device),
+        "rpos": torch.zeros((S,), dtype=i64, device=device),
     }
-    # cumulative cross-entropy (bits) + per-column analysis EMA
+
+
+def metrics_state(meta: Meta, num_streams: int, device="cpu") -> Dict:
+    """The cumulative cross-entropy (bits) and the per-column analysis EMA of
+    a fresh stream, `num_streams` times: `init_state`'s `metrics`."""
     n_cols = meta.n_pred + meta.mix_n0 + meta.mix_n1 + 1
-    metrics = {
-        "ent": zeros((S,), f32),
-        "ema": full((S, n_cols), 1.0, f32),
+    return {
+        "ent": torch.zeros((num_streams,), dtype=torch.float32, device=device),
+        "ema": torch.full((num_streams, n_cols), 1.0, dtype=torch.float32, device=device),
     }
-    return {"stm": stm, "ltm": ltm, "coder": coder, "metrics": metrics}
 
 
 def _leaves(tree, prefix=()):

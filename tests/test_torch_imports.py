@@ -15,10 +15,10 @@ for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "gmix_tpu"))
 # generation, checkpoints, stream sharding over devices and processes, the
-# command line and the preprocessors among them
+# command line, the preprocessors and the bench among them
 missing = {"gmix_tpu_torch.utils.serialization", "gmix_tpu_torch.parallel.mesh", "gmix_tpu_torch.cli",
            "gmix_tpu_torch.preprocess.dictionary", "gmix_tpu_torch.preprocess.wiki",
-           "gmix_tpu_torch.parallel.distributed"} - set(names)
+           "gmix_tpu_torch.parallel.distributed", "gmix_tpu_torch.bench"} - set(names)
 print(len(names), "modules")
 print("FORBIDDEN", bad, "MISSING", sorted(missing))
 sys.exit(1 if bad or missing or len(names) < 28 else 0)

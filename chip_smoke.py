@@ -114,18 +114,29 @@ Phases; any failure ends the run with a non-zero exit:
    (c) a world of one rank over nccl: phase 4's ref-noppm run through
        compress_bytes_multihost must give phase 4's GPU archive.
 7. the bench (`gmix_tpu_torch.bench.main`, in this process, the counts set
-   to 0 just before each run and read just after), at ref-full's published
-   sizes. First one stream trained at S=1 (the bench's warm start) must
-   equal lane 0 of two streams coding the same bytes, every leaf bitwise.
-   (a) 16 streams from a 2000-byte warm start, 32 KB that no other phase
-       codes, chunk 1000, two passes each way;
-   (b) `--streams auto`: as many streams as fit the card, 8000 bytes in
-       chunks of 200 after a 1000-byte warm start; its stream count,
-       estimate and peak memory are printed.
+   to 0 just before each run and read just after), at the published sizes.
+   First one stream of ref-full trained at S=1 (the bench's warm start)
+   must equal lane 0 of two streams coding the same bytes, every leaf
+   bitwise.
+   (a) ref-full, 16 streams from a 2000-byte warm start, 32 KB that no
+       other phase codes, chunk 1000, two passes each way; run twice
+       through one `--warm-checkpoint` under build/: the first run trains
+       the warm start and writes it, the second reads it; the file must
+       hold the S=1 warm start above, every leaf bitwise, and the two
+       archives must be the same bytes;
+   (b) ref-full, `--streams auto`: as many streams as fit the card, 8000
+       bytes in chunks of 200 after a 1000-byte warm start, then
+       `--trace 100` (one horizon of encode byte steps under
+       torch.profiler, after the passes); its stream count, estimate, peak
+       memory and trace row are printed;
+   (c) best, ref-ppm and ref-noppm, 4 streams each, 8000 bytes in chunks of
+       200 after a 1000-byte warm start.
    Each run must be exact in every pass with the same archive (the bench
    raises otherwise), its cross-entropy finite at every chunk, every byte
-   step (warm start, graph capture and passes) must launch 3 + 2 + 1
-   kernels, and the state must be the bytes the bench estimated.
+   step (warm start, graph capture, passes and traced window) must launch
+   the profile's kernels (gather, scatter, fused: 3 + 2 + 1 at ref-full and
+   best, 2 + 2 + 1 at ref-ppm, 1 + 1 + 1 at ref-noppm), and the state must
+   be the bytes the bench estimated.
 
 ref-full is gmix_tpu's reference wiring (`reference_spec()`: PPM, the LSTM
 byte model of 50 cells with a horizon of 100) at its published table sizes
@@ -144,7 +155,7 @@ arenas, with the four-arena group of ref-noppm and the single launches per
 arena beside them; `launches` sums the main paths: the three specs' encode,
 decode and generation, the command line's commands on the card, the sharded
 predictor's encode and decode (`mesh`), the ranks' encodes (`distributed`)
-and the bench's two runs (`bench`), all replays of CUDA graphs;
+and the bench's six runs (`bench`), all replays of CUDA graphs;
 `launches_per_replay` gives each of phase 3's graphs' launches of the
 kernel); the last line is
 {"ok": true, "device": {...}}.
@@ -152,7 +163,7 @@ kernel); the last line is
 from __future__ import annotations
 
 import contextlib
-import dataclasses
+import functools
 import io
 import json
 import os
@@ -170,8 +181,8 @@ import torch
 
 import gmix_tpu_torch as gt
 from gmix_tpu_torch import bench, cli
-from gmix_tpu_torch.bench import padded_per
-from gmix_tpu_torch.config import ApmStage, best_spec, reference_spec, scale_tables
+from gmix_tpu_torch.bench import padded_per, ref_noppm_spec, ref_ppm_spec, spec_for, trace_window
+from gmix_tpu_torch.config import best_spec, reference_spec, scale_tables
 from gmix_tpu_torch.core import fused
 from gmix_tpu_torch.core import step as step_mod
 from gmix_tpu_torch.core.codec import (Predictor, analysis_columns, compress_bytes, decompress_bytes, entropy_bits,
@@ -260,34 +271,24 @@ RANKS, NCCL_SPEC = 2, "ref-noppm"
 # phase 7, the bench (gmix_tpu_torch.bench.main in this process) at the
 # published sizes. (a) 16 streams: one stream trained on the corpus' first
 # 2000 bytes (two chunks of 1000), broadcast to all, then 32 KB at an offset
-# that no other phase codes, chunk 1000, two passes each way; (b) as many
-# streams as fit the card, 8000 bytes at another such offset in chunks of
-# 200 (one chunk a stream from 40 streams up) after a 1000-byte warm start
+# that no other phase codes, chunk 1000, two passes each way, twice through
+# one warm checkpoint; (b) as many streams as fit the card, 8000 bytes at
+# another such offset in chunks of 200 (one chunk a stream from 40 streams
+# up) after a 1000-byte warm start, then one horizon traced; (c) each other
+# profile at 4 streams, 8000 bytes at a third offset (2000 byte steps a
+# stream, 10 chunks)
 BENCH_A = ("--profile", "ref", "--streams", "16", "--warm", "2000", "--offset", str(64 * 1024), "--bytes", "32768",
            "--chunk", "1000", "--passes", "2")
 BENCH_B = ("--profile", "ref", "--streams", "auto", "--warm", "1000", "--offset", str(100 * 1024), "--bytes", "8000",
-           "--chunk", "200", "--passes", "2")
+           "--chunk", "200", "--passes", "2", "--trace", "100")
+BENCH_C = ("--streams", "4", "--warm", "1000", "--offset", str(112 * 1024), "--bytes", "8000", "--chunk", "200",
+           "--passes", "2")
+BENCH_C_PROFILES = ("best", "ref-ppm", "ref-noppm")
+# (gather, scatter, fused) launches of a byte step by bench profile
+BENCH_LAUNCHES = {"ref": (3, 2, 1), "best": (3, 2, 1), "ref-ppm": (2, 2, 1), "ref-noppm": (1, 1, 1)}
 
-
-def ref_full_spec():
-    return dataclasses.replace(
-        reference_spec(),
-        apm=(
-            ApmStage("apm_lb", "last_byte", 8, lr=0.010, weight=0.50),
-            ApmStage("apm_h2", "h2", 16, lr=0.010, weight=0.25),
-        ),
-    )
-
-
-def ref_ppm_spec():
-    return dataclasses.replace(ref_full_spec(), lstm=None)
-
-
-def ref_noppm_spec():
-    return dataclasses.replace(ref_ppm_spec(), ppm=None, roll_ctxs=())
-
-
-SPECS = {"ref-noppm": ref_noppm_spec, "ref-ppm": ref_ppm_spec, "ref-full": ref_full_spec}
+# the bench's profiles ref-noppm, ref-ppm and ref (ref-full here)
+SPECS = {"ref-noppm": ref_noppm_spec, "ref-ppm": ref_ppm_spec, "ref-full": functools.partial(spec_for, None)}
 
 
 def rows_per_byte(meta):
@@ -828,40 +829,6 @@ def graph_summary(fn) -> dict:
     return out
 
 
-def trace_window(run, n: int) -> dict:
-    """`run()` (n byte steps, ending in a synchronize) under torch.profiler:
-    CUDA kernels, aten ops and device busy time per byte step, and the
-    device's idle share of the traced window."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        run()
-        traced = time.perf_counter() - t0
-    kernels = aten = 0
-    busy_us = 0.0
-    own_us = {}  # device us per launch of each hand-written kernel
-    for ka in prof.key_averages():
-        if ka.device_type == DeviceType.CUDA:
-            us = getattr(ka, "self_device_time_total", None) or getattr(ka, "self_cuda_time_total", 0.0)
-            kernels += ka.count
-            busy_us += us
-            for own in ("fused_substeps_kernel", "gather_rows_many_kernel", "scatter_rows_many_kernel"):
-                if own in ka.key:
-                    own_us[own] = {"us_per_launch": us / ka.count, "launches_per_step": ka.count / n}
-        elif ka.key.startswith("aten::"):
-            aten += ka.count
-    out = {"traced_wall_ms_per_step": 1e3 * traced / n}
-    if kernels and busy_us > 0:
-        out.update(cuda_kernels_per_step=kernels / n, aten_ops_per_step=aten / n,
-                   device_busy_ms_per_step=busy_us / 1e3 / n, device_idle_share=1.0 - (busy_us / 1e6) / traced,
-                   own_kernel_us_per_launch=own_us)
-    else:
-        out["device_trace"] = "not measured: the profiler recorded no device time"
-    return out
-
-
 def eager_against_graphs(name, pred, dev, expect, sample: bool = False):
     """The same bytes through the compiled chunk's eager loop (`_eager`: the
     byte steps dispatched op by op) on `pred` and through its CUDA graphs on
@@ -918,11 +885,10 @@ def eager_against_graphs(name, pred, dev, expect, sample: bool = False):
         run(k, long_fn, n, n)
         row["wall_ms_per_step"] = 1e3 * (time.perf_counter() - t_start) / n
         run(k, short_fn, 2 * n, m)
-        row.update(trace_window(lambda: run(k, short_fn, 2 * n + m, m), m))
-        if "device_busy_ms_per_step" in row:
-            # the traced window's device time against the untraced wall (the
-            # profiler's own host work stretches the traced wall)
-            row["idle_share_of_untraced_wall"] = 1.0 - row["device_busy_ms_per_step"] / row["wall_ms_per_step"]
+        row.update(trace_window(lambda: run(k, short_fn, 2 * n + m, m), m, dev))
+        # the traced window's device time against the untraced wall (the
+        # profiler's own host work stretches the traced wall)
+        row["idle_share_of_untraced_wall"] = 1.0 - row["device_busy_ms_per_step"] / row["wall_ms_per_step"]
         got = read_launches()
         if got != tuple(e * total for e in expect):
             raise RuntimeError(f"phase 3 {name}: the {k} windows launched {got} in {total} steps, expected {expect} a step")
@@ -1584,7 +1550,7 @@ def rank_main(rank: int, world: int, port: int, d: str) -> None:
     of its launches, wall time and memory."""
     torch.set_num_threads(1)
     distributed.initialize(f"tcp://localhost:{port}", world, rank, backend="gloo")
-    spec, data = ref_full_spec(), corpus(MAIN_BYTES)
+    spec, data = SPECS["ref-full"](), corpus(MAIN_BYTES)
     distributed.dist.barrier()
     blob, wall, launches = timed(lambda: distributed.compress_bytes_multihost(data, spec, STREAMS, CHUNK))
     distributed.dist.destroy_process_group()
@@ -1657,12 +1623,14 @@ def phase_nccl(d: str) -> dict:
     return out
 
 
-def bench_run(argv, what: str) -> dict:
+def bench_run(argv, what: str, per_step) -> dict:
     """`bench.main(argv)` in this process, so that the launch counters see
     its kernels (set to 0 just before, read just after), its printed rows
-    logged; the byte steps it made (the warm start's, one chunk each way to
-    capture the graphs, the passes') must have launched 3 + 2 + 1 kernels
-    each. Returns its config and result rows, passes and launches."""
+    logged; the byte steps it made (the warm start's unless it was read
+    from a checkpoint, one chunk each way to capture the graphs, the
+    passes', the traced window's twice: capture and trace) must have
+    launched `per_step` (gather, scatter, fused) kernels each. Returns its
+    config, result and trace rows, passes and launches."""
     out = io.StringIO()
     torch.cuda.empty_cache()
     held_gb = torch.cuda.memory_allocated() / 1e9
@@ -1677,24 +1645,30 @@ def bench_run(argv, what: str) -> dict:
         raise RuntimeError(f"phase 7 {what}: exit code {rc}")
     config, result = rows[0], rows[-1]
     passes = [r for r in rows if r["bench"] == "pass"]
-    warm_steps = config["warm_bytes"] // min(config["chunk"], bench.WARM_CHUNK) * min(config["chunk"], bench.WARM_CHUNK)
-    steps = warm_steps + 2 * config["chunk"] + 2 * config["passes"] * result["byte_steps"]
-    if got != step_launches(steps):
+    traces = [r for r in rows if r["bench"] == "trace"]
+    wchunk = min(config["chunk"], bench.WARM_CHUNK)
+    warm_steps = 0 if result["warm_source"] == "checkpoint" else config["warm_bytes"] // wchunk * wchunk
+    steps = warm_steps + 2 * config["chunk"] + 2 * config["passes"] * result["byte_steps"] + 2 * result["trace_steps"]
+    want = tuple(k * steps for k in per_step)
+    if got != want:
         raise RuntimeError(f"phase 7 {what}: launches (gather, scatter, fused) {got} in {steps} byte steps, "
-                           f"expected {step_launches(steps)}: 3 + 2 + 1 a step")
+                           f"expected {want}: {per_step} a step")
     if not (result["exact"] and np.isfinite(result["model_bpb"]) and len(passes) == 2 * config["passes"]):
         raise RuntimeError(f"phase 7 {what}: {result}")
+    if len(traces) != (1 if config["trace"] else 0):
+        raise RuntimeError(f"phase 7 {what}: {len(traces)} trace rows for --trace {config['trace']}")
     if round(result["state_gb"] * 1e9) != config["state_estimate_bytes"]:
         raise RuntimeError(f"phase 7 {what}: the state holds {result['state_gb']} GB, the estimate was "
                            f"{config['state_estimate_bytes']} bytes")
-    return {"config": config, "result": result, "passes": passes, "launches": list(got), "byte_steps": steps,
-            "held_before_gb": held_gb}
+    return {"config": config, "result": result, "trace": traces[0] if traces else None, "passes": passes,
+            "launches": list(got), "byte_steps": steps, "held_before_gb": held_gb}
 
 
-def phase_bench_warm_lane(spec, dev) -> dict:
-    """One stream at S=1 (the bench's warm start) against lane 0 of two
-    streams coding the same bytes beside other ones, on the card: the
-    streams never interact, so every leaf must be the same bits."""
+def phase_bench_warm_lane(spec, dev):
+    """One stream at S=1 (the bench's warm start of run (a)) against lane 0
+    of two streams coding the same bytes beside other ones, on the card: the
+    streams never interact, so every leaf must be the same bits. Returns the
+    reading and the S=1 warm state."""
     n, chunk = flag(BENCH_A, "--warm"), flag(BENCH_A, "--chunk")
     data = corpus(n)
     one = bench.pretrain_state(spec, data, chunk, dev)
@@ -1702,28 +1676,56 @@ def phase_bench_warm_lane(spec, dev) -> dict:
     arr = np.stack([np.frombuffer(data, np.uint8), np.frombuffer(corpus(2 * n)[n:], np.uint8)])
     run_chunks(pred, torch.as_tensor(arr, device=dev), torch.zeros((2, 1), dtype=torch.uint8, device=dev), n,
                decode=False, chunk=chunk)
-    for path, leaf in _leaves(pred.state):
-        lane = leaf[0:1] if leaf.dim() else leaf
-        want = one
-        for k in path:
-            want = want[k]
-        if not torch.equal(lane.cpu().reshape(-1).view(torch.uint8), want.reshape(-1).view(torch.uint8)):
-            raise RuntimeError(f"phase 7: the S=1 warm start differs from lane 0 of S=2 at {'.'.join(path)}")
+    lanes = {path: leaf[0:1] if leaf.dim() else leaf for path, leaf in _leaves(pred.state)}
+    same_leaves(lanes, one, "phase 7: the S=1 warm start against lane 0 of S=2")
     del pred
     out = {"spec": "ref-full", "bytes": n, "chunk": chunk, "same_as_lane_0": True}
     log(f"phase 7: S=1 against lane 0 of S=2 {json.dumps(out)}")
-    return out
+    return out, one
+
+
+def same_leaves(got: dict, want_tree, what: str) -> None:
+    """Every leaf of the state `want_tree` equals `got[path]` in shape,
+    dtype and bits (and `got` has no other leaf), or RuntimeError."""
+    want = dict(_leaves(want_tree))
+    if sorted(got) != sorted(want):
+        raise RuntimeError(f"{what}: leaves {sorted(set(got) ^ set(want))} are in one state only")
+    for path, a in want.items():
+        b = got[path].cpu()
+        if (a.shape, a.dtype) != (b.shape, b.dtype) or not torch.equal(a.reshape(-1).view(torch.uint8),
+                                                                      b.reshape(-1).view(torch.uint8)):
+            raise RuntimeError(f"{what}: differs at {'.'.join(path)}")
 
 
 def phase_bench(dev) -> dict:
-    """(a) and (b): every pass exact and the same archive (bench.main raises
-    otherwise), 3 + 2 + 1 launches a byte step, the state equal to its
-    estimate; (b)'s stream count, estimate and peak printed."""
-    lane = phase_bench_warm_lane(ref_full_spec(), dev)
-    a = bench_run(BENCH_A, "16 streams")
-    b = bench_run(BENCH_B, "auto streams")
+    """(a) to (c): every pass exact and the same archive (bench.main raises
+    otherwise), the profile's launches a byte step, the state equal to its
+    estimate; (a)'s second run reads the checkpoint its first wrote, which
+    holds the S=1 warm start bitwise, and writes the same archive; (b)'s
+    stream count, estimate, peak and trace printed."""
+    lane, one = phase_bench_warm_lane(SPECS["ref-full"](), dev)
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
+        ckpt = ("--warm-checkpoint", os.path.join(tmp, "ref-2000.gxt"))
+        a = bench_run(BENCH_A + ckpt, "16 streams, warm start trained", BENCH_LAUNCHES["ref"])
+        a2 = bench_run(BENCH_A + ckpt, "16 streams, warm start read", BENCH_LAUNCHES["ref"])
+        same_leaves(dict(_leaves(bench.load_warm_checkpoint(ckpt[1]))), one,
+                    "phase 7: the warm checkpoint against the S=1 warm start")
+    ra, ra2 = a["result"], a2["result"]
+    if (ra["warm_source"], ra2["warm_source"]) != ("trained", "checkpoint"):
+        raise RuntimeError(f"phase 7: the warm starts came from {ra['warm_source']}, {ra2['warm_source']}")
+    if (ra["archive_bytes"], ra["archive_sha256"]) != (ra2["archive_bytes"], ra2["archive_sha256"]):
+        raise RuntimeError("phase 7: the archive from the read warm start differs from the trained one's")
+    checkpoint = {"warm_s_trained": ra["warm_s"], "warm_write_s": ra["warm_write_s"], "warm_s_read": ra2["warm_s"],
+                  "same_as_s1_warm_start": True, "same_archive": True}
+    log(f"phase 7: warm checkpoint {json.dumps(checkpoint)}")
+    b = bench_run(BENCH_B, "auto streams, traced", BENCH_LAUNCHES["ref"])
+    profiles = {p: bench_run(("--profile", p) + BENCH_C, f"{p}, 4 streams", BENCH_LAUNCHES[p])
+                for p in BENCH_C_PROFILES}
+    runs = [a, a2, b, *profiles.values()]
     cfg, res = b["config"], b["result"]
-    out = {"warm_lane": lane, "a": a, "b": b, "launches": [x + y for x, y in zip(a["launches"], b["launches"])],
+    out = {"warm_lane": lane, "a": a, "a_read": a2, "checkpoint": checkpoint, "b": b, "profiles": profiles,
+           "launches": [sum(r["launches"][i] for r in runs) for i in range(3)],
            "auto": {"streams": cfg["streams"], "state_estimate_gb": cfg["state_estimate_bytes"] / 1e9,
                     "headroom_gb": cfg["headroom_bytes"] / 1e9, "budget_gb": cfg["budget_bytes"] / 1e9,
                     "peak_gb": res["peak_gb"], "peak_reserved_gb": res["peak_reserved_gb"],

@@ -1,8 +1,9 @@
 """Encode and decode throughput at an exact roundtrip, on one CUDA device:
 
-    python -m gmix_tpu_torch.bench [--profile ref|scaled-<bits>] [--streams N|auto]
-        [--chunk 4000] [--bytes N] [--warm 131072] [--offset N] [--passes 2]
-        [--budget BYTES] [--device cuda:0|cpu] [--out FILE]
+    python -m gmix_tpu_torch.bench [--profile ref|ref-ppm|ref-noppm|best|scaled-<bits>]
+        [--streams N|auto] [--chunk 4000] [--bytes N] [--warm 131072] [--offset N]
+        [--passes 2] [--warm-checkpoint PATH] [--trace N] [--budget BYTES]
+        [--device cuda:0|cpu] [--out FILE]
 
 The port of the repository's `bench.py` (gmix_tpu on a TPU). One stream is
 trained on the corpus' first `--warm` bytes (`pretrain_state`), its state is
@@ -16,9 +17,31 @@ input, and the model's cross-entropy must stay finite at every chunk, or the
 run raises. The CUDA graphs of the byte step are captured before the timed
 passes, on one chunk each way, and reported on their own.
 
-Every knob also reads bench.py's environment variable: GMIX_BENCH_PROFILE
-(`ref`, the published table sizes, or `scaled-<bits>`; a trailing `x<S>`
-sets the streams, as in bench.py), GMIX_BENCH_BYTES, GMIX_BENCH_WARM,
+Profiles (`--profile`), each at the published table sizes: `ref`
+(`spec_for(None)`: `reference_spec()` with bench.py's two APM stages),
+`ref-ppm` (ref without the LSTM), `ref-noppm` (ref-ppm without PPM and the
+rolling contexts only PPM reads) and `best` (`best_spec()`, the spec of
+tools/tpu_sequential.py's `best`). `scaled-<bits>` is ref with its tables
+clamped to 2^bits entries (`spec_for(bits)`), and any profile may be
+clamped the same way as `<profile>:scaled-<bits>` (`ref-noppm:scaled-12`).
+A trailing `x<S>` sets the streams, as in bench.py.
+
+`--warm-checkpoint PATH` (tools/tpu_warm_sweep.py's snapshot): the warm
+start is read from PATH, a gmix_tpu checkpoint of the one stream, when it
+exists; otherwise it is trained and written there (a temporary name, then
+`os.replace`). The sidecar PATH.json names what made it (the spec's
+`stable_hash`, the warm bytes, their sha256 and the warm chunk); a PATH
+whose sidecar is missing or names something else is refused before any
+predictor is allocated, and never trained over. `--trace N`
+(tools/tpu_profile.py): after the timed passes, the predictor is put back
+to the warm start, the passes' CUDA graphs are released, a window of N
+encode byte steps is captured, and then run again under torch.profiler
+(`trace_window`): one `trace` row of device busy time, idle shares and the
+kernels with the most device time. With an LSTM, N must be a multiple of
+its horizon, so that the window runs the passes' deferred backward pass.
+
+Every knob also reads bench.py's environment variable: GMIX_BENCH_PROFILE,
+GMIX_BENCH_BYTES, GMIX_BENCH_WARM,
 GMIX_BENCH_CHUNK, GMIX_BENCH_PASSES and GMIX_HBM_BUDGET (the device bytes a
 run may take; default: the card's total memory). `--streams auto` (the
 default) takes the most streams whose state estimate
@@ -27,8 +50,10 @@ configuration that does not fit is refused before anything is allocated.
 
 Printed on stdout, one JSON object a line: the configuration (with the
 card's name and power limit as nvidia-smi reports them) before any timed
-work, one line a pass, and the result. `--out FILE` also writes all of them
-to FILE. Nothing else is written.
+work, one line a pass, the trace, and the result (with `ref_bpb`, the
+reference binary's bpb on the corpus, read from data/baseline_measured.json
+as bench.py reads it). `--out FILE` also writes all of them to FILE.
+Nothing else is written but the warm checkpoint, and nothing under data/.
 
 Left behind from bench.py: the v5e ladder of configurations, the subprocess
 per attempt with its walk-down on out-of-memory and transient faults (a
@@ -39,7 +64,9 @@ recurred in the measured bytes) and the write to data/parity.json.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import hashlib
 import json
 import os
 import re
@@ -47,16 +74,19 @@ import statistics
 import subprocess
 import sys
 import time
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
-from .config import ApmStage, EnsembleSpec, reference_spec, scale_tables
-from .core.codec import (_WORST_PER_BYTE, Predictor, compress_bytes, decompress_bytes, default_device, entropy_bits,
-                         run_chunks)
+from .config import ApmStage, EnsembleSpec, best_spec, reference_spec, scale_tables
+from .core import fused
+from .core.codec import (_WORST_PER_BYTE, Predictor, _pad_streams, compress_bytes, decompress_bytes, default_device,
+                         entropy_bits, run_chunks)
 from .core.meta import build_meta
-from .state import coder_state, copy_into, init_state, metrics_state, state_bytes
+from .ops import rowmove
+from .state import coder_state, copy_into, init_state, metrics_state, state_bytes, state_from_numpy
+from .utils.serialization import load_state, save_state
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CORPUS = os.path.join(ROOT, "data", "corpus_1m.bin")
@@ -84,6 +114,46 @@ def spec_for(bits: Optional[int]) -> EnsembleSpec:
         ),
     )
     return spec if bits is None else scale_tables(spec, bits, history_bits=min(24, bits + 4))
+
+
+def ref_ppm_spec() -> EnsembleSpec:
+    """Profile `ref-ppm`: `spec_for(None)` without the LSTM."""
+    return dataclasses.replace(spec_for(None), lstm=None)
+
+
+def ref_noppm_spec() -> EnsembleSpec:
+    """Profile `ref-noppm`: `ref_ppm_spec()` without PPM and the rolling
+    contexts that only PPM reads."""
+    return dataclasses.replace(ref_ppm_spec(), ppm=None, roll_ctxs=())
+
+
+# the profiles but `ref` (`spec_for`), at the published table sizes
+PROFILES: Dict[str, Callable[[], EnsembleSpec]] = {"ref-ppm": ref_ppm_spec, "ref-noppm": ref_noppm_spec,
+                                                   "best": best_spec}
+PROFILE_RE = re.compile(r"(?P<name>(?P<base>ref-ppm|ref-noppm|ref|best)(?::scaled-(?P<bits>\d+))?"
+                        r"|scaled-(?P<ref_bits>\d+))(?:x(?P<streams>\d+))?")
+
+
+def parse_profile(text: str) -> Tuple[str, EnsembleSpec, Optional[str]]:
+    """(name, spec, streams) of a `--profile`: `ref`, `ref-ppm`,
+    `ref-noppm` or `best`, optionally `:scaled-<bits>` (tables clamped as
+    `spec_for` clamps them); `scaled-<bits>` is `ref`'s. A trailing `x<S>`
+    gives the streams (None without it). The name is the profile without
+    `x<S>`. An unknown profile raises ValueError."""
+    m = PROFILE_RE.fullmatch(text)
+    if m is None:
+        raise ValueError(f"unknown profile {text!r}: use ref, ref-ppm, ref-noppm, best or scaled-<bits>, a profile "
+                         f"may end in :scaled-<bits>, and any in x<streams>")
+    base = m.group("base") or "ref"
+    bits = m.group("bits") or m.group("ref_bits")
+    bits = int(bits) if bits else None
+    if base == "ref":
+        spec = spec_for(bits)
+    else:
+        spec = PROFILES[base]()
+        if bits is not None:
+            spec = scale_tables(spec, bits, history_bits=min(24, bits + 4))
+    return m.group("name"), spec, m.group("streams")
 
 
 def state_bytes_estimate(spec: EnsembleSpec, num_streams: int) -> int:
@@ -185,6 +255,64 @@ def pretrain_state(spec: EnsembleSpec, warm_bytes: bytes, chunk: int, device=Non
     return out
 
 
+def warm_sidecar(spec: EnsembleSpec, warm_bytes: bytes, chunk: int) -> dict:
+    """What makes a warm start (`pretrain_state`): the spec, the bytes and
+    the chunk they were trained in. A warm checkpoint's sidecar holds it."""
+    return {"spec_hash": spec.stable_hash(), "warm_bytes": len(warm_bytes), "warm_chunk": min(chunk, WARM_CHUNK),
+            "warm_sha256": hashlib.sha256(warm_bytes).hexdigest()}
+
+
+def check_warm_checkpoint(path: str, want: dict) -> bool:
+    """Whether the warm checkpoint `path` exists. One whose sidecar
+    (`path` + ".json") is missing or is not `want` (`warm_sidecar`) raises
+    SystemExit: it is never read as another warm start, nor trained over."""
+    if not os.path.exists(path):
+        return False
+    side = path + ".json"
+    if not os.path.exists(side):
+        raise SystemExit(f"bench: refused: the warm checkpoint {path} has no sidecar {side}; it cannot be known to "
+                         f"be this warm start")
+    with open(side) as f:
+        got = json.load(f)
+    if got != want:
+        raise SystemExit(f"bench: refused: the warm checkpoint {path} was made by {got}, this run's warm start is "
+                         f"{want}; remove it or name another path")
+    return True
+
+
+def _replace_file(path: str, write: Callable[[str], None]) -> None:
+    tmp = f"{path}.tmp{os.getpid()}"
+    try:
+        write(tmp)
+        os.replace(tmp, path)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+
+
+def save_warm_checkpoint(path: str, warm: Dict, sidecar: dict) -> None:
+    """The one-stream warm state `warm` to `path` in gmix_tpu's checkpoint
+    format (`utils/serialization.save_state`) and `sidecar` to
+    `path` + ".json", each under a temporary name first and then
+    `os.replace`d: the sidecar first, so that a checkpoint never stands
+    beside another one's sidecar."""
+    parent = os.path.dirname(os.path.abspath(path))
+    os.makedirs(parent, exist_ok=True)
+
+    def write_json(tmp: str) -> None:
+        with open(tmp, "w") as f:
+            json.dump(sidecar, f, indent=1)
+
+    _replace_file(path + ".json", write_json)
+    _replace_file(path, lambda tmp: save_state(tmp, warm))
+
+
+def load_warm_checkpoint(path: str) -> Dict:
+    """The warm state in `path` as CPU tensors, the port's dtypes: what
+    `pretrain_state` returned when it was written, every leaf bitwise."""
+    return state_from_numpy(load_state(path))
+
+
 def _tile_into(held: Dict, one: Dict, device: torch.device, prefix: tuple = ()) -> None:
     """Every leaf of the one-stream state `one` into the leaf of `held` at
     the same path, in place, repeated over the stream axis; 0-d leaves as
@@ -238,6 +366,104 @@ def _capture(pred: Predictor, chunk: int, per: int) -> None:
     run_chunks(pred, data, code, chunk, decode=True, chunk=chunk)
 
 
+def _launch_counts() -> Tuple[int, int, int]:
+    """The hand-written kernels' launch counters: (gather, scatter, fused)."""
+    return (rowmove.gather_rows.launches + rowmove.gather_rows_many.launches,
+            rowmove.scatter_rows.launches + rowmove.scatter_rows_many.launches, fused.fused_substeps.launches)
+
+
+# the hand-written kernels, by a part of their name in a trace
+OWN_KERNELS = ("fused_substeps_kernel", "gather_rows_many_kernel", "scatter_rows_many_kernel")
+TOP_KERNELS, KERNEL_NAME_CHARS = 10, 120
+
+
+def trace_window(run: Callable[[], None], n: int, device) -> dict:
+    """`run()` (n byte steps, ending in a synchronize) under torch.profiler:
+    CUDA kernels, aten ops and device busy time per byte step, the device's
+    idle share of the traced window, each hand-written kernel's device time
+    a launch, and the TOP_KERNELS kernels with the most device time (name
+    cut to KERNEL_NAME_CHARS, launches and us a step). A trace without
+    device time raises. On the CPU, where the profiler would record no
+    device activity, `run()` is timed alone and the device numbers read
+    "not measured"."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    cuda = torch.device(device).type == "cuda"
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) if cuda else contextlib.nullcontext() as prof:
+        t0 = time.perf_counter()
+        run()
+        traced = time.perf_counter() - t0
+    out = {"traced_wall_ms_per_step": 1e3 * traced / n}
+    if not cuda:
+        out["device_trace"] = f"not measured: no device activity on {device}"
+        return out
+    kernels = aten = 0
+    busy_us = 0.0
+    own_us = {}  # device us per launch of each hand-written kernel
+    by_kernel = []
+    for ka in prof.key_averages():
+        if ka.device_type == DeviceType.CUDA:
+            us = getattr(ka, "self_device_time_total", None) or getattr(ka, "self_cuda_time_total", 0.0)
+            kernels += ka.count
+            busy_us += us
+            by_kernel.append((us, ka.key, ka.count))
+            for own in OWN_KERNELS:
+                if own in ka.key:
+                    own_us[own] = {"us_per_launch": us / ka.count, "launches_per_step": ka.count / n}
+        elif ka.key.startswith("aten::"):
+            aten += ka.count
+    if not kernels or busy_us <= 0:
+        raise RuntimeError(f"the profiler recorded no device time in {n} byte steps on {device}")
+    by_kernel.sort(key=lambda r: -r[0])
+    out.update(cuda_kernels_per_step=kernels / n, aten_ops_per_step=aten / n,
+               device_busy_ms_per_step=busy_us / 1e3 / n, device_idle_share=1.0 - (busy_us / 1e6) / traced,
+               own_kernel_us_per_launch=own_us,
+               top_kernels=[{"name": key[:KERNEL_NAME_CHARS], "launches_per_step": count / n, "us_per_step": us / n}
+                            for us, key, count in by_kernel[:TOP_KERNELS]])
+    return out
+
+
+def _trace_run(pred: Predictor, warm: Dict, data: bytes, chunk: int, n: int, encode_step_ms: float) -> dict:
+    """The `trace` row: the passes' compiled chunks and their graph pool
+    released, the predictor put back to `warm`, the first `n` bytes of
+    every stream (as `compress_bytes` lays them out) encoded in one chunk to
+    capture the window's graphs, then put back and encoded again under
+    torch.profiler (`trace_window`). `encode_step_ms` is the best encode
+    pass's wall a byte step, against which the device's busy time gives a
+    second idle share (the profiler's own host work stretches the traced
+    wall)."""
+    dev, S = pred.device, pred.num_streams
+    released = 0.0
+    if dev.type == "cuda":
+        before = torch.cuda.memory_reserved(dev)
+        pred.plan.release_graphs()
+        torch.cuda.empty_cache()
+        released = (before - torch.cuda.memory_reserved(dev)) / 1e9
+    window = torch.as_tensor(_pad_streams(data, S, chunk)[0][:, :n].copy(), device=dev)
+    code = torch.zeros((S, 1), dtype=torch.uint8, device=dev)  # encode never reads it
+
+    def encode() -> None:
+        run_chunks(pred, window, code, n, decode=False, chunk=n)
+        _sync(dev)
+
+    reset_to_warm(pred, warm)
+    encode()  # captures the window's graphs
+    reset_to_warm(pred, warm)
+    _sync(dev)
+    before = _launch_counts()
+    row = trace_window(encode, n, dev)
+    launches = [b - a for a, b in zip(before, _launch_counts())]
+    row.update(byte_steps=n, backward_passes=n // pred.spec.lstm.horizon if pred.spec.lstm is not None else 0,
+               encode_pass_ms_per_step=encode_step_ms, graphs_released_gb=released)
+    if dev.type == "cuda":
+        row["hand_written_launches_per_step"] = [x / n for x in launches]
+        row["idle_share_of_passes"] = 1.0 - row["device_busy_ms_per_step"] / encode_step_ms
+    else:
+        row["hand_written_launches_per_step"] = "not measured: the plain versions run on the CPU"
+    return row
+
+
 def _emit(out: list, kind: str, **fields) -> None:
     row = {"bench": kind, **fields}
     out.append(row)
@@ -245,7 +471,8 @@ def _emit(out: list, kind: str, **fields) -> None:
 
 
 def run_once(spec: EnsembleSpec, num_streams: int, chunk: int, data: bytes, warm: bytes = b"", passes: int = 2,
-             device=None, lines: Optional[list] = None) -> dict:
+             device=None, lines: Optional[list] = None, warm_checkpoint: Optional[str] = None,
+             trace: int = 0) -> dict:
     """Encode `data` over `num_streams` streams `passes` times, then decode
     the archive as often, each pass from the warm start that `warm` trains
     (`pretrain_state`; b"": the fresh state), on one predictor that is put
@@ -253,28 +480,47 @@ def run_once(spec: EnsembleSpec, num_streams: int, chunk: int, data: bytes, warm
     alone and printed; an archive unlike the first pass's, a decode that is
     not `data`, or a cross-entropy that is not finite raises RuntimeError.
     Returns the result: rates per pass, best and median, bpb and model bpb,
-    state and peak bytes, the graphs' capture and the warm start's seconds.
-    Printed rows are also appended to `lines`.
+    the archive's sha256, state and peak bytes, the graphs' capture and the
+    warm start's seconds and source. Printed rows are also appended to
+    `lines`.
+
+    With `warm_checkpoint`, the warm start is read from that file when it
+    exists and trained and written there otherwise; a file made by another
+    warm start raises SystemExit before anything is allocated
+    (`check_warm_checkpoint`). With `trace` > 0, a `trace` row of that many
+    encode byte steps follows the passes (`_trace_run`).
 
     With an LSTM, `chunk` and the pretraining's chunk must be multiples of
     its horizon (the deferred backward pass), or ValueError: a chunk of the
-    other order decodes other bytes with no error."""
+    other order decodes other bytes with no error; so must `trace`, so that
+    the traced window runs the passes' kind of graphs."""
     lines = [] if lines is None else lines
     dev = default_device() if device is None else torch.device(device)
+    n, S = len(data), num_streams
+    per = padded_per(n, S, chunk)
     if spec.lstm is not None:
         hz = spec.lstm.horizon
         if chunk % hz or min(chunk, WARM_CHUNK) % hz:
             raise ValueError(f"chunk {chunk}: the LSTM's horizon {hz} must divide it and min(chunk, {WARM_CHUNK})")
+        if trace % hz:
+            raise ValueError(f"a trace of {trace} byte steps: the LSTM's horizon {hz} must divide it")
     if passes < 1:
         raise ValueError(f"{passes} passes")
-    n, S = len(data), num_streams
-    per = padded_per(n, S, chunk)
+    if not 0 <= trace <= per:
+        raise ValueError(f"a trace of {trace} byte steps: a stream has {per}")
+    sidecar = warm_sidecar(spec, warm, chunk)
+    from_file = warm_checkpoint is not None and check_warm_checkpoint(warm_checkpoint, sidecar)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
 
     t0 = time.perf_counter()
-    warm_state = pretrain_state(spec, warm, chunk, dev)
+    warm_state = load_warm_checkpoint(warm_checkpoint) if from_file else pretrain_state(spec, warm, chunk, dev)
     warm_s = time.perf_counter() - t0
+    warm_write_s = None
+    if warm_checkpoint is not None and not from_file:
+        t0 = time.perf_counter()
+        save_warm_checkpoint(warm_checkpoint, warm_state, sidecar)
+        warm_write_s = time.perf_counter() - t0
     pred = warm_predictor(spec, S, warm_state, dev)
     t0 = time.perf_counter()
     capture_s = 0.0
@@ -310,6 +556,8 @@ def run_once(spec: EnsembleSpec, num_streams: int, chunk: int, data: bytes, warm
             raise RuntimeError(f"bench: decode pass {i + 1} differs from the input at byte {at} of {n}")
         dec_s.append(t)
         _emit(lines, "pass", direction="decode", index=i + 1, seconds=t, bytes_per_s=n / t)
+    if trace:
+        _emit(lines, "trace", **_trace_run(pred, warm_state, data, chunk, trace, 1e3 * min(enc_s) / per))
 
     def rates(times):
         return {"best": n / min(times), "median": n / statistics.median(times)}
@@ -319,11 +567,14 @@ def run_once(spec: EnsembleSpec, num_streams: int, chunk: int, data: bytes, warm
         "encode_s": enc_s, "decode_s": dec_s,
         "encode_bytes_per_s": rates(enc_s), "decode_bytes_per_s": rates(dec_s),
         "encdec_mbps": 2 * n / (min(enc_s) + min(dec_s)) / 1e6,
-        "archive_bytes": len(blob), "bpb": 8 * len(blob) / n, "model_bpb": model_bits / n,
+        "archive_bytes": len(blob), "archive_sha256": hashlib.sha256(blob).hexdigest(),
+        "bpb": 8 * len(blob) / n, "model_bpb": model_bits / n,
         "state_gb": pred.memory_bytes() / 1e9,
         "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9 if dev.type == "cuda" else None,
         "peak_reserved_gb": torch.cuda.max_memory_reserved(dev) / 1e9 if dev.type == "cuda" else None,
-        "capture_s": capture_s, "capture_warmup_s": warmup_s, "warm_s": warm_s, "exact": True,
+        "capture_s": capture_s, "capture_warmup_s": warmup_s, "warm_s": warm_s,
+        "warm_source": "checkpoint" if from_file else "trained", "warm_write_s": warm_write_s,
+        "trace_steps": trace, "exact": True,
     }
 
 
@@ -344,11 +595,16 @@ def _default_budget(dev: torch.device) -> int:
     return os.sysconf("SC_PAGE_SIZE") * os.sysconf("SC_PHYS_PAGES")
 
 
-def _vs_baseline(mbps: float) -> Optional[float]:
+def _baseline() -> dict:
+    """data/baseline_measured.json (read, never written); {} without it."""
     if not os.path.exists(BASELINE):
-        return None
+        return {}
     with open(BASELINE) as f:
-        ref = json.load(f).get("ref_encdec_mbps", 0.0)
+        return json.load(f)
+
+
+def _vs_baseline(mbps: float) -> Optional[float]:
+    ref = _baseline().get("ref_encdec_mbps", 0.0)
     return mbps / ref if ref > 0 else None
 
 
@@ -357,7 +613,8 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="python -m gmix_tpu_torch.bench",
                                 description="encode + decode bytes/s at an exact roundtrip from a warm start")
     p.add_argument("--profile", default=env.get("GMIX_BENCH_PROFILE", "ref"),
-                   help="ref (the published table sizes) or scaled-<bits>; a trailing x<S> sets the streams")
+                   help="ref, ref-ppm, ref-noppm or best (the published table sizes), scaled-<bits> (ref's tables "
+                        "clamped to 2^bits) or <profile>:scaled-<bits>; a trailing x<S> sets the streams")
     p.add_argument("--streams", default=None, help="N, or auto: the most that fit the budget (default)")
     p.add_argument("--chunk", type=int, default=int(env.get("GMIX_BENCH_CHUNK", 4000)))
     p.add_argument("--bytes", type=int, default=int(env["GMIX_BENCH_BYTES"]) if "GMIX_BENCH_BYTES" in env else None,
@@ -367,6 +624,12 @@ def main(argv=None) -> int:
     p.add_argument("--offset", type=int, default=None,
                    help="the corpus byte the coded bytes start at, at or past the warm start's end (default: there)")
     p.add_argument("--passes", type=int, default=int(env.get("GMIX_BENCH_PASSES", 2)))
+    p.add_argument("--warm-checkpoint", default=None, metavar="PATH",
+                   help="read the warm start from PATH (a checkpoint with its sidecar PATH.json), or train it and "
+                        "write it there if PATH does not exist (e.g. build/warm/ref-131072.gxt)")
+    p.add_argument("--trace", type=int, default=0, metavar="N",
+                   help="after the passes, trace N encode byte steps under torch.profiler (with an LSTM a multiple "
+                        "of its horizon; 100 at ref)")
     p.add_argument("--budget", type=int, default=int(env["GMIX_HBM_BUDGET"]) if "GMIX_HBM_BUDGET" in env else None,
                    help="device bytes the run may take (default: the device's total memory)")
     p.add_argument("--device", default=None, help="a torch device (default: the current CUDA device; cpu runs the "
@@ -374,11 +637,11 @@ def main(argv=None) -> int:
     p.add_argument("--out", default=None, help="also write the printed rows to this JSON file")
     args = p.parse_args(argv)
 
-    m = re.fullmatch(r"(ref|scaled-(\d+))(?:x(\d+))?", args.profile)
-    if m is None:
-        raise SystemExit(f"bench: unknown profile {args.profile!r}: use 'ref' or 'scaled-<bits>', optionally x<streams>")
-    bits = int(m.group(2)) if m.group(2) else None
-    streams = args.streams or m.group(3) or "auto"
+    try:
+        name, spec, profile_streams = parse_profile(args.profile)
+    except ValueError as e:
+        raise SystemExit(f"bench: {e}")
+    streams = args.streams or profile_streams or "auto"
     if args.device is not None:
         dev = torch.device(args.device)
     else:
@@ -389,21 +652,22 @@ def main(argv=None) -> int:
     offset = args.warm if args.offset is None else args.offset
     if offset < args.warm:
         raise SystemExit(f"bench: --offset {offset} is inside the warm start's {args.warm} bytes")
-    spec = spec_for(bits)
     warm, data = corpus(args.warm, 0), corpus(args.bytes, offset)
     budget = _default_budget(dev) if args.budget is None else args.budget
     S = auto_streams(spec, len(data), args.chunk, budget) if streams == "auto" else int(streams)
     estimate = state_bytes_estimate(spec, max(S, 1))
     headroom = headroom_bytes(max(S, 1), padded_per(len(data), max(S, 1), args.chunk), args.chunk)
     lines: list = []
-    _emit(lines, "config", spec=m.group(1), streams=S, streams_asked=streams, chunk=args.chunk, bytes=len(data),
-          offset=offset, warm_bytes=args.warm, passes=args.passes, state_estimate_bytes=estimate,
-          headroom_bytes=headroom, budget_bytes=budget, **_device_info(dev))
+    _emit(lines, "config", spec=name, streams=S, streams_asked=streams, chunk=args.chunk, bytes=len(data),
+          offset=offset, warm_bytes=args.warm, passes=args.passes, warm_checkpoint=args.warm_checkpoint,
+          trace=args.trace, state_estimate_bytes=estimate, headroom_bytes=headroom, budget_bytes=budget,
+          **_device_info(dev))
     if S < 1 or estimate + headroom > budget:
-        raise SystemExit(f"bench: refused: {max(S, 1)} streams of {m.group(1)} need {estimate} bytes of state and "
+        raise SystemExit(f"bench: refused: {max(S, 1)} streams of {name} need {estimate} bytes of state and "
                          f"{headroom} of headroom, over the budget of {budget} bytes")
-    res = run_once(spec, S, args.chunk, data, warm, args.passes, dev, lines)
-    _emit(lines, "result", spec=m.group(1), **res, vs_baseline=_vs_baseline(res["encdec_mbps"]))
+    res = run_once(spec, S, args.chunk, data, warm, args.passes, dev, lines, args.warm_checkpoint, args.trace)
+    _emit(lines, "result", spec=name, **res, vs_baseline=_vs_baseline(res["encdec_mbps"]),
+          ref_bpb=_baseline().get("ref_1m", {}).get("bpb"))
     if args.out:
         with open(args.out, "w") as f:
             json.dump(lines, f, indent=1)

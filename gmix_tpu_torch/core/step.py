@@ -200,6 +200,14 @@ class StepPlan:
                 self._capture_stream = torch.cuda.Stream(self.device)
         return self._pool, self._capture_stream
 
+    def release_graphs(self) -> None:
+        """Drop every compiled chunk of this plan, and with their CUDA graphs
+        the memory pool they were captured into (its memory goes back to the
+        device at the next `torch.cuda.empty_cache()`). The next capture
+        takes a new pool."""
+        self.fn_cache.clear()
+        self._pool = None
+
 
 def _as_index(t, device) -> torch.Tensor:
     """A byte index as a 0-d int64 tensor on `device`: a tensor as it is, a

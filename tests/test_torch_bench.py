@@ -24,6 +24,7 @@ import jax
 import bench
 import gmix_tpu as g
 from gmix_tpu.config import ApmStage as JApmStage
+from gmix_tpu.utils import serialization as j_serialization
 import gmix_tpu_torch as gt
 from gmix_tpu_torch import bench as tb
 from gmix_tpu_torch.core.codec import Predictor
@@ -101,9 +102,9 @@ def test_spec_for_none_is_the_published_reference_with_two_apm_stages():
 
 
 @pytest.mark.parametrize("S", [1, 3])
-@pytest.mark.parametrize("name", ["tiny", "scaled-8"])
+@pytest.mark.parametrize("name", ["tiny", "scaled-8", "ref-ppm:scaled-8", "ref-noppm:scaled-8", "best:scaled-8"])
 def test_state_bytes_estimate_is_the_allocated_state(name, S):
-    spec = gt.tiny_spec(True) if name == "tiny" else tb.spec_for(8)
+    spec = gt.tiny_spec(True) if name == "tiny" else tb.parse_profile(name)[1]
     assert tb.state_bytes_estimate(spec, S) == state_bytes(init_state(build_meta(spec), S))
 
 
@@ -111,6 +112,51 @@ def test_pretrain_state_is_lane_0_of_eager_gmix_tpu(warm_run):
     name, j_host, t_state = warm_run
     got = state_to_numpy(t_state)
     assert got["stm"]["bits_seen"].shape == (1,)
+    _assert_states(j_host, got, lstm=name == "lstm")
+
+
+def _save_warm(warm_run, path) -> dict:
+    """The port's warm start of `warm_run` written as a warm checkpoint;
+    returns its sidecar."""
+    name, _, t_state = warm_run
+    lstm, warm, chunk = WARM_RUNS[name]
+    side = tb.warm_sidecar(gt.tiny_spec(lstm), tb.corpus(warm), chunk)
+    tb.save_warm_checkpoint(str(path), t_state, side)
+    return side
+
+
+def test_warm_checkpoint_reads_back_the_warm_start_bitwise(warm_run, tmp_path):
+    """`pretrain_state`'s CPU tensors written and read: every leaf the same
+    shape, dtype and bits (the int64-carried u32 lanes, the int16-carried
+    u16 arenas and, with the LSTM, the 0-d leaves among them)."""
+    name, _, t_state = warm_run
+    path = tmp_path / "warm.gxt"
+    side = _save_warm(warm_run, path)
+    assert json.loads((tmp_path / "warm.gxt.json").read_text()) == side
+    assert tb.check_warm_checkpoint(str(path), side)
+    want, got = dict(_torch_leaves(t_state)), dict(_torch_leaves(tb.load_warm_checkpoint(str(path))))
+    assert sorted(got) == sorted(want)
+    for k, a in want.items():
+        b = got[k]
+        assert (b.device.type, b.shape, b.dtype) == ("cpu", a.shape, a.dtype), k
+        assert torch.equal(a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8)), k
+    assert {torch.int64, torch.int16, torch.int32, torch.float32} <= {a.dtype for a in want.values()}
+    assert any(a.dim() == 0 for a in want.values()) == (name == "lstm")
+
+
+def test_warm_checkpoint_is_gmix_tpu_lane_0(warm_run, tmp_path):
+    """The port-written file read by gmix_tpu's `load_state` is the port's
+    warm start with gmix_tpu's dtypes, every leaf bitwise, and so lane 0 of
+    eager gmix_tpu's `_pretrain_host_state` as `pretrain_state` is."""
+    name, j_host, t_state = warm_run
+    path = tmp_path / "warm.gxt"
+    _save_warm(warm_run, path)
+    got = j_serialization.load_state(str(path))
+    want = dict(_flat(state_to_numpy(t_state)))
+    assert sorted(dict(_flat(got))) == sorted(want)
+    for k, b in _flat(got):
+        assert (b.shape, b.dtype) == (want[k].shape, want[k].dtype), k
+        assert np.array_equal(b.reshape(-1).view(np.uint8), want[k].reshape(-1).view(np.uint8)), k
     _assert_states(j_host, got, lstm=name == "lstm")
 
 

@@ -84,7 +84,8 @@ Phases; any failure ends the run with a non-zero exit:
        4 KB of data/corpus_1m.bin that no other phase codes, then
        decompress; the round trip exact, 6 launches a byte step each way,
        entropy.tsv's header `analysis_columns` and a finite row, memory.tsv's
-       TOTAL equal to the state's size; bpb, model bpb, state and peak GB,
+       TOTAL equal to the state's size in gmix_tpu's layout (a u32 leaf at
+       4 bytes an element) and to its rows' sum; bpb, model bpb, state and peak GB,
        bytes/s and the fused kernel's instantiation are printed (the bpb
        beside ref-full's of phase 3, a reading: other bytes, other streams);
    (b) `--profile scaled-12 --streams 2` on the GPU and on the CPU (the CPU's
@@ -136,7 +137,12 @@ Phases; any failure ends the run with a non-zero exit:
    step (warm start, graph capture, passes and traced window) must launch
    the profile's kernels (gather, scatter, fused: 3 + 2 + 1 at ref-full and
    best, 2 + 2 + 1 at ref-ppm, 1 + 1 + 1 at ref-noppm), and the state must
-   be the bytes the bench estimated.
+   be the bytes the bench estimated. The step's roofline of each run is
+   logged (the bench's count of a byte step from the spec, its bound, and
+   the shares of the card's peaks: `mfu`, `hbm_share`, `roofline_share`),
+   and each share must lie in (0, SHARE_MAX] in the result row (against
+   the best encode pass's step) and in the trace row (against the device's
+   busy time): a share above 1 counts work the step does not do.
 
 ref-full is gmix_tpu's reference wiring (`reference_spec()`: PPM, the LSTM
 byte model of 50 cells with a horizon of 100) at its published table sizes
@@ -166,6 +172,7 @@ import contextlib
 import functools
 import io
 import json
+import math
 import os
 import re
 import shlex
@@ -191,7 +198,8 @@ from gmix_tpu_torch.core.meta import build_meta
 from gmix_tpu_torch.ops import rowmove
 from gmix_tpu_torch.parallel import distributed
 from gmix_tpu_torch.parallel.mesh import make_mesh, stream_sharding
-from gmix_tpu_torch.state import init_state, state_bytes
+from gmix_tpu_torch.roofline import PEAK_BYTES_PER_S, SHARES, fused_bound, tensor_bytes
+from gmix_tpu_torch.state import init_state, numpy_layout, state_bytes
 from gmix_tpu_torch.utils.build import build
 from gmix_tpu_torch.utils.fused_inputs import random_inputs, with_sampling
 from gmix_tpu_torch.utils.serialization import copy_state
@@ -215,8 +223,6 @@ GEN_PROMPT, GEN_BYTES, GEN_TEMP, GEN_CHUNK = 256, 256, 0.8, 256
 CROSS_PROMPT, CROSS_GEN, CROSS_CHUNK = 16, 32, 16
 # the sampling mode's 1 / temperature: the default, 0.8, and the floor
 INV_TEMPS = (1.0, 1.25, 1000.0)
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_F32_OPS_PER_S = 67e12
 SOURCES = {
     "gather_rows": "gmix_tpu_torch/csrc/rowmove.cu",
     "scatter_rows": "gmix_tpu_torch/csrc/rowmove.cu",
@@ -284,6 +290,9 @@ BENCH_B = ("--profile", "ref", "--streams", "auto", "--warm", "1000", "--offset"
 BENCH_C = ("--streams", "4", "--warm", "1000", "--offset", str(112 * 1024), "--bytes", "8000", "--chunk", "200",
            "--passes", "2")
 BENCH_C_PROFILES = ("best", "ref-ppm", "ref-noppm")
+# the most a share of the card's peaks may read in the bench's rows (a step
+# cannot beat its bound; 5% for a host-timed step)
+SHARE_MAX = 1.05
 # (gather, scatter, fused) launches of a byte step by bench profile
 BENCH_LAUNCHES = {"ref": (3, 2, 1), "best": (3, 2, 1), "ref-ppm": (2, 2, 1), "ref-noppm": (1, 1, 1)}
 
@@ -381,52 +390,9 @@ def read_launches():
     return tuple(sum(w.launches for w in group) for group in WRAPPERS)
 
 
-def tensor_bytes(tensors) -> int:
-    return sum(t.numel() * t.element_size() for t in tensors)
-
-
 # ---------------------------------------------------------------------------
 # phase 2a: the fused sub-step kernel
 # ---------------------------------------------------------------------------
-
-
-def fused_float_ops(meta, S: int, learn: bool, analysis: bool, sample: bool = False) -> int:
-    """Float operations of one launch, counted from the shapes: per sub-step
-    the three layers' dots (2 per lane), the triangular solves (squarings of
-    2 n^3 and matrix-vector products of 2 n^2), ~60 per logistic/logit/log2
-    of a prediction column, the heads' interval sums, the SGD pass (3 per
-    lane), a sampled bit's logit and logistic, and per byte the dense
-    deferred passes (2 per lane and level)."""
-    d = fused._dims(meta)
-    M2, NM, K, WP = 2 * d["M"], d["NM"], d["K"], d["WP"]
-    per_sub = 2 * K * WP + 60 * (NM + 2 * d["NA"] + 1) + 2 * 256 * (d["ppm"] + d["lstm"])
-    for n in (d["n0"], d["n1"]):
-        if n > 1:
-            squarings = max(int(np.ceil(np.log2(n))) - 1, 0)
-            per_sub += squarings * 2 * n**3 + (squarings + 1) * 2 * n * n
-    if analysis:
-        per_sub += 60 * d["nc"]
-    if sample:
-        per_sub += 2 * 60 + 1
-    if learn:
-        per_sub += 3 * K * WP + 60 * (M2 + K) + 16 * (M2 + NM) + 3 * 33 * d["NA"]
-    per_byte = 8 * per_sub + (16 * (M2 + NM) * 256 if learn else 0)
-    return S * per_byte
-
-
-def fused_bound(meta, consts, fin, S: int, learn: bool = True, sample: bool = False) -> dict:
-    """The least time the card could take for one launch at the main path's
-    flags (analysis; learn, or the sampling mode): every input read once and
-    every output written once over the memory rate, or the float operations
-    over the float32 rate, whichever is larger."""
-    ins, _ = fused.io_layout(meta, learn, True, sample)
-    got = fused.fused_substeps(meta, consts, fin, learn, True, sample)
-    moved = tensor_bytes([(fin if kind == "s" or n in fused.CALL_INPUTS else consts)[n] for n, _, _, kind in ins])
-    moved += tensor_bytes([consts["desc_i"], consts["desc_f"]]) + tensor_bytes(got.values())
-    ops = fused_float_ops(meta, S, learn, True, sample)
-    bytes_ms, ops_ms = 1e3 * moved / PEAK_BYTES_PER_S, 1e3 * ops / PEAK_F32_OPS_PER_S
-    return {"bytes_moved": moved, "float_ops": ops, "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
 
 
 def compare_fused(what: str, meta, consts, fin, learn: bool, analysis: bool, sample: bool = False) -> float:
@@ -1353,15 +1319,17 @@ def phase_cli_best(d: str, dev, ref_full_bpb: float, ref_full_inst: dict) -> dic
         raise RuntimeError(f"phase 5 best: entropy.tsv row {ent[1][:4]}... is not finite or not at bit {CLI_BEST_PER * 8 - 1}")
     mem = tsv(os.path.join(an, "memory.tsv"))
     meta = build_meta(spec)
-    want = state_bytes(init_state(meta, S, device="meta"))  # sizes only, nothing allocated
+    layout = numpy_layout(init_state(meta, S, device="meta"))  # sizes only, nothing allocated
+    want = sum(math.prod(shape) * dtype.itemsize for shape, dtype in layout.values())
     total = int(mem[-1][1])
     if mem[-1][0] != "TOTAL" or total != want or total != sum(int(b) for _, b in mem[1:-1]):
-        raise RuntimeError(f"phase 5 best: memory.tsv TOTAL {mem[-1]} against memory_bytes() {want}")
+        raise RuntimeError(f"phase 5 best: memory.tsv TOTAL {mem[-1]} against gmix_tpu's bytes of the state {want}")
     inst = fused.fused_instantiation(meta, fused.const_inputs(meta, True, dev), True, True, S, dev)
     model_bpb = float(re.search(r"model entropy ([0-9.]+) bits/byte", printed).group(1))
     out = {"spec": "best", "streams": S, "chunk": CLI_BEST_PER, "bytes": len(data), "archive_bytes": len(read_bytes(arc)),
            "bpb": 8 * len(read_bytes(arc)) / len(data), "model_bpb": model_bpb,
-           "ref_full_main_bpb": ref_full_bpb, "state_gb": total / 1e9, "peak_gb": peak_gb,
+           "ref_full_main_bpb": ref_full_bpb, "state_gb": state_bytes(init_state(meta, S, device="meta")) / 1e9,
+           "memory_tsv_gb": total / 1e9, "peak_gb": peak_gb,
            "encode_s": enc_s, "decode_s": dec_s, "encode_bytes_per_s": len(data) / enc_s,
            "decode_bytes_per_s": len(data) / dec_s, "launches_per_byte_step": sum(expect) // CLI_BEST_PER,
            "launches_encode": list(enc_l), "launches_decode": list(dec_l), "instantiation": inst,
@@ -1660,8 +1628,20 @@ def bench_run(argv, what: str, per_step) -> dict:
     if round(result["state_gb"] * 1e9) != config["state_estimate_bytes"]:
         raise RuntimeError(f"phase 7 {what}: the state holds {result['state_gb']} GB, the estimate was "
                            f"{config['state_estimate_bytes']} bytes")
+    work = result["work_per_step"]
+    roof = {"streams": result["streams"], "bytes": work["bytes"], "float_ops": work["float_ops"],
+            "int_ops": work["int_ops"], "parts_bytes": {k: v["bytes"] for k, v in work["parts"].items()},
+            **{k: result[k] for k in ("bound_ms", "bound_by", *SHARES, "achieved_gbps", "achieved_gflops")},
+            "step_ms": 1e3 * min(result["encode_s"]) / result["byte_steps"]}
+    if traces:
+        roof["trace"] = {k: traces[0][k] for k in ("device_busy_ms_per_step", *SHARES)}
+    log(f"phase 7: {what}: roofline {json.dumps(roof)}")
+    for row in [result, *traces]:
+        bad = {k: row[k] for k in SHARES if not (isinstance(row[k], float) and 0 < row[k] <= SHARE_MAX)}
+        if bad:
+            raise RuntimeError(f"phase 7 {what}: the {row['bench']} row's shares {bad} are outside (0, {SHARE_MAX}]")
     return {"config": config, "result": result, "trace": traces[0] if traces else None, "passes": passes,
-            "launches": list(got), "byte_steps": steps, "held_before_gb": held_gb}
+            "launches": list(got), "byte_steps": steps, "held_before_gb": held_gb, "roofline": roof}
 
 
 def phase_bench_warm_lane(spec, dev):

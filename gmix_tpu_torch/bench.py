@@ -53,6 +53,16 @@ card's name and power limit as nvidia-smi reports them) before any timed
 work, one line a pass, the trace, and the result (with `ref_bpb`, the
 reference binary's bpb on the corpus, read from data/baseline_measured.json
 as bench.py reads it). `--out FILE` also writes all of them to FILE.
+
+The result also holds the step's roofline (roofline.py, the cost-analysis
+half of tools/tpu_profile.py): the work of a byte step counted from the
+spec (`work_per_step`: bytes, float and integer operations, a step, a bit
+and by part), the least time the card could take for it (`bound_ms`,
+`bound_by`), and against the best encode pass's step the shares of the
+card's peaks (`mfu`, `hbm_share`, `roofline_share`) and the achieved rates;
+the trace row the same shares against the device's busy time a step. On
+the CPU the count and the bound are printed and every share reads "not
+measured".
 Nothing else is written but the warm checkpoint, and nothing under data/.
 
 Left behind from bench.py: the v5e ladder of configurations, the subprocess
@@ -85,6 +95,7 @@ from .core.codec import (_WORST_PER_BYTE, Predictor, _pad_streams, compress_byte
                          entropy_bits, run_chunks)
 from .core.meta import build_meta
 from .ops import rowmove
+from .roofline import RATES, SHARES, bound, roofline, step_work
 from .state import coder_state, copy_into, init_state, metrics_state, state_bytes, state_from_numpy
 from .utils.serialization import load_state, save_state
 
@@ -424,7 +435,16 @@ def trace_window(run: Callable[[], None], n: int, device) -> dict:
     return out
 
 
-def _trace_run(pred: Predictor, warm: Dict, data: bytes, chunk: int, n: int, encode_step_ms: float) -> dict:
+def _roofline_row(work: dict, step_ms: Optional[float], keys) -> dict:
+    """`keys` of `roofline(work, step_ms)`. Without a step time (a CPU run,
+    which gives counts, never a share of the card's peaks) the bound alone,
+    every share and rate "not measured: the CPU"."""
+    got = bound(work["bytes"], work["float_ops"]) if step_ms is None else roofline(work, step_ms)
+    return {k: got.get(k, "not measured: the CPU") for k in keys}
+
+
+def _trace_run(pred: Predictor, warm: Dict, data: bytes, chunk: int, n: int, encode_step_ms: float,
+               work: dict) -> dict:
     """The `trace` row: the passes' compiled chunks and their graph pool
     released, the predictor put back to `warm`, the first `n` bytes of
     every stream (as `compress_bytes` lays them out) encoded in one chunk to
@@ -432,7 +452,8 @@ def _trace_run(pred: Predictor, warm: Dict, data: bytes, chunk: int, n: int, enc
     torch.profiler (`trace_window`). `encode_step_ms` is the best encode
     pass's wall a byte step, against which the device's busy time gives a
     second idle share (the profiler's own host work stretches the traced
-    wall)."""
+    wall). The roofline's shares (`work`, `step_work`'s count of a step)
+    are taken against the device's busy time a step."""
     dev, S = pred.device, pred.num_streams
     released = 0.0
     if dev.type == "cuda":
@@ -459,8 +480,10 @@ def _trace_run(pred: Predictor, warm: Dict, data: bytes, chunk: int, n: int, enc
     if dev.type == "cuda":
         row["hand_written_launches_per_step"] = [x / n for x in launches]
         row["idle_share_of_passes"] = 1.0 - row["device_busy_ms_per_step"] / encode_step_ms
+        row.update(_roofline_row(work, row["device_busy_ms_per_step"], SHARES))
     else:
         row["hand_written_launches_per_step"] = "not measured: the plain versions run on the CPU"
+        row.update(_roofline_row(work, None, SHARES))
     return row
 
 
@@ -481,8 +504,11 @@ def run_once(spec: EnsembleSpec, num_streams: int, chunk: int, data: bytes, warm
     not `data`, or a cross-entropy that is not finite raises RuntimeError.
     Returns the result: rates per pass, best and median, bpb and model bpb,
     the archive's sha256, state and peak bytes, the graphs' capture and the
-    warm start's seconds and source. Printed rows are also appended to
-    `lines`.
+    warm start's seconds and source, and the step's roofline: its work
+    (`step_work`: bytes, float and integer operations a byte step, a bit
+    and by part), the bound, and the shares of the card's peaks that the
+    best encode pass's step reaches (`roofline`). Printed rows are also
+    appended to `lines`.
 
     With `warm_checkpoint`, the warm start is read from that file when it
     exists and trained and written there otherwise; a file made by another
@@ -556,8 +582,10 @@ def run_once(spec: EnsembleSpec, num_streams: int, chunk: int, data: bytes, warm
             raise RuntimeError(f"bench: decode pass {i + 1} differs from the input at byte {at} of {n}")
         dec_s.append(t)
         _emit(lines, "pass", direction="decode", index=i + 1, seconds=t, bytes_per_s=n / t)
+    step_ms = 1e3 * min(enc_s) / per
+    work = step_work(pred.meta, S)
     if trace:
-        _emit(lines, "trace", **_trace_run(pred, warm_state, data, chunk, trace, 1e3 * min(enc_s) / per))
+        _emit(lines, "trace", **_trace_run(pred, warm_state, data, chunk, trace, step_ms, work))
 
     def rates(times):
         return {"best": n / min(times), "median": n / statistics.median(times)}
@@ -575,6 +603,8 @@ def run_once(spec: EnsembleSpec, num_streams: int, chunk: int, data: bytes, warm
         "capture_s": capture_s, "capture_warmup_s": warmup_s, "warm_s": warm_s,
         "warm_source": "checkpoint" if from_file else "trained", "warm_write_s": warm_write_s,
         "trace_steps": trace, "exact": True,
+        "work_per_step": work,
+        **_roofline_row(work, step_ms if dev.type == "cuda" else None, ("bound_ms", "bound_by") + SHARES + RATES),
     }
 
 

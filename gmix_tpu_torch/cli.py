@@ -209,9 +209,10 @@ def main(argv=None):
                 os.makedirs(args.analysis, exist_ok=True)
                 with open(os.path.join(args.analysis, "memory.tsv"), "w") as f:
                     f.write("component\tbytes\n")
-                    for name, nbytes in memory_report(pred):
+                    rows = memory_report(pred)  # gmix_tpu's bytes, as its memory.tsv has them
+                    for name, nbytes in rows:
                         f.write(f"{name}\t{nbytes}\n")
-                    f.write(f"TOTAL\t{pred.memory_bytes()}\n")
+                    f.write(f"TOTAL\t{sum(n for _, n in rows)}\n")
                 # The per-column entropy EMA itself updates EVERY BIT in-model
                 # (alpha=1e-5, as predictor.cpp:439-469); only the snapshot
                 # cadence differs from the reference: rows are sampled once

@@ -259,7 +259,13 @@ def _numpy_dtype(path, t) -> np.dtype:
         return np.dtype(np.uint32)
     if t.dtype == torch.int16:
         return np.dtype(np.uint16)
-    return torch.empty((0,), dtype=t.dtype).numpy().dtype
+    return np.dtype(str(t.dtype).removeprefix("torch."))
+
+
+def gmix_nbytes(path, t) -> int:
+    """The leaf's bytes in gmix_tpu's layout: its elements at the dtype
+    `_numpy_dtype` gives it (a u32 the port carries as int64 counts 4)."""
+    return t.numel() * _numpy_dtype(path, t).itemsize
 
 
 def copy_into(dst: Dict, src, prefix: tuple = ()) -> None:

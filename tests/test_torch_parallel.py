@@ -87,6 +87,15 @@ def test_sharded_archive_is_the_unsharded_archive(run):
     assert run["blob_s"] == run["blob_u"]
 
 
+def _flat_sizes(tree, prefix, out):
+    """gmix_tpu's memory.tsv names (`jax.tree_util.keystr`) -> bytes."""
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            _flat_sizes(v, f"{prefix}['{k}']", out)
+        else:
+            out[f"{prefix}['{k}']"] = v.size * v.dtype.itemsize
+
+
 def test_each_decodes_the_others_archive(run):
     spec, chunk, data = run["spec"], run["chunk"], run["data"]
     assert gt.decompress_bytes(run["blob_s"], spec, chunk, device="cpu") == data
@@ -95,12 +104,16 @@ def test_each_decodes_the_others_archive(run):
 
 def test_metrics_and_state_are_the_unsharded_ones(run):
     """entropy_bits (one float64 sum over the streams in stream order),
-    analysis_snapshot, memory_report and memory_bytes equal exactly, and the
+    analysis_snapshot, memory_report (gmix_tpu's bytes of each leaf, over
+    the shards) and memory_bytes (the devices' bytes) equal exactly, and the
     gathered state equals the unsharded one leaf for leaf."""
     pu, ps = run["pu"], run["ps"]
     assert gt.entropy_bits(ps) == gt.entropy_bits(pu) > 0
     assert np.array_equal(analysis_snapshot(ps), analysis_snapshot(pu))
     assert memory_report(ps) == memory_report(pu)
+    gmix = {}
+    _flat_sizes(state_to_numpy(gather_state(ps.state)), "", gmix)
+    assert dict(memory_report(ps)) == gmix
     assert ps.memory_bytes() == pu.memory_bytes()
     _assert_same_state(pu.state, gather_state(ps.state))
 

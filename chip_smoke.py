@@ -6,6 +6,7 @@
                                          # part of phase 2 (under a minute),
                                          # with each kernel's code size
     python3 chip_smoke.py --bench-only   # phases 0-1 and 7
+    python3 chip_smoke.py --variants-only   # phases 0-1 and 8
 
 Phases; any failure ends the run with a non-zero exit:
 
@@ -143,6 +144,32 @@ Phases; any failure ends the run with a non-zero exit:
    and each share must lie in (0, SHARE_MAX] in the result row (against
    the best encode pass's step) and in the trace row (against the device's
    busy time): a share above 1 counts work the step does not do.
+8. the ensemble variants (`gmix_tpu_torch/variants.py`, bench profiles) at
+   the shapes they bring to the kernels: ref:ablate-indonly (no match
+   model, no PPM or LSTM head, one mixer a layer, no indirect-hash arena),
+   ref:ablate-nomix12 (one mixer in layers 0 and 1), ref:ablate-nomatch,
+   ref:ablate-noih (no `ih_tbl`, the mixers re-gated), ref:ablate-mixtb0
+   (every gating table one row: no `mix_w` or `mix_pos` arena),
+   ref:ladder-lean (16 indirect models, no LSTM) and quality:ref-x4-oldppm
+   (PPM without exclusion or SEE learning, no APM stage). For each:
+   (a) the fused kernel against its plain version on live inputs of 4
+       streams at the published sizes, as in phase 2 (encode and decode,
+       learn on and off; bitwise but `ent` and `ema`), its instantiation,
+       bound and time;
+   (b) compress_bytes then decompress_bytes of 1 KB a stream, 4 streams, at
+       the published sizes: the input back, and each byte step and each
+       graph replay launching what the code says (`launches_per_step`:
+       1 + 1 + 1 without PPM, 2 + 2 + 1 with PPM, 3 + 2 + 1 with PPM and the
+       LSTM);
+   (c) at scale_tables(spec, 12, history_bits=16), 2 streams of 512 bytes:
+       the GPU's archive equal to the CPU's byte for byte (the CPU's encode
+       and decode run in a process a variant, started before phase 7), the
+       GPU decoding the CPU's archive and the CPU its own, which is the
+       GPU's, to the input.
+   Then the bench with two variant profiles in one call
+   (ref:ladder-lean,ref:ablate-indonly, 4 streams), exact, each byte step
+   launching its profile's kernels, and the device's allocated bytes at the
+   start of the second run those at the start of the first.
 
 ref-full is gmix_tpu's reference wiring (`reference_spec()`: PPM, the LSTM
 byte model of 50 cells with a horizon of 100) at its published table sizes
@@ -160,8 +187,9 @@ numbers are those of the ref-ppm byte step's one grouped launch of five
 arenas, with the four-arena group of ref-noppm and the single launches per
 arena beside them; `launches` sums the main paths: the three specs' encode,
 decode and generation, the command line's commands on the card, the sharded
-predictor's encode and decode (`mesh`), the ranks' encodes (`distributed`)
-and the bench's six runs (`bench`), all replays of CUDA graphs;
+predictor's encode and decode (`mesh`), the ranks' encodes (`distributed`),
+the bench's six runs (`bench`) and phase 8's roundtrips and two bench runs
+(`variants`), all replays of CUDA graphs;
 `launches_per_replay` gives each of phase 3's graphs' launches of the
 kernel); the last line is
 {"ok": true, "device": {...}}.
@@ -293,8 +321,21 @@ BENCH_C_PROFILES = ("best", "ref-ppm", "ref-noppm")
 # the most a share of the card's peaks may read in the bench's rows (a step
 # cannot beat its bound; 5% for a host-timed step)
 SHARE_MAX = 1.05
-# (gather, scatter, fused) launches of a byte step by bench profile
-BENCH_LAUNCHES = {"ref": (3, 2, 1), "best": (3, 2, 1), "ref-ppm": (2, 2, 1), "ref-noppm": (1, 1, 1)}
+
+# phase 8, the ensemble variants (gmix_tpu_torch/variants.py) by bench
+# profile: the shapes they bring to the kernels (no match models, one mixer
+# a layer, no indirect-hash arena, 1-row gating tables, 16 indirect models,
+# PPM without exclusion and no APM stage). (a) and (b) at VARIANT_STREAMS
+# streams of the published sizes, VARIANT_PER bytes a stream; (c) at
+# scaled-12, VARIANT_CROSS_STREAMS streams of VARIANT_CROSS_PER bytes in
+# chunks of VARIANT_CROSS_CHUNK (the LSTM's backward pass inside the
+# wrapping byte); then the bench, two profiles in one call
+VARIANTS = ("ref:ablate-indonly", "ref:ablate-nomix12", "ref:ablate-nomatch", "ref:ablate-noih", "ref:ablate-mixtb0",
+            "ref:ladder-lean", "quality:ref-x4-oldppm")
+VARIANT_STREAMS, VARIANT_PER = 4, 1024
+VARIANT_CROSS_STREAMS, VARIANT_CROSS_PER, VARIANT_CROSS_CHUNK = 2, 512, 512
+VARIANT_BENCH = ("--profile", "ref:ladder-lean,ref:ablate-indonly", "--streams", "4", "--warm", "4096", "--offset",
+                 str(120 * 1024), "--bytes", "16384", "--chunk", "1024", "--passes", "1")
 
 # the bench's profiles ref-noppm, ref-ppm and ref (ref-full here)
 SPECS = {"ref-noppm": ref_noppm_spec, "ref-ppm": ref_ppm_spec, "ref-full": functools.partial(spec_for, None)}
@@ -309,6 +350,22 @@ def rows_per_byte(meta):
         "apm": len(meta.spec.apm),
         "ppm_tbl": len(meta.spec.ppm.orders) if meta.spec.ppm else 0,
     }
+
+
+def launches_per_step(spec):
+    """(gather, scatter, fused) launches of an encode or decode byte step,
+    from the code (core/step.py, core/ppm.py): one grouped gather and one
+    grouped scatter of the movers' arenas and one fused launch; with PPM its
+    count update's own gather and scatter of `ppm_tbl` rows; with PPM and
+    the LSTM also the prediction's `ppm_tbl` rows gathered alone before the
+    forward pass."""
+    ppm, lstm = spec.ppm is not None, spec.lstm is not None
+    return (1 + int(ppm) + int(ppm and lstm), 1 + int(ppm), 1)
+
+
+def profile_launches(profile: str):
+    """`launches_per_step` of a bench profile's spec."""
+    return launches_per_step(bench.parse_profile(profile)[1])
 
 
 def log(msg: str) -> None:
@@ -949,12 +1006,7 @@ def phase_main(name, spec, dev):
         raise RuntimeError("phase 3: decompress_bytes did not reproduce the input")
     if not np.isfinite(ent) or ent <= 0:
         raise RuntimeError(f"phase 3: cross-entropy {ent} is not a positive finite number")
-    # the PPM count update gathers and scatters its own rows before the
-    # grouped gather, and with an LSTM the PPM prediction's rows are gathered
-    # on their own before the forward pass; everything else is one launch per
-    # mover and byte step
-    scatters = 2 if spec.ppm is not None else 1
-    gathers = scatters + int(spec.ppm is not None and spec.lstm is not None)
+    gathers, scatters, _ = launches_per_step(spec)
     expect = (gathers * per, scatters * per, per)
     if enc_launches != expect or dec_launches != expect:
         raise RuntimeError(
@@ -1591,14 +1643,25 @@ def phase_nccl(d: str) -> dict:
     return out
 
 
-def bench_run(argv, what: str, per_step) -> dict:
+def bench_steps(config: dict, result: dict) -> int:
+    """Byte steps of one bench run: the warm start's unless it was read from
+    a checkpoint, one chunk each coded direction to capture the graphs, the
+    passes', the traced window's twice (capture and trace)."""
+    wchunk = min(config["chunk"], bench.WARM_CHUNK)
+    warm_steps = 0 if result["warm_source"] == "checkpoint" else config["warm_bytes"] // wchunk * wchunk
+    directions = 2 if result["decoded"] else 1
+    return (warm_steps + directions * config["chunk"] + directions * config["passes"] * result["byte_steps"]
+            + 2 * result["trace_steps"])
+
+
+def bench_run(argv, what: str, per_step, phase: int = 7) -> dict:
     """`bench.main(argv)` in this process, so that the launch counters see
     its kernels (set to 0 just before, read just after), its printed rows
-    logged; the byte steps it made (the warm start's unless it was read
-    from a checkpoint, one chunk each way to capture the graphs, the
-    passes', the traced window's twice: capture and trace) must have
-    launched `per_step` (gather, scatter, fused) kernels each. Returns its
-    config, result and trace rows, passes and launches."""
+    logged; the byte steps each profile's run made (`bench_steps`) must have
+    launched `per_step` (gather, scatter, fused) kernels each, a tuple a
+    profile of `--profile` (one tuple: every profile). Returns the first
+    run's config, result and trace rows, passes and roofline, with every
+    run's in `runs`, the launches and the device bytes held before."""
     out = io.StringIO()
     torch.cuda.empty_cache()
     held_gb = torch.cuda.memory_allocated() / 1e9
@@ -1608,40 +1671,51 @@ def bench_run(argv, what: str, per_step) -> dict:
     got = read_launches()
     rows = [json.loads(line) for line in out.getvalue().splitlines()]
     for row in rows:
-        log(f"phase 7: {what}: {json.dumps(row)}")
+        log(f"phase {phase}: {what}: {json.dumps(row)}")
     if rc != 0:
-        raise RuntimeError(f"phase 7 {what}: exit code {rc}")
-    config, result = rows[0], rows[-1]
-    passes = [r for r in rows if r["bench"] == "pass"]
-    traces = [r for r in rows if r["bench"] == "trace"]
-    wchunk = min(config["chunk"], bench.WARM_CHUNK)
-    warm_steps = 0 if result["warm_source"] == "checkpoint" else config["warm_bytes"] // wchunk * wchunk
-    steps = warm_steps + 2 * config["chunk"] + 2 * config["passes"] * result["byte_steps"] + 2 * result["trace_steps"]
-    want = tuple(k * steps for k in per_step)
+        raise RuntimeError(f"phase {phase} {what}: exit code {rc}")
+    starts = [i for i, r in enumerate(rows) if r["bench"] == "config"] + [len(rows)]
+    per_step = [per_step] * (len(starts) - 1) if isinstance(per_step[0], int) else list(per_step)
+    if len(per_step) != len(starts) - 1:
+        raise RuntimeError(f"phase {phase} {what}: {len(starts) - 1} runs for {len(per_step)} launch counts")
+    runs, want = [], (0, 0, 0)
+    for k, (a, b) in enumerate(zip(starts, starts[1:])):
+        run = rows[a:b]
+        config, result = run[0], run[-1]
+        passes = [r for r in run if r["bench"] == "pass"]
+        traces = [r for r in run if r["bench"] == "trace"]
+        steps = bench_steps(config, result)
+        want = tuple(w + c * steps for w, c in zip(want, per_step[k]))
+        directions = 2 if result["decoded"] else 1
+        if not (result["bench"] == "result" and result["exact"] and np.isfinite(result["model_bpb"])
+                and len(passes) == directions * config["passes"] and result["decoded"] == (not config["encode_only"])):
+            raise RuntimeError(f"phase {phase} {what}: {result}")
+        if len(traces) != (1 if config["trace"] else 0):
+            raise RuntimeError(f"phase {phase} {what}: {len(traces)} trace rows for --trace {config['trace']}")
+        if round(result["state_gb"] * 1e9) != config["state_estimate_bytes"]:
+            raise RuntimeError(f"phase {phase} {what}: the state holds {result['state_gb']} GB, the estimate was "
+                               f"{config['state_estimate_bytes']} bytes")
+        work = result["work_per_step"]
+        roof = {"spec": config["spec"], "streams": result["streams"], "bytes": work["bytes"],
+                "float_ops": work["float_ops"], "int_ops": work["int_ops"],
+                "parts_bytes": {k: v["bytes"] for k, v in work["parts"].items()},
+                **{k: result[k] for k in ("bound_ms", "bound_by", *SHARES, "achieved_gbps", "achieved_gflops")},
+                "step_ms": 1e3 * min(result["encode_s"]) / result["byte_steps"]}
+        if traces:
+            roof["trace"] = {k: traces[0][k] for k in ("device_busy_ms_per_step", *SHARES)}
+        log(f"phase {phase}: {what}: roofline {json.dumps(roof)}")
+        for row in ([] if config["analysis"] else [result, *traces]):
+            bad = {k: row[k] for k in SHARES if not (isinstance(row[k], float) and 0 < row[k] <= SHARE_MAX)}
+            if bad:
+                raise RuntimeError(f"phase {phase} {what}: the {row['bench']} row's shares {bad} are outside "
+                                   f"(0, {SHARE_MAX}]")
+        runs.append({"config": config, "result": result, "trace": traces[0] if traces else None, "passes": passes,
+                     "byte_steps": steps, "roofline": roof})
     if got != want:
-        raise RuntimeError(f"phase 7 {what}: launches (gather, scatter, fused) {got} in {steps} byte steps, "
-                           f"expected {want}: {per_step} a step")
-    if not (result["exact"] and np.isfinite(result["model_bpb"]) and len(passes) == 2 * config["passes"]):
-        raise RuntimeError(f"phase 7 {what}: {result}")
-    if len(traces) != (1 if config["trace"] else 0):
-        raise RuntimeError(f"phase 7 {what}: {len(traces)} trace rows for --trace {config['trace']}")
-    if round(result["state_gb"] * 1e9) != config["state_estimate_bytes"]:
-        raise RuntimeError(f"phase 7 {what}: the state holds {result['state_gb']} GB, the estimate was "
-                           f"{config['state_estimate_bytes']} bytes")
-    work = result["work_per_step"]
-    roof = {"streams": result["streams"], "bytes": work["bytes"], "float_ops": work["float_ops"],
-            "int_ops": work["int_ops"], "parts_bytes": {k: v["bytes"] for k, v in work["parts"].items()},
-            **{k: result[k] for k in ("bound_ms", "bound_by", *SHARES, "achieved_gbps", "achieved_gflops")},
-            "step_ms": 1e3 * min(result["encode_s"]) / result["byte_steps"]}
-    if traces:
-        roof["trace"] = {k: traces[0][k] for k in ("device_busy_ms_per_step", *SHARES)}
-    log(f"phase 7: {what}: roofline {json.dumps(roof)}")
-    for row in [result, *traces]:
-        bad = {k: row[k] for k in SHARES if not (isinstance(row[k], float) and 0 < row[k] <= SHARE_MAX)}
-        if bad:
-            raise RuntimeError(f"phase 7 {what}: the {row['bench']} row's shares {bad} are outside (0, {SHARE_MAX}]")
-    return {"config": config, "result": result, "trace": traces[0] if traces else None, "passes": passes,
-            "launches": list(got), "byte_steps": steps, "held_before_gb": held_gb, "roofline": roof}
+        raise RuntimeError(f"phase {phase} {what}: launches (gather, scatter, fused) {got} in "
+                           f"{sum(r['byte_steps'] for r in runs)} byte steps, expected {want}: {per_step} a step")
+    return {**runs[0], "runs": runs, "launches": list(got), "byte_steps": sum(r["byte_steps"] for r in runs),
+            "held_before_gb": held_gb}
 
 
 def phase_bench_warm_lane(spec, dev):
@@ -1687,8 +1761,8 @@ def phase_bench(dev) -> dict:
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
         ckpt = ("--warm-checkpoint", os.path.join(tmp, "ref-2000.gxt"))
-        a = bench_run(BENCH_A + ckpt, "16 streams, warm start trained", BENCH_LAUNCHES["ref"])
-        a2 = bench_run(BENCH_A + ckpt, "16 streams, warm start read", BENCH_LAUNCHES["ref"])
+        a = bench_run(BENCH_A + ckpt, "16 streams, warm start trained", profile_launches("ref"))
+        a2 = bench_run(BENCH_A + ckpt, "16 streams, warm start read", profile_launches("ref"))
         same_leaves(dict(_leaves(bench.load_warm_checkpoint(ckpt[1]))), one,
                     "phase 7: the warm checkpoint against the S=1 warm start")
     ra, ra2 = a["result"], a2["result"]
@@ -1699,8 +1773,8 @@ def phase_bench(dev) -> dict:
     checkpoint = {"warm_s_trained": ra["warm_s"], "warm_write_s": ra["warm_write_s"], "warm_s_read": ra2["warm_s"],
                   "same_as_s1_warm_start": True, "same_archive": True}
     log(f"phase 7: warm checkpoint {json.dumps(checkpoint)}")
-    b = bench_run(BENCH_B, "auto streams, traced", BENCH_LAUNCHES["ref"])
-    profiles = {p: bench_run(("--profile", p) + BENCH_C, f"{p}, 4 streams", BENCH_LAUNCHES[p])
+    b = bench_run(BENCH_B, "auto streams, traced", profile_launches("ref"))
+    profiles = {p: bench_run(("--profile", p) + BENCH_C, f"{p}, 4 streams", profile_launches(p))
                 for p in BENCH_C_PROFILES}
     runs = [a, a2, b, *profiles.values()]
     cfg, res = b["config"], b["result"]
@@ -1711,6 +1785,163 @@ def phase_bench(dev) -> dict:
                     "peak_gb": res["peak_gb"], "peak_reserved_gb": res["peak_reserved_gb"],
                     "held_before_gb": b["held_before_gb"]}}
     log(f"phase 7: auto streams {json.dumps(out['auto'])}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 8: the ensemble variants
+# ---------------------------------------------------------------------------
+
+
+def variant_spec(name: str, scaled: bool = False):
+    """A phase-8 profile's spec (`bench.parse_profile`), with `scaled` at
+    scale_tables(spec, 12, history_bits=16), as phase 4 scales."""
+    spec = bench.parse_profile(name)[1]
+    return scale_tables(spec, 12, history_bits=16) if scaled else spec
+
+
+def variant_cross_data() -> bytes:
+    return corpus(VARIANT_CROSS_STREAMS * VARIANT_CROSS_PER)
+
+
+def variant_file(d: str, name: str, what: str) -> str:
+    return os.path.join(d, f"{name.replace(':', '_')}.{what}")
+
+
+def variant_cpu_main(name: str, d: str) -> None:
+    """Phase 8 (c)'s CPU side, in a process of its own: the variant at
+    scaled-12 encodes VARIANT_CROSS_PER bytes a stream on the CPU (the plain
+    versions) and decodes its archive; both land in `d`."""
+    torch.set_num_threads(1)
+    spec, data = variant_spec(name, scaled=True), variant_cross_data()
+    blob = compress_bytes(data, spec, VARIANT_CROSS_STREAMS, VARIANT_CROSS_CHUNK, device="cpu")
+    write_bytes(variant_file(d, name, "cpu.gxtc"), blob)
+    write_bytes(variant_file(d, name, "cpu.out"), decompress_bytes(blob, spec, VARIANT_CROSS_CHUNK, device="cpu"))
+
+
+def start_variant_cpu(d: str) -> dict:
+    """Phase 8 (c)'s CPU runs, one process a variant, started to run beside
+    the card's work."""
+    return {name: subprocess.Popen([sys.executable, "-c", f"import chip_smoke as cs; cs.variant_cpu_main({name!r}, {d!r})"],
+                                   cwd=ROOT, env=cpu_env(), start_new_session=True)
+            for name in VARIANTS}
+
+
+def variant_fused(name: str, spec, dev) -> dict:
+    """(a) The fused kernel against its plain version on live inputs of the
+    variant at VARIANT_STREAMS streams (`compare_fused_live`: encode and
+    decode, learn on and off): every output bitwise but `ent` (16 ulp) and
+    `ema` (1e-6 relative); each byte-model head's distribution a
+    distribution. Its instantiation, bound and device time a launch."""
+    pred = Predictor(spec, VARIANT_STREAMS, device=dev)
+    meta, plan = pred.meta, pred.plan
+    cases, err = compare_fused_live(name, pred, dev)
+    heads = [h for h, on in (("ppm_probs", spec.ppm), ("lstm_probs", spec.lstm)) if on is not None]
+    for probs in heads:
+        p = cases["encode"][probs]
+        if not torch.isfinite(p).all() or not torch.allclose(p.sum(dim=1), torch.ones_like(p[:, 0]), atol=1e-4):
+            raise RuntimeError(f"phase 8 {name}: {probs} of the warmed state is not a distribution")
+    row = {"spec": name, "streams": VARIANT_STREAMS, "dims": fused._dims(meta), "heads": heads, "max_abs_err": err,
+           **fused_bound(meta, plan.fused, cases["encode"], VARIANT_STREAMS),
+           "instantiation": fused.fused_instantiation(meta, plan.fused, True, True, VARIANT_STREAMS, dev),
+           "ms": device_ms(lambda i: fused.fused_substeps(meta, plan.fused, cases["encode"], True, True), reps=20)}
+    del pred, plan, cases
+    torch.cuda.empty_cache()
+    return row
+
+
+def variant_roundtrip(name: str, spec, dev) -> dict:
+    """(b) compress_bytes then decompress_bytes of VARIANT_PER bytes a
+    stream at VARIANT_STREAMS streams, each on a fresh predictor: the input
+    back, every byte step `launches_per_step(spec)` launches, and every
+    captured graph's replay as many."""
+    expect = launches_per_step(spec)
+    data = corpus(MAIN_BYTES + VARIANT_STREAMS * VARIANT_PER)[MAIN_BYTES:]
+    out = {"spec": name, "streams": VARIANT_STREAMS, "bytes": len(data), "chunk": CHUNK,
+           "launches_per_step": list(expect)}
+    blob = None
+    for direction in ("encode", "decode"):
+        pred = Predictor(spec, VARIANT_STREAMS, device=dev)
+        got, wall, launches = timed(lambda: compress_bytes(data, spec, VARIANT_STREAMS, CHUNK, pred=pred)
+                                    if direction == "encode" else decompress_bytes(blob, spec, CHUNK, pred=pred))
+        if direction == "encode":
+            blob = got
+            out["model_bpb"] = entropy_bits(pred) / len(data)
+        elif got != data:
+            raise RuntimeError(f"phase 8 {name}: decompress_bytes did not give the input back")
+        graphs = graph_summary(step_mod.get_chunk_fn(pred.plan, CHUNK))
+        bad = {k: g["launches_per_replay"] for k, g in graphs.items() if tuple(g["launches_per_replay"]) != expect}
+        if bad or launches != tuple(e * VARIANT_PER for e in expect):
+            raise RuntimeError(f"phase 8 {name} {direction}: launches {launches} in {VARIANT_PER} byte steps, graphs "
+                               f"{bad or graphs}; expected {expect} a step and a replay")
+        out[direction] = {"wall_s": wall, "ms_per_step": 1e3 * wall / VARIANT_PER, "launches": list(launches),
+                          "graphs": graphs}
+        del pred
+        torch.cuda.empty_cache()
+    out.update(archive_bytes=len(blob), bpb=8 * len(blob) / len(data))
+    return out
+
+
+def variant_cross(name: str, dev, d: str, proc) -> dict:
+    """(c) The GPU's archive of the variant at scaled-12 against the CPU's
+    (`variant_cpu_main`, running in `proc`): the same bytes; the GPU decodes
+    the CPU's archive and the CPU decoded its own, which is the GPU's, to
+    the input."""
+    spec, data = variant_spec(name, scaled=True), variant_cross_data()
+    per = len(data) // VARIANT_CROSS_STREAMS
+    blob, enc_s, enc = timed(lambda: compress_bytes(data, spec, VARIANT_CROSS_STREAMS, VARIANT_CROSS_CHUNK, device=dev))
+    try:
+        rc = proc.wait(timeout=900)
+    except subprocess.TimeoutExpired:
+        raise RuntimeError(f"phase 8 {name}: the CPU's run did not end within 900 s")
+    if rc != 0:
+        raise RuntimeError(f"phase 8 {name}: the CPU's run failed (exit code {rc})")
+    blob_cpu = read_bytes(variant_file(d, name, "cpu.gxtc"))
+    if blob != blob_cpu:
+        diff = next((i for i, (a, b) in enumerate(zip(blob, blob_cpu)) if a != b), min(len(blob), len(blob_cpu)))
+        raise RuntimeError(f"phase 8 {name}: GPU and CPU archives differ ({len(blob)} vs {len(blob_cpu)} bytes, "
+                           f"first at {diff})")
+    back, dec_s, dec = timed(lambda: decompress_bytes(blob_cpu, spec, VARIANT_CROSS_CHUNK, device=dev))
+    if back != data:
+        raise RuntimeError(f"phase 8 {name}: the GPU does not decode the CPU archive")
+    if read_bytes(variant_file(d, name, "cpu.out")) != data:
+        raise RuntimeError(f"phase 8 {name}: the CPU does not decode the GPU archive")
+    expect = launches_per_step(spec)
+    if enc != dec or enc != tuple(e * per for e in expect):
+        raise RuntimeError(f"phase 8 {name}: GPU launches encode {enc}, decode {dec}, expected {expect} a step")
+    return {"spec": f"{name} scaled-12", "streams": VARIANT_CROSS_STREAMS, "bytes": len(data),
+            "chunk": VARIANT_CROSS_CHUNK, "archive_bytes": len(blob), "identical": True, "cross_decodes": True,
+            "gpu_encode_s": enc_s, "gpu_decode_s": dec_s, "launches": [a + b for a, b in zip(enc, dec)]}
+
+
+def phase_variants(dev, d: str, procs: dict) -> dict:
+    """Phase 8: for each of VARIANTS (a) the fused kernel against its plain
+    version, (b) a roundtrip on the card with its launches asserted, (c)
+    GPU against CPU at scaled-12 (the CPU's processes `procs`, started
+    before); then the bench with two variant profiles in one call, the
+    first predictor's device memory given back before the second is built."""
+    out, launches = {}, [0, 0, 0]
+    for name in VARIANTS:
+        spec = variant_spec(name)
+        row = {"fused": variant_fused(name, spec, dev), "roundtrip": variant_roundtrip(name, spec, dev),
+               "cross": variant_cross(name, dev, d, procs[name])}
+        for got in (row["roundtrip"]["encode"]["launches"], row["roundtrip"]["decode"]["launches"],
+                    row["cross"]["launches"]):
+            launches = [a + b for a, b in zip(launches, got)]
+        log(f"phase 8: {name} {json.dumps(row)}")
+        out[name] = row
+    per_step = [profile_launches(p) for p in VARIANT_BENCH[1].split(",")]
+    run = bench_run(VARIANT_BENCH, "two variant profiles", per_step, phase=8)
+    held = [r["config"]["allocated_bytes"] for r in run["runs"]]
+    if len(set(held)) != 1:
+        raise RuntimeError(f"phase 8: the device held {held} bytes at the start of each profile's run: the first "
+                           f"predictor's memory was not given back")
+    out["bench"] = {"profiles": VARIANT_BENCH[1], "allocated_bytes_at_start": held,
+                    "results": [{k: r["result"][k] for k in ("spec", "streams", "bpb", "model_bpb", "archive_bytes",
+                                                             "encode_bytes_per_s", "decode_bytes_per_s", "state_gb",
+                                                             "peak_gb")} for r in run["runs"]]}
+    out["launches"] = [a + b for a, b in zip(launches, run["launches"])]
+    log(f"phase 8: bench {json.dumps(out['bench'])}")
     return out
 
 
@@ -1739,8 +1970,9 @@ def code_sizes(lib_path) -> dict:
 def main() -> int:
     fused_only = sys.argv[1:] == ["--fused-only"]
     bench_only = sys.argv[1:] == ["--bench-only"]
-    if sys.argv[1:] and not (fused_only or bench_only):
-        print("usage: chip_smoke.py [--fused-only | --bench-only]", file=sys.stderr)
+    variants_only = sys.argv[1:] == ["--variants-only"]
+    if sys.argv[1:] and not (fused_only or bench_only or variants_only):
+        print("usage: chip_smoke.py [--fused-only | --bench-only | --variants-only]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's GPU path cannot run here", file=sys.stderr)
@@ -1774,6 +2006,20 @@ def main() -> int:
         print(smi, flush=True)
         print(json.dumps({"ok": True, "partial": "the bench only", "launches": bench_out["launches"]}), flush=True)
         return 0
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    if variants_only:
+        with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as vdir:
+            procs = start_variant_cpu(vdir)
+            try:
+                variants_out = phase_variants(dev, vdir, procs)
+            finally:
+                for proc in procs.values():
+                    stop(proc)
+        elapsed("phase 8 done")
+        print(smi, flush=True)
+        print(json.dumps({"ok": True, "partial": "the variants only", "launches": variants_out["launches"]}),
+              flush=True)
+        return 0
     specs = {name: make() for name, make in SPECS.items()}
     pred = Predictor(specs["ref-noppm"], STREAMS, device=dev)
     fused_row = phase_fused(pred, dev)
@@ -1796,7 +2042,6 @@ def main() -> int:
     elapsed("phase 2 done")
     main_out = {name: phase_main(name, spec, dev) for name, spec in specs.items()}
     elapsed("phase 3 done")
-    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
         cpu_proc, cpu_dir = start_cli_cpu(tmp)
         decodes = {}
@@ -1818,8 +2063,17 @@ def main() -> int:
         finally:
             for proc in [cpu_proc] + [proc for proc, _, _ in decodes.values()]:
                 stop(proc)
-    bench_out = phase_bench(dev)
-    elapsed("phase 7 done")
+    # phase 8's CPU runs go beside phase 7, which keeps the card busy
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as vdir:
+        procs = start_variant_cpu(vdir)
+        try:
+            bench_out = phase_bench(dev)
+            elapsed("phase 7 done")
+            variants_out = phase_variants(dev, vdir, procs)
+            elapsed("phase 8 done")
+        finally:
+            for proc in procs.values():
+                stop(proc)
 
     def launches(i):
         """Kernel i's launches on each main path: encode + decode, the two
@@ -1837,6 +2091,9 @@ def main() -> int:
         by_path["distributed"] = ranks_out["launches"][i] + nccl_out["launches"][i]
         # phase 7: the bench's runs, warm starts and graph captures included
         by_path["bench"] = bench_out["launches"][i]
+        # phase 8: the variants' roundtrips on the card (published sizes and
+        # scaled-12) and the bench's two variant profiles
+        by_path["variants"] = variants_out["launches"][i]
         return by_path
 
     def mover(direction, replaces_key):
@@ -1884,7 +2141,8 @@ def main() -> int:
         "launches": sum(fused_by_path.values()),
         "launches_by_path": fused_by_path,
         "launches_per_replay": per_replay(2),
-        "max_abs_err": max(fused_row["max_abs_err"], fused_ppm_row["max_abs_err"], fused_full_row["max_abs_err"]),
+        "max_abs_err": max(fused_row["max_abs_err"], fused_ppm_row["max_abs_err"], fused_full_row["max_abs_err"],
+                           *(v["fused"]["max_abs_err"] for k, v in variants_out.items() if k in VARIANTS)),
         "ms": fused_row["ms"],
         "call_ms": fused_row["call_ms"],
         "plain_ms": fused_row["plain_ms"],
@@ -1907,6 +2165,10 @@ def main() -> int:
                             for out in main_out.values()) + cli_out["cross"]["sampling_launches"],
             "inv_temps": list(INV_TEMPS),
         },
+        # on the live inputs of each phase-8 variant at VARIANT_STREAMS streams
+        "variants": {k: {f: v["fused"][f] for f in ("ms", "bound_ms", "bound_by", "bytes_moved", "max_abs_err",
+                                                    "instantiation")}
+                     for k, v in variants_out.items() if k in VARIANTS},
     }]
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,9 +1,9 @@
 """Encode and decode throughput at an exact roundtrip, on one CUDA device:
 
-    python -m gmix_tpu_torch.bench [--profile ref|ref-ppm|ref-noppm|best|scaled-<bits>]
+    python -m gmix_tpu_torch.bench [--profile PROFILE[,PROFILE...]]
         [--streams N|auto] [--chunk 4000] [--bytes N] [--warm 131072] [--offset N]
-        [--passes 2] [--warm-checkpoint PATH] [--trace N] [--budget BYTES]
-        [--device cuda:0|cpu] [--out FILE]
+        [--passes 2] [--encode-only] [--analysis] [--warm-checkpoint PATH]
+        [--trace N] [--budget BYTES] [--device cuda:0|cpu] [--out FILE]
 
 The port of the repository's `bench.py` (gmix_tpu on a TPU). One stream is
 trained on the corpus' first `--warm` bytes (`pretrain_state`), its state is
@@ -26,13 +26,38 @@ clamped to 2^bits entries (`spec_for(bits)`), and any profile may be
 clamped the same way as `<profile>:scaled-<bits>` (`ref-noppm:scaled-12`).
 A trailing `x<S>` sets the streams, as in bench.py.
 
+Ensemble variants (variants.py, the spec constructors of the three
+ensemble-variant tools), applied after the clamp as the tools apply them:
+`<profile>[:scaled-<bits>]:ladder-<v>` (tools/tpu_fast_ladder.py: `base`,
+`no4sel`, `noskipind`, `noih`, `nolstm`, `noskipind-noih`, `lean`) and
+`<profile>[:scaled-<bits>]:ablate-<v>` (tools/tpu_ablate.py: `full`,
+`nolstm`, `noppm`, `nolstmppm`, `nomatch`, `noih`, `nomix12`, `mixtb0`,
+`mixtb4`, `mix6`, `indonly`), either with a trailing `x<S>`;
+`quality:<name>` is tools/tpu_quality.py's variant of that name
+(`quality:ref-x4-oldppm`, `quality:boost-1-18x4`, ...), whose streams come
+from the name: a `--streams` that says otherwise is refused. A bare
+`:noih` or `:nolstm` is refused: the two tools mean different specs by it.
+Several profiles, comma-separated, run one after the other in one process
+(a ladder is compared inside one call: host-timed numbers move between
+calls), each with its config, pass and result rows; at most one predictor
+is on the device at a time (the previous one's graphs released, the
+predictor dropped and the cache emptied before the next is built; each
+config row holds the device bytes allocated when its run starts).
+`--encode-only` (the ladder's and quality's mode) runs no decode: the
+result says `"decoded": false`, and the encode passes must still give one
+archive. `--analysis` (quality's mode) runs the predictor with the
+per-column entropy EMA on; the result gets `model_ema`, the EMA averaged
+over the streams after the last encode pass, keyed by `analysis_columns`.
+
 `--warm-checkpoint PATH` (tools/tpu_warm_sweep.py's snapshot): the warm
 start is read from PATH, a gmix_tpu checkpoint of the one stream, when it
 exists; otherwise it is trained and written there (a temporary name, then
 `os.replace`). The sidecar PATH.json names what made it (the spec's
 `stable_hash`, the warm bytes, their sha256 and the warm chunk); a PATH
 whose sidecar is missing or names something else is refused before any
-predictor is allocated, and never trained over. `--trace N`
+predictor is allocated, and never trained over. With several profiles
+PATH must hold `{profile}`, which each run fills with its profile's name
+(`:` as `_`): one file a profile. `--trace N`
 (tools/tpu_profile.py): after the timed passes, the predictor is put back
 to the warm start, the passes' CUDA graphs are released, a window of N
 encode byte steps is captured, and then run again under torch.profiler
@@ -62,20 +87,28 @@ and by part), the least time the card could take for it (`bound_ms`,
 card's peaks (`mfu`, `hbm_share`, `roofline_share`) and the achieved rates;
 the trace row the same shares against the device's busy time a step. On
 the CPU the count and the bound are printed and every share reads "not
-measured".
+measured"; so does every share of an `--analysis` run, whose step also
+updates the EMA that the count leaves out.
 Nothing else is written but the warm checkpoint, and nothing under data/.
 
 Left behind from bench.py: the v5e ladder of configurations, the subprocess
 per attempt with its walk-down on out-of-memory and transient faults (a
 fault here ends the run with a non-zero exit), the idle second lane of the
 pretraining (an S=1 TPU miscompile), the doubled corpus (the warm prefix
-recurred in the measured bytes) and the write to data/parity.json.
+recurred in the measured bytes) and the write to data/parity.json. Left
+behind from the variant tools: their appends to data/parity.json and
+data/quality_ablations.json (the bench writes nothing under data/), the
+`fused` key (`GMIX_FUSED`: the port has one step), tools/tpu_ablate.py's
+compile timing and its uniform random bytes (the corpus is coded instead),
+and tools/tpu_quality.py's throwaway warm-up predictor (the graphs'
+capture is timed apart from the passes here).
 """
 from __future__ import annotations
 
 import argparse
 import contextlib
 import dataclasses
+import gc
 import hashlib
 import json
 import os
@@ -89,10 +122,11 @@ from typing import Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from . import variants
 from .config import ApmStage, EnsembleSpec, best_spec, reference_spec, scale_tables
 from .core import fused
-from .core.codec import (_WORST_PER_BYTE, Predictor, _pad_streams, compress_bytes, decompress_bytes, default_device,
-                         entropy_bits, run_chunks)
+from .core.codec import (_WORST_PER_BYTE, Predictor, _pad_streams, analysis_columns, analysis_snapshot, compress_bytes,
+                         decompress_bytes, default_device, entropy_bits, run_chunks)
 from .core.meta import build_meta
 from .ops import rowmove
 from .roofline import RATES, SHARES, bound, roofline, step_work
@@ -141,20 +175,47 @@ def ref_noppm_spec() -> EnsembleSpec:
 # the profiles but `ref` (`spec_for`), at the published table sizes
 PROFILES: Dict[str, Callable[[], EnsembleSpec]] = {"ref-ppm": ref_ppm_spec, "ref-noppm": ref_noppm_spec,
                                                    "best": best_spec}
-PROFILE_RE = re.compile(r"(?P<name>(?P<base>ref-ppm|ref-noppm|ref|best)(?::scaled-(?P<bits>\d+))?"
-                        r"|scaled-(?P<ref_bits>\d+))(?:x(?P<streams>\d+))?")
+# the variant tools by their prefix in a profile: (names, spec constructor)
+VARIANT_TOOLS = {"ladder": (variants.LADDER, variants.ladder), "ablate": (variants.ABLATE, variants.ablate)}
+_VARIANT_NAMES = "|".join(sorted(set(variants.LADDER + variants.ABLATE), key=len, reverse=True))
+PROFILE_RE = re.compile(r"(?P<name>(?:(?P<base>ref-ppm|ref-noppm|ref|best)(?::scaled-(?P<bits>\d+))?"
+                        r"|scaled-(?P<ref_bits>\d+))"
+                        r"(?::(?P<tool>ladder|ablate)-(?P<variant>" + _VARIANT_NAMES + r"))?)(?:x(?P<streams>\d+))?")
+BARE_VARIANT_RE = re.compile(r".*:(?P<variant>" + _VARIANT_NAMES + r")(?:x\d+)?")
+QUALITY = "quality:"
+# what each tool means by the names they share
+TWO_MEANINGS = {
+    "noih": "ladder-noih drops the ind_ih_* models (tools/tpu_fast_ladder.py); ablate-noih also drops the "
+            "indirect-hash contexts and gates their mixers on last_byte (tools/tpu_ablate.py)",
+    "nolstm": "ladder-nolstm drops the LSTM and the models and mixers gated on lstm_ctx "
+              "(tools/tpu_fast_ladder.py); ablate-nolstm drops the LSTM alone (tools/tpu_ablate.py)",
+}
 
 
 def parse_profile(text: str) -> Tuple[str, EnsembleSpec, Optional[str]]:
     """(name, spec, streams) of a `--profile`: `ref`, `ref-ppm`,
     `ref-noppm` or `best`, optionally `:scaled-<bits>` (tables clamped as
-    `spec_for` clamps them); `scaled-<bits>` is `ref`'s. A trailing `x<S>`
-    gives the streams (None without it). The name is the profile without
-    `x<S>`. An unknown profile raises ValueError."""
+    `spec_for` clamps them); `scaled-<bits>` is `ref`'s; then optionally
+    `:ladder-<v>` or `:ablate-<v>` (`variants.ladder` / `variants.ablate` of
+    that spec). A trailing `x<S>` gives the streams (None without it). The
+    name is the profile without `x<S>`. `quality:<name>` is
+    `variants.quality(name)`, its streams from the name. An unknown profile,
+    or a variant without its tool's prefix, raises ValueError."""
+    if text.startswith(QUALITY):
+        spec, S = variants.quality(text[len(QUALITY):])
+        return text, spec, str(S)
     m = PROFILE_RE.fullmatch(text)
     if m is None:
+        bare = BARE_VARIANT_RE.fullmatch(text)
+        if bare is not None:
+            v = bare.group("variant")
+            tools = [t for t, (names, _) in VARIANT_TOOLS.items() if v in names]
+            raise ValueError(f"profile {text!r}: name the tool of variant {v!r}, "
+                             f"{' or '.join(f':{t}-{v}' for t in tools)}"
+                             + (f"; the two mean different specs: {TWO_MEANINGS[v]}" if v in TWO_MEANINGS else ""))
         raise ValueError(f"unknown profile {text!r}: use ref, ref-ppm, ref-noppm, best or scaled-<bits>, a profile "
-                         f"may end in :scaled-<bits>, and any in x<streams>")
+                         f"may end in :scaled-<bits>, then in :ladder-<variant> or :ablate-<variant>, and any in "
+                         f"x<streams>; or quality:<variant>")
     base = m.group("base") or "ref"
     bits = m.group("bits") or m.group("ref_bits")
     bits = int(bits) if bits else None
@@ -164,6 +225,8 @@ def parse_profile(text: str) -> Tuple[str, EnsembleSpec, Optional[str]]:
         spec = PROFILES[base]()
         if bits is not None:
             spec = scale_tables(spec, bits, history_bits=min(24, bits + 4))
+    if m.group("tool"):
+        spec = VARIANT_TOOLS[m.group("tool")][1](spec, m.group("variant"))
     return m.group("name"), spec, m.group("streams")
 
 
@@ -261,8 +324,7 @@ def pretrain_state(spec: EnsembleSpec, warm_bytes: bytes, chunk: int, device=Non
     out = _host_copy(pred.state)
     device = pred.device
     del pred
-    if device.type == "cuda":
-        torch.cuda.empty_cache()
+    release_device(device)
     return out
 
 
@@ -356,25 +418,37 @@ def reset_to_warm(pred: Predictor, warm: Dict) -> None:
     pred.plan.forget_epoch()
 
 
-def warm_predictor(spec: EnsembleSpec, num_streams: int, warm: Dict, device=None) -> Predictor:
-    """A predictor of `num_streams` streams, analysis off, each stream at
-    the one-stream state `warm` (`reset_to_warm`)."""
-    pred = Predictor(spec, num_streams, device=device, analysis=False)
+def warm_predictor(spec: EnsembleSpec, num_streams: int, warm: Dict, device=None,
+                   analysis: bool = False) -> Predictor:
+    """A predictor of `num_streams` streams, analysis off unless asked, each
+    stream at the one-stream state `warm` (`reset_to_warm`)."""
+    pred = Predictor(spec, num_streams, device=device, analysis=analysis)
     reset_to_warm(pred, warm)
     return pred
 
 
-def _capture(pred: Predictor, chunk: int, per: int) -> None:
-    """One chunk of zeros encoded and one decoded, so that every CUDA graph
-    the passes replay (encode and decode, the byte that wraps the LSTM's
-    window, the backward pass) is captured before them. The decode's code
-    buffer is as wide as the coder's bound for `per` byte steps: no pass
-    needs a wider one, which would capture the decode graphs again."""
+def _capture(pred: Predictor, chunk: int, per: int, decode: bool = True) -> None:
+    """One chunk of zeros encoded and (with `decode`) one decoded, so that
+    every CUDA graph the passes replay (encode and decode, the byte that
+    wraps the LSTM's window, the backward pass) is captured before them.
+    The decode's code buffer is as wide as the coder's bound for `per` byte
+    steps: no pass needs a wider one, which would capture the decode graphs
+    again."""
     S, dev = pred.num_streams, pred.device
     data = torch.zeros((S, chunk), dtype=torch.uint8, device=dev)
     run_chunks(pred, data, torch.zeros((S, 1), dtype=torch.uint8, device=dev), chunk, decode=False, chunk=chunk)
-    code = torch.zeros((S, code_cap(per, chunk)), dtype=torch.uint8, device=dev)
-    run_chunks(pred, data, code, chunk, decode=True, chunk=chunk)
+    if decode:
+        code = torch.zeros((S, code_cap(per, chunk)), dtype=torch.uint8, device=dev)
+        run_chunks(pred, data, code, chunk, decode=True, chunk=chunk)
+
+
+def release_device(device) -> None:
+    """What a dropped predictor held goes back: a garbage collection (a
+    reference cycle would keep a state of tens of GB until the next one) and
+    on a CUDA device the caching allocator's free blocks."""
+    gc.collect()
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
 
 
 def _launch_counts() -> Tuple[int, int, int]:
@@ -435,12 +509,17 @@ def trace_window(run: Callable[[], None], n: int, device) -> dict:
     return out
 
 
-def _roofline_row(work: dict, step_ms: Optional[float], keys) -> dict:
+NO_SHARE_CPU = "not measured: the CPU"
+NO_SHARE_ANALYSIS = "not measured: an --analysis run (work_per_step counts the step without the entropy EMA)"
+
+
+def _roofline_row(work: dict, step_ms: Optional[float], keys, why: str = NO_SHARE_CPU) -> dict:
     """`keys` of `roofline(work, step_ms)`. Without a step time (a CPU run,
-    which gives counts, never a share of the card's peaks) the bound alone,
-    every share and rate "not measured: the CPU"."""
+    which gives counts, never a share of the card's peaks, or an analysis
+    run, whose step is not the one counted) the bound alone, every share and
+    rate reading `why`."""
     got = bound(work["bytes"], work["float_ops"]) if step_ms is None else roofline(work, step_ms)
-    return {k: got.get(k, "not measured: the CPU") for k in keys}
+    return {k: got.get(k, why) for k in keys}
 
 
 def _trace_run(pred: Predictor, warm: Dict, data: bytes, chunk: int, n: int, encode_step_ms: float,
@@ -480,7 +559,10 @@ def _trace_run(pred: Predictor, warm: Dict, data: bytes, chunk: int, n: int, enc
     if dev.type == "cuda":
         row["hand_written_launches_per_step"] = [x / n for x in launches]
         row["idle_share_of_passes"] = 1.0 - row["device_busy_ms_per_step"] / encode_step_ms
-        row.update(_roofline_row(work, row["device_busy_ms_per_step"], SHARES))
+        if pred.analysis:
+            row.update(_roofline_row(work, None, SHARES, NO_SHARE_ANALYSIS))
+        else:
+            row.update(_roofline_row(work, row["device_busy_ms_per_step"], SHARES))
     else:
         row["hand_written_launches_per_step"] = "not measured: the plain versions run on the CPU"
         row.update(_roofline_row(work, None, SHARES))
@@ -495,7 +577,7 @@ def _emit(out: list, kind: str, **fields) -> None:
 
 def run_once(spec: EnsembleSpec, num_streams: int, chunk: int, data: bytes, warm: bytes = b"", passes: int = 2,
              device=None, lines: Optional[list] = None, warm_checkpoint: Optional[str] = None,
-             trace: int = 0) -> dict:
+             trace: int = 0, encode_only: bool = False, analysis: bool = False) -> dict:
     """Encode `data` over `num_streams` streams `passes` times, then decode
     the archive as often, each pass from the warm start that `warm` trains
     (`pretrain_state`; b"": the fresh state), on one predictor that is put
@@ -515,6 +597,15 @@ def run_once(spec: EnsembleSpec, num_streams: int, chunk: int, data: bytes, warm
     warm start raises SystemExit before anything is allocated
     (`check_warm_checkpoint`). With `trace` > 0, a `trace` row of that many
     encode byte steps follows the passes (`_trace_run`).
+
+    With `encode_only` no decode pass runs (`decoded` False, no decode
+    rates). With `analysis` the predictor runs the per-column entropy EMA,
+    the result holds `model_ema` (`analysis_snapshot` after the last encode
+    pass, averaged over the streams, by `analysis_columns`) and no share of
+    the card's peaks (the count is of the step without the EMA).
+
+    The predictor is dropped before the result returns: its graphs
+    released, and what it held given back (`release_device`).
 
     With an LSTM, `chunk` and the pretraining's chunk must be multiples of
     its horizon (the deferred backward pass), or ValueError: a chunk of the
@@ -547,11 +638,11 @@ def run_once(spec: EnsembleSpec, num_streams: int, chunk: int, data: bytes, warm
         t0 = time.perf_counter()
         save_warm_checkpoint(warm_checkpoint, warm_state, sidecar)
         warm_write_s = time.perf_counter() - t0
-    pred = warm_predictor(spec, S, warm_state, dev)
+    pred = warm_predictor(spec, S, warm_state, dev, analysis)
     t0 = time.perf_counter()
     capture_s = 0.0
     if dev.type == "cuda":  # the CPU runs the byte step op by op: nothing to capture
-        _capture(pred, chunk, per)
+        _capture(pred, chunk, per, decode=not encode_only)
         _sync(dev)
         capture_s = sum(g.capture_s for fn in pred.plan.fn_cache.values() for g in fn.graphs.values())
     warmup_s = time.perf_counter() - t0
@@ -574,7 +665,8 @@ def run_once(spec: EnsembleSpec, num_streams: int, chunk: int, data: bytes, warm
         enc_s.append(t)
         model_bits = entropy_bits(pred)
         _emit(lines, "pass", direction="encode", index=i + 1, seconds=t, bytes_per_s=n / t)
-    for i in range(passes):
+    ema = dict(zip(analysis_columns(spec), analysis_snapshot(pred).mean(axis=0).tolist())) if analysis else None
+    for i in range(0 if encode_only else passes):
         out, t = timed(lambda: decompress_bytes(blob, spec, chunk, pred=pred,
                                                 progress=finite_guard(pred, f"decode pass {i + 1}", chunk)))
         if out != data:
@@ -588,13 +680,20 @@ def run_once(spec: EnsembleSpec, num_streams: int, chunk: int, data: bytes, warm
         _emit(lines, "trace", **_trace_run(pred, warm_state, data, chunk, trace, step_ms, work))
 
     def rates(times):
-        return {"best": n / min(times), "median": n / statistics.median(times)}
+        return {"best": n / min(times), "median": n / statistics.median(times)} if times else None
 
-    return {
+    if dev.type != "cuda":
+        roof = _roofline_row(work, None, ("bound_ms", "bound_by") + SHARES + RATES)
+    elif analysis:
+        roof = _roofline_row(work, None, ("bound_ms", "bound_by") + SHARES + RATES, NO_SHARE_ANALYSIS)
+    else:
+        roof = _roofline_row(work, step_ms, ("bound_ms", "bound_by") + SHARES + RATES)
+    out = {
         "streams": S, "chunk": chunk, "bytes": n, "warm_bytes": len(warm), "passes": passes, "byte_steps": per,
+        "decoded": not encode_only, "analysis": analysis,
         "encode_s": enc_s, "decode_s": dec_s,
         "encode_bytes_per_s": rates(enc_s), "decode_bytes_per_s": rates(dec_s),
-        "encdec_mbps": 2 * n / (min(enc_s) + min(dec_s)) / 1e6,
+        "encdec_mbps": None if encode_only else 2 * n / (min(enc_s) + min(dec_s)) / 1e6,
         "archive_bytes": len(blob), "archive_sha256": hashlib.sha256(blob).hexdigest(),
         "bpb": 8 * len(blob) / n, "model_bpb": model_bits / n,
         "state_gb": pred.memory_bytes() / 1e9,
@@ -603,9 +702,13 @@ def run_once(spec: EnsembleSpec, num_streams: int, chunk: int, data: bytes, warm
         "capture_s": capture_s, "capture_warmup_s": warmup_s, "warm_s": warm_s,
         "warm_source": "checkpoint" if from_file else "trained", "warm_write_s": warm_write_s,
         "trace_steps": trace, "exact": True,
-        "work_per_step": work,
-        **_roofline_row(work, step_ms if dev.type == "cuda" else None, ("bound_ms", "bound_by") + SHARES + RATES),
+        **({"model_ema": ema} if analysis else {}),
+        "work_per_step": work, **roof,
     }
+    pred.plan.release_graphs()
+    del pred
+    release_device(dev)
+    return out
 
 
 def _device_info(dev: torch.device) -> dict:
@@ -638,13 +741,21 @@ def _vs_baseline(mbps: float) -> Optional[float]:
     return mbps / ref if ref > 0 else None
 
 
+def _checkpoint_path(template: Optional[str], name: str) -> Optional[str]:
+    """The warm checkpoint of the profile `name`: `template` with
+    `{profile}` filled with the name (`:` as `_`)."""
+    return None if template is None else template.replace("{profile}", name.replace(":", "_"))
+
+
 def main(argv=None) -> int:
     env = os.environ
     p = argparse.ArgumentParser(prog="python -m gmix_tpu_torch.bench",
                                 description="encode + decode bytes/s at an exact roundtrip from a warm start")
     p.add_argument("--profile", default=env.get("GMIX_BENCH_PROFILE", "ref"),
                    help="ref, ref-ppm, ref-noppm or best (the published table sizes), scaled-<bits> (ref's tables "
-                        "clamped to 2^bits) or <profile>:scaled-<bits>; a trailing x<S> sets the streams")
+                        "clamped to 2^bits) or <profile>:scaled-<bits>, then optionally :ladder-<variant> or "
+                        ":ablate-<variant>; a trailing x<S> sets the streams; or quality:<variant>; several, "
+                        "comma-separated, run one after the other")
     p.add_argument("--streams", default=None, help="N, or auto: the most that fit the budget (default)")
     p.add_argument("--chunk", type=int, default=int(env.get("GMIX_BENCH_CHUNK", 4000)))
     p.add_argument("--bytes", type=int, default=int(env["GMIX_BENCH_BYTES"]) if "GMIX_BENCH_BYTES" in env else None,
@@ -654,9 +765,13 @@ def main(argv=None) -> int:
     p.add_argument("--offset", type=int, default=None,
                    help="the corpus byte the coded bytes start at, at or past the warm start's end (default: there)")
     p.add_argument("--passes", type=int, default=int(env.get("GMIX_BENCH_PASSES", 2)))
+    p.add_argument("--encode-only", action="store_true", help="no decode passes (the result says decoded: false)")
+    p.add_argument("--analysis", action="store_true",
+                   help="run the per-column entropy EMA; the result gets model_ema, and no share of the peaks")
     p.add_argument("--warm-checkpoint", default=None, metavar="PATH",
                    help="read the warm start from PATH (a checkpoint with its sidecar PATH.json), or train it and "
-                        "write it there if PATH does not exist (e.g. build/warm/ref-131072.gxt)")
+                        "write it there if PATH does not exist (e.g. build/warm/ref-131072.gxt); with several "
+                        "profiles PATH holds {profile}")
     p.add_argument("--trace", type=int, default=0, metavar="N",
                    help="after the passes, trace N encode byte steps under torch.profiler (with an LSTM a multiple "
                         "of its horizon; 100 at ref)")
@@ -668,10 +783,16 @@ def main(argv=None) -> int:
     args = p.parse_args(argv)
 
     try:
-        name, spec, profile_streams = parse_profile(args.profile)
+        profiles = [parse_profile(text) for text in args.profile.split(",")]
     except ValueError as e:
         raise SystemExit(f"bench: {e}")
-    streams = args.streams or profile_streams or "auto"
+    if len(profiles) > 1 and args.warm_checkpoint is not None and "{profile}" not in args.warm_checkpoint:
+        raise SystemExit(f"bench: refused: {len(profiles)} profiles share the warm checkpoint "
+                         f"{args.warm_checkpoint}; name one file a profile with {{profile}} in the path")
+    for name, _, profile_streams in profiles:
+        if name.startswith(QUALITY) and args.streams not in (None, profile_streams):
+            raise SystemExit(f"bench: refused: --streams {args.streams} for {name}, whose streams are "
+                             f"{profile_streams}")
     if args.device is not None:
         dev = torch.device(args.device)
     else:
@@ -684,20 +805,32 @@ def main(argv=None) -> int:
         raise SystemExit(f"bench: --offset {offset} is inside the warm start's {args.warm} bytes")
     warm, data = corpus(args.warm, 0), corpus(args.bytes, offset)
     budget = _default_budget(dev) if args.budget is None else args.budget
-    S = auto_streams(spec, len(data), args.chunk, budget) if streams == "auto" else int(streams)
-    estimate = state_bytes_estimate(spec, max(S, 1))
-    headroom = headroom_bytes(max(S, 1), padded_per(len(data), max(S, 1), args.chunk), args.chunk)
+    plans = []
+    for name, spec, profile_streams in profiles:
+        streams = args.streams or profile_streams or "auto"
+        S = auto_streams(spec, len(data), args.chunk, budget) if streams == "auto" else int(streams)
+        estimate = state_bytes_estimate(spec, max(S, 1))
+        headroom = headroom_bytes(max(S, 1), padded_per(len(data), max(S, 1), args.chunk), args.chunk)
+        config = dict(spec=name, streams=S, streams_asked=streams, chunk=args.chunk, bytes=len(data), offset=offset,
+                      warm_bytes=args.warm, passes=args.passes, encode_only=args.encode_only,
+                      analysis=args.analysis, warm_checkpoint=_checkpoint_path(args.warm_checkpoint, name),
+                      trace=args.trace, state_estimate_bytes=estimate, headroom_bytes=headroom, budget_bytes=budget)
+        plans.append((spec, S, config))
     lines: list = []
-    _emit(lines, "config", spec=name, streams=S, streams_asked=streams, chunk=args.chunk, bytes=len(data),
-          offset=offset, warm_bytes=args.warm, passes=args.passes, warm_checkpoint=args.warm_checkpoint,
-          trace=args.trace, state_estimate_bytes=estimate, headroom_bytes=headroom, budget_bytes=budget,
-          **_device_info(dev))
-    if S < 1 or estimate + headroom > budget:
-        raise SystemExit(f"bench: refused: {max(S, 1)} streams of {name} need {estimate} bytes of state and "
-                         f"{headroom} of headroom, over the budget of {budget} bytes")
-    res = run_once(spec, S, args.chunk, data, warm, args.passes, dev, lines, args.warm_checkpoint, args.trace)
-    _emit(lines, "result", spec=name, **res, vs_baseline=_vs_baseline(res["encdec_mbps"]),
-          ref_bpb=_baseline().get("ref_1m", {}).get("bpb"))
+    for spec, S, config in plans:  # every configuration is checked before any runs
+        if S < 1 or config["state_estimate_bytes"] + config["headroom_bytes"] > budget:
+            _emit(lines, "config", **config, **_device_info(dev))
+            raise SystemExit(f"bench: refused: {max(S, 1)} streams of {config['spec']} need "
+                             f"{config['state_estimate_bytes']} bytes of state and {config['headroom_bytes']} of "
+                             f"headroom, over the budget of {budget} bytes")
+    for spec, S, config in plans:
+        held = torch.cuda.memory_allocated(dev) if dev.type == "cuda" else None
+        _emit(lines, "config", **config, allocated_bytes=held, **_device_info(dev))
+        res = run_once(spec, S, args.chunk, data, warm, args.passes, dev, lines, config["warm_checkpoint"],
+                       args.trace, args.encode_only, args.analysis)
+        _emit(lines, "result", spec=config["spec"], **res,
+              vs_baseline=None if res["encdec_mbps"] is None else _vs_baseline(res["encdec_mbps"]),
+              ref_bpb=_baseline().get("ref_1m", {}).get("bpb"))
     if args.out:
         with open(args.out, "w") as f:
             json.dump(lines, f, indent=1)

@@ -1,8 +1,11 @@
 """The bench's measurement modes (`gmix_tpu_torch/bench.py`), the
 counterparts of the repository's tools/: its profiles against gmix_tpu's
 specs, the warm checkpoint (tools/tpu_warm_sweep.py's snapshot), the traced
-window (tools/tpu_profile.py) and `ref_bpb` (bench.py), on the CPU at tiny
-and small scaled specs.
+window (tools/tpu_profile.py), `ref_bpb` (bench.py) and the ensemble
+variants of tools/tpu_fast_ladder.py, tools/tpu_ablate.py and
+tools/tpu_quality.py with their modes (several profiles a call,
+`--encode-only`, `--analysis`, a warm checkpoint a profile), on the CPU at
+tiny and small scaled specs.
 """
 import dataclasses
 import json
@@ -15,6 +18,8 @@ import bench
 import gmix_tpu.config as j_cfg
 import gmix_tpu_torch as gt
 from gmix_tpu_torch import bench as tb
+from gmix_tpu_torch import variants
+from gmix_tpu_torch.core.codec import analysis_columns
 
 torch.set_num_threads(1)
 
@@ -196,3 +201,147 @@ def test_a_trace_the_run_cannot_hold_is_refused_before_allocating(trace, why, mo
     monkeypatch.setattr(tb, "pretrain_state", lambda *a, **k: pytest.fail("trained"))
     with pytest.raises(ValueError, match=why):
         tb.run_once(gt.tiny_spec(True), 2, 40, tb.corpus(80, 1000), tb.corpus(40), 1, "cpu", trace=trace)
+
+
+# ---------------------------------------------------------------------------
+# the ensemble variants (gmix_tpu_torch/variants.py) as profiles
+# ---------------------------------------------------------------------------
+
+TOOLS = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "tools")
+
+
+def _tool(name):
+    """A module of tools/ (the test alone imports them)."""
+    import importlib
+    import sys
+
+    if TOOLS not in sys.path:
+        sys.path.insert(0, TOOLS)
+    return importlib.import_module(name)
+
+
+@pytest.mark.parametrize("profile, bits, v, streams", [("ref:ladder-lean", None, "lean", None),
+                                                       ("ref:scaled-11:ladder-noskipind-noihx128", 11,
+                                                        "noskipind-noih", "128"),
+                                                       ("scaled-9:ladder-no4selx4", 9, "no4sel", "4")])
+def test_a_ladder_profile_is_the_tools_spec(profile, bits, v, streams):
+    """After :scaled-<bits> and before x<S>, the variant of
+    tools/tpu_fast_ladder.py on bench.py's spec."""
+    name, spec, got_streams = tb.parse_profile(profile)
+    j_base = bench._spec_for(bits) if bits else _j_ref()
+    assert spec.stable_hash() == _tool("tpu_fast_ladder").trim_spec(j_base, v).stable_hash()
+    assert name == (profile[: -len("x" + streams)] if streams else profile) and got_streams == streams
+
+
+@pytest.mark.parametrize("profile, base, v, streams", [("ref-ppm:scaled-10:ablate-mix6x2", "ref-ppm:scaled-10", "mix6", "2"),
+                                                       ("ref:ablate-mix6", "ref", "mix6", None),
+                                                       ("best:ablate-nomatch", "best", "nomatch", None),
+                                                       ("ref:ablate-indonlyx8", "ref", "indonly", "8")])
+def test_an_ablate_profile_applies_the_variant_after_the_clamp(profile, base, v, streams):
+    _, spec, got_streams = tb.parse_profile(profile)
+    assert spec == variants.ablate(tb.parse_profile(base)[1], v)
+    assert got_streams == streams
+
+
+@pytest.mark.parametrize("name, streams", [("ref-x4-oldppm", "4"), ("best-x4", "4"), ("boost-1-18x4", "4"),
+                                           ("scaled-12x64-noppm", "64"), ("apm2-10-50-8x4", "4")])
+def test_a_quality_profile_is_the_tools_variant_and_streams(name, streams):
+    got_name, spec, got_streams = tb.parse_profile("quality:" + name)
+    j_spec, j_S = _tool("tpu_quality").make_variant(name)
+    assert (got_name, got_streams, int(got_streams)) == ("quality:" + name, streams, j_S)
+    assert spec.stable_hash() == j_spec.stable_hash()
+
+
+@pytest.mark.parametrize("profile", ["ref:noih", "ref:nolstmx4", "ref-ppm:scaled-9:noih"])
+def test_a_bare_shared_variant_is_refused_with_both_meanings(profile, monkeypatch):
+    monkeypatch.setattr(tb, "run_once", lambda *a, **k: pytest.fail("a bare variant ran"))
+    with pytest.raises(SystemExit, match="ladder-.*ablate-") as e:
+        tb.main(["--device", "cpu", "--profile", profile])
+    assert "tpu_fast_ladder.py" in str(e.value) and "tpu_ablate.py" in str(e.value)
+
+
+@pytest.mark.parametrize("streams", ["2", "auto"])
+def test_streams_against_a_quality_name_are_refused(streams, monkeypatch):
+    monkeypatch.setattr(tb, "run_once", lambda *a, **k: pytest.fail("ran"))
+    with pytest.raises(SystemExit, match="refused: --streams"):
+        tb.main(["--device", "cpu", "--profile", "quality:ref-x4-oldppm", "--streams", streams])
+
+
+def test_streams_that_agree_with_a_quality_name_run(monkeypatch):
+    got = {}
+
+    def run_once(spec, S, *a, **k):
+        got.update(spec=spec, S=S)
+        raise SystemExit(0)
+
+    monkeypatch.setattr(tb, "run_once", run_once)
+    with pytest.raises(SystemExit):
+        tb.main(["--device", "cpu", "--warm", "0", "--bytes", "1000", "--profile", "quality:ref-x4-noppm",
+                 "--streams", "4"])
+    assert got["S"] == 4 and got["spec"] == variants.quality("ref-x4-noppm")[0]
+
+
+def test_profiles_sharing_one_warm_checkpoint_are_refused(monkeypatch, tmp_path):
+    monkeypatch.setattr(tb, "run_once", lambda *a, **k: pytest.fail("ran"))
+    with pytest.raises(SystemExit, match=r"\{profile\}"):
+        tb.main(["--device", "cpu", "--profile", "ref:ablate-indonly,ref:ladder-lean", "--warm-checkpoint",
+                 str(tmp_path / "w.gxt")])
+    assert os.listdir(tmp_path) == []
+
+
+# two variant profiles in one call at 8-bit tables, 2 streams of 40 bytes
+# after a 40-byte warm start, one encode pass each with the entropy EMA, a
+# warm checkpoint each
+VARIANT_PROFILES = ("ref:scaled-8:ablate-indonlyx2", "ref-noppm:scaled-8:ladder-basex2")
+
+
+@pytest.fixture(scope="module")
+def variant_rows(tmp_path_factory):
+    d = tmp_path_factory.mktemp("variants")
+    argv = ["--device", "cpu", "--profile", ",".join(VARIANT_PROFILES), "--chunk", "40", "--warm", "40",
+            "--bytes", "80", "--offset", "1000", "--passes", "2", "--encode-only", "--analysis",
+            "--warm-checkpoint", str(d / "warm-{profile}.gxt"), "--out", str(d / "rows.json")]
+    assert tb.main(argv) == 0
+    return json.loads((d / "rows.json").read_text()), d
+
+
+def test_two_profiles_print_a_result_row_each(variant_rows):
+    rows, _ = variant_rows
+    assert [r["bench"] for r in rows] == ["config", "pass", "pass", "result"] * 2
+    names = [p.rpartition("x")[0] for p in VARIANT_PROFILES]
+    assert [r["spec"] for r in rows if r["bench"] == "result"] == names
+    assert [r["spec"] for r in rows if r["bench"] == "config"] == names
+    for r in rows:
+        if r["bench"] == "result":
+            assert r["exact"] and r["streams"] == 2 and len(r["encode_s"]) == 2
+
+
+def test_encode_only_decodes_nothing(variant_rows):
+    rows, _ = variant_rows
+    for r in rows:
+        if r["bench"] == "pass":
+            assert r["direction"] == "encode"
+        if r["bench"] == "result":
+            assert r["decoded"] is False and r["decode_s"] == [] and r["decode_bytes_per_s"] is None
+            assert r["encdec_mbps"] is None and r["vs_baseline"] is None
+
+
+def test_analysis_gives_the_ema_of_every_column(variant_rows):
+    rows, _ = variant_rows
+    results = [r for r in rows if r["bench"] == "result"]
+    for profile, r in zip(VARIANT_PROFILES, results):
+        spec = tb.parse_profile(profile)[1]
+        assert list(r["model_ema"]) == analysis_columns(spec)
+        assert all(0 < v < 2 for v in r["model_ema"].values())
+        assert r["analysis"] is True and r["mfu"] == "not measured: the CPU"
+
+
+def test_each_profile_has_its_own_warm_checkpoint(variant_rows):
+    rows, d = variant_rows
+    files = sorted(p.name for p in d.iterdir() if p.name.startswith("warm-"))
+    want = [f"warm-{p.rpartition('x')[0].replace(':', '_')}.gxt" for p in VARIANT_PROFILES]
+    assert files == sorted(want + [w + ".json" for w in want])
+    for profile, config in zip(VARIANT_PROFILES, [r for r in rows if r["bench"] == "config"]):
+        assert config["warm_checkpoint"] == str(d / f"warm-{profile.rpartition('x')[0].replace(':', '_')}.gxt")
+        with open(config["warm_checkpoint"] + ".json") as f:
+            assert json.load(f)["spec_hash"] == tb.parse_profile(profile)[1].stable_hash()

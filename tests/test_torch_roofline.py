@@ -19,6 +19,7 @@ from gmix_tpu.state import init_state as j_init_state
 import gmix_tpu_torch as gt
 from gmix_tpu_torch import bench as tb
 from gmix_tpu_torch import roofline as rl
+from gmix_tpu_torch import variants
 from gmix_tpu_torch.core.meta import APM_BINS, PPM_ROW_W, build_meta
 
 torch.set_num_threads(1)
@@ -26,7 +27,8 @@ torch.set_num_threads(1)
 U32 = F32 = I32 = 4  # gmix_tpu's 4-byte dtypes (the port carries a u32 as int64)
 U16, U8 = 2, 1
 T = 60  # float operations of a transcendental
-SPECS = {"tiny": lambda: gt.tiny_spec(False), "tiny_lstm": lambda: gt.tiny_spec(True), "ref": lambda: tb.spec_for(None)}
+SPECS = {"tiny": lambda: gt.tiny_spec(False), "tiny_lstm": lambda: gt.tiny_spec(True), "ref": lambda: tb.spec_for(None),
+         "ref:ablate-indonly": lambda: tb.parse_profile("ref:ablate-indonly")[1]}
 J_SPECS = {"tiny": lambda: j_cfg.tiny_spec(False), "tiny_lstm": lambda: j_cfg.tiny_spec(True)}
 
 
@@ -163,6 +165,44 @@ def test_step_work_is_the_hand_tally(name):
         assert got["per_bit"][k] == got[k] / 8
     if meta.spec.lstm is None:
         assert got["parts"]["lstm_forward"]["bytes"] == got["parts"]["lstm_backward"]["bytes"] == 0
+
+
+def test_step_work_of_ablate_indonly():
+    """The ablation's smallest ensemble (variants.ablate "indonly" on ref):
+    no match model, no indirect-hash context (no `ih_tbl` read, no IH hash),
+    no PPM or LSTM head, one mixer a layer: those parts count nothing, and
+    the boundary only its registers and the skip and interval hashes."""
+    meta = build_meta(SPECS["ref:ablate-indonly"]())
+    spec = meta.spec
+    assert (len(spec.matches), len(spec.ihash_ctxs), spec.ppm, spec.lstm) == (0, 0, None, None)
+    assert (meta.mix_n0, meta.mix_n1) == (1, 1)
+    got = rl.step_work(meta, 1)["parts"]
+    for part in ("match", "ppm", "lstm_forward", "lstm_backward"):
+        assert got[part] == {"bytes": 0, "float_ops": 0, "int_ops": 0}, part
+    W = whole_leaves(meta)
+    regs = W["stm/acc"] + W["stm/last_byte"] + W["stm/recent"] + W["stm/ctx"] + W.get("stm/roll_h", 0)
+    assert got["boundary"]["bytes"] == 2 * regs
+    assert got["boundary"]["int_ops"] == (len(spec.interval_ctxs) * 5 + len(spec.roll_ctxs) * 24
+                                          + sum(2 * len(c.offsets) - 1 + 31 for c in spec.skip_ctxs))
+    # one mixer a layer: K = 3 rows of WP lanes in the sub-steps' dots
+    assert got["sub_steps"]["float_ops"] == rl.fused_float_ops(meta, 1, True, False)
+    assert got["sub_steps"]["float_ops"] < rl.step_work(build_meta(tb.spec_for(None)), 1)["parts"]["sub_steps"][
+        "float_ops"] / 2
+
+
+@pytest.mark.parametrize("v", [v for v in variants.ABLATE if v != "full"])
+def test_an_ablation_does_no_more_than_full(v):
+    """Each ablate variant's bytes, float and integer operations are at or
+    below full's (ref) in every part. One byte moves between two parts:
+    without PPM the LSTM reads the stored `ppm_probs` (its aux input) that
+    full's PPM part writes anew, so those two parts are held together."""
+    full = rl.step_work(build_meta(tb.parse_profile("ref:ablate-full")[1]), 4)
+    got = rl.step_work(build_meta(tb.parse_profile(f"ref:ablate-{v}")[1]), 4)
+    groups = [(p,) for p in rl.PARTS if p not in ("ppm", "lstm_forward")] + [("ppm", "lstm_forward")]
+    for group in groups:
+        for k in ("bytes", "float_ops", "int_ops"):
+            assert sum(got["parts"][p][k] for p in group) <= sum(full["parts"][p][k] for p in group), (group, k)
+    assert got["bytes"] <= full["bytes"] and got["float_ops"] <= full["float_ops"]
 
 
 @pytest.mark.parametrize("name", sorted(J_SPECS))

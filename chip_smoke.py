@@ -7,6 +7,7 @@
                                          # with each kernel's code size
     python3 chip_smoke.py --bench-only   # phases 0-1 and 7
     python3 chip_smoke.py --variants-only   # phases 0-1 and 8
+    python3 chip_smoke.py --sweeps-only   # phases 0-1 and 9
 
 Phases; any failure ends the run with a non-zero exit:
 
@@ -170,6 +171,24 @@ Phases; any failure ends the run with a non-zero exit:
    (ref:ladder-lean,ref:ablate-indonly, 4 streams), exact, each byte step
    launching its profile's kernels, and the device's allocated bytes at the
    start of the second run those at the start of the first.
+9. the sweeps (`gmix_tpu_torch/sweeps.py`, the JAX repository's sequential,
+   warm-start, ring, scaling and wiki tools), first the three kernels on
+   the live inputs of a byte step at the shapes the sweeps bring: one
+   stream of reference_spec() and of best_spec() at the published sizes and
+   256 streams of scaling's spec (reference_spec() at 12 bits, 26 GB): the
+   fused kernel against its plain version as in phase 2, the grouped
+   gather of the step's arenas (three at reference_spec(), which has no
+   APM stage, four at best_spec()) on the step's own rows and the grouped
+   scatter of the rows the kernel learned, bitwise against their plain
+   versions (every arena whole), and each timed with its plain version
+   (the movers on fresh random rows, as in phase 2). Then each sweep at a
+   cut size through `sweeps.main` in this process (SWEEP_RUNS): sequential
+   ref and best, 8000 bytes each way from a fresh stream, exact; ref's
+   graphs captured alone; the warm sweep's two snapshots and 128 streams
+   coding 512 000 bytes from each; the ring sweep on 256 KB of dump at a
+   ring that wraps and one that does not; scaling at 1, 16 and 256
+   streams; the wiki chain on 1 MB of dump, byte-identical. Every run must
+   exit 0, and every byte step it ran launch 3 + 2 + 1 kernels.
 
 ref-full is gmix_tpu's reference wiring (`reference_spec()`: PPM, the LSTM
 byte model of 50 cells with a horizon of 100) at its published table sizes
@@ -188,8 +207,9 @@ arenas, with the four-arena group of ref-noppm and the single launches per
 arena beside them; `launches` sums the main paths: the three specs' encode,
 decode and generation, the command line's commands on the card, the sharded
 predictor's encode and decode (`mesh`), the ranks' encodes (`distributed`),
-the bench's six runs (`bench`) and phase 8's roundtrips and two bench runs
-(`variants`), all replays of CUDA graphs;
+the bench's six runs (`bench`), phase 8's roundtrips and two bench runs
+(`variants`) and phase 9's sweeps (`sweeps`), all replays of CUDA graphs;
+each entry's `sweeps` holds the kernel's numbers on phase 9's live inputs;
 `launches_per_replay` gives each of phase 3's graphs' launches of the
 kernel); the last line is
 {"ok": true, "device": {...}}.
@@ -215,7 +235,7 @@ import numpy as np
 import torch
 
 import gmix_tpu_torch as gt
-from gmix_tpu_torch import bench, cli
+from gmix_tpu_torch import bench, cli, sweeps
 from gmix_tpu_torch.bench import padded_per, ref_noppm_spec, ref_ppm_spec, spec_for, trace_window
 from gmix_tpu_torch.config import best_spec, reference_spec, scale_tables
 from gmix_tpu_torch.core import fused
@@ -336,6 +356,26 @@ VARIANT_STREAMS, VARIANT_PER = 4, 1024
 VARIANT_CROSS_STREAMS, VARIANT_CROSS_PER, VARIANT_CROSS_CHUNK = 2, 512, 512
 VARIANT_BENCH = ("--profile", "ref:ladder-lean,ref:ablate-indonly", "--streams", "4", "--warm", "4096", "--offset",
                  str(120 * 1024), "--bytes", "16384", "--chunk", "1024", "--passes", "1")
+
+# phase 9, the sweeps (gmix_tpu_torch/sweeps.py, through sweeps.main in
+# this process) at cut sizes: sequential ref and best 8000 bytes each way
+# and ref's graphs captured alone (one chunk of 1000 each way); the warm
+# sweep's two snapshots (8000 and 32000 bytes trained) and 4000 byte steps
+# of 128 streams from each; the ring sweep on 256 KB of dump (about 7 KB a
+# stream after the transforms) with a ring of 4 KB (it wraps) and of 16 KB;
+# scaling at 1, 16 and 256 streams; the wiki chain on 1 MB of dump.
+# Before them the kernels on live inputs of one stream of ref and of best
+# and of SWEEP_WIDE streams of scaling's spec
+SWEEP_RUNS = (
+    ("sequential ref", ("sequential", "ref", "--bytes", "8000", "--chunk", "4000")),
+    ("sequential best", ("sequential", "best", "--bytes", "8000", "--chunk", "4000")),
+    ("sequential ref, graphs captured alone", ("sequential", "ref", "--capture-only", "--chunk", "1000")),
+    ("warm", ("warm", "--sizes", "8192,32768", "--profile", "11x128", "--chunk", "4000", "--bench-bytes", "512000")),
+    ("ring", ("ring", "12", "14", "--profile", "11x16", "--chunk", "4000", "--corpus-bytes", str(256 * 1024))),
+    ("scaling", ("scaling", "1", "16", "256", "--profile", "scaled-12", "--chunk", "512")),
+    ("wiki", ("wiki", str(1 << 20), "--profile", "scaled-11x128", "--chunk", "4000")),
+)
+SWEEP_WIDE = 256
 
 # the bench's profiles ref-noppm, ref-ppm and ref (ref-full here)
 SPECS = {"ref-noppm": ref_noppm_spec, "ref-ppm": ref_ppm_spec, "ref-full": functools.partial(spec_for, None)}
@@ -552,17 +592,25 @@ def decode_variant(fin, seed: int):
     return out
 
 
-def compare_fused_live(name: str, pred, dev):
-    """Warm `pred` over WARM_BYTES corpus bytes, take the packed inputs of the
-    next byte step, and hold the kernel against its plain version on them:
-    encode and decode, learn on and off. Returns (the encode and decode
-    inputs, the largest float difference)."""
-    meta, plan, S = pred.meta, pred.plan, pred.num_streams
+def live_inputs(pred, dev):
+    """Warm `pred` over WARM_BYTES corpus bytes and take the next byte step
+    up to the sub-steps: (fin, work, ix) of `step_mod._byte_inputs`, the
+    fused kernel's packed inputs and the movers' row indices."""
+    S = pred.num_streams
     data = np.frombuffer(corpus(S * 2 * WARM_BYTES), np.uint8).reshape(S, 2 * WARM_BYTES)
     data_buf = torch.as_tensor(data.copy(), device=dev)
     code_buf = torch.zeros((S, 1), dtype=torch.uint8, device=dev)
     run_chunks(pred, data_buf, code_buf, WARM_BYTES, decode=False, chunk=WARM_BYTES)
-    fin, _, _ = step_mod._byte_inputs(pred.state, data_buf, code_buf, WARM_BYTES, False, plan, True)
+    return step_mod._byte_inputs(pred.state, data_buf, code_buf, WARM_BYTES, False, pred.plan, True)
+
+
+def compare_fused_live(name: str, pred, dev, fin=None):
+    """Take the packed inputs of a live byte step (`live_inputs`, unless
+    `fin` holds them) and hold the kernel against its plain version on
+    them: encode and decode, learn on and off. Returns (the encode and
+    decode inputs, the largest float difference)."""
+    meta, plan = pred.meta, pred.plan
+    fin = live_inputs(pred, dev)[0] if fin is None else fin
     cases = {"encode": fin, "decode": decode_variant(fin, SEED)}
     err = 0.0
     for direction, f_in in cases.items():
@@ -1945,6 +1993,143 @@ def phase_variants(dev, d: str, procs: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the sweeps
+# ---------------------------------------------------------------------------
+
+
+def sweep_kernels(name: str, spec, S: int, dev) -> dict:
+    """The three kernels on the live inputs of a byte step of S streams of
+    `spec` (`live_inputs`): the fused kernel against its plain version as in
+    phase 2 (`compare_fused_live`); the grouped gather of the byte step's
+    arenas on the step's own rows bitwise against its plain version,
+    and the grouped scatter of the rows the kernel learned (a learning
+    encode step) into the live arenas against the plain scatter into
+    copies, every arena whole. Then each kernel timed: the fused kernel and
+    its plain version on the live inputs, the movers' group on fresh random
+    rows of the same arenas (`phase_grouped`, which checks them again)."""
+    pred = Predictor(spec, S, device=dev)
+    meta, plan = pred.meta, pred.plan
+    fin, _, ix = live_inputs(pred, dev)
+    cases, err = compare_fused_live(f"phase 9 {name}", pred, dev, fin)
+    fo = fused.fused_substeps_plain(meta, plan.fused, fin, True, True)
+    # (arena, table, the step's rows, the learned rows it scatters back) of
+    # the grouped launches: three arenas without APM stages, four with
+    group = []
+    for a, path, i, o in (("ind.st", ("ind", "st"), "blk_ix", "ind_blk"), ("mix_w", ("mix_w",), "rowix_st", "rows_st"),
+                          ("mix_pos", ("mix_pos",), "posix", "rows_pos"), ("apm", ("apm",), "apm_ix", "apm_rows")):
+        if i in ix:
+            tbl = functools.reduce(dict.__getitem__, path, pred.state["ltm"])
+            group.append((a, tbl, ix[i], fo[o].reshape(ix[i].shape[0], ix[i].shape[1], -1)))
+    pairs = [(t, i) for _, t, i, _ in group]
+    for a, w in zip(group, rowmove.gather_rows_many_plain(pairs)):
+        if w.shape != a[3].shape or w.dtype != a[3].dtype:
+            raise RuntimeError(f"phase 9 {name}: {a[0]}'s learned rows are {tuple(a[3].shape)} {a[3].dtype}, its "
+                               f"gathered rows {tuple(w.shape)} {w.dtype}")
+    got, want = rowmove.gather_rows_many(pairs), rowmove.gather_rows_many_plain(pairs)
+    torch.cuda.synchronize()
+    for (a, *_), g, w in zip(group, got, want):
+        if not torch.equal(g.view(torch.uint8), w.view(torch.uint8)):
+            raise RuntimeError(f"phase 9 {name}: gather_rows_many differs from its plain version on {a}")
+    refs = [t.clone() for _, t, _, _ in group]
+    rowmove.scatter_rows_many([(t, i, u) for _, t, i, u in group])
+    rowmove.scatter_rows_many_plain([(r, i, u) for r, (_, _, i, u) in zip(refs, group)])
+    torch.cuda.synchronize()
+    for (a, t, _, _), r in zip(group, refs):
+        if not torch.equal(t.view(torch.uint8), r.view(torch.uint8)):
+            raise RuntimeError(f"phase 9 {name}: scatter_rows_many differs from its plain version on {a}")
+    del refs, got, want
+    rng, gen = np.random.default_rng(SEED), torch.Generator(device=dev).manual_seed(SEED)
+    names, tables = [a for a, *_ in group], [t for _, t, _, _ in group]
+    counts = [i.shape[1] for _, _, i, _ in group]
+    movers = {d: phase_grouped(d, names, tables, counts, rng, gen, dev) for d in ("gather", "scatter")}
+    row = {"spec": name, "streams": S, "fused": {
+        "max_abs_err": err, "instantiation": fused.fused_instantiation(meta, plan.fused, True, True, S, dev),
+        **fused_bound(meta, plan.fused, cases["encode"], S),
+        "ms": device_ms(lambda i: fused.fused_substeps(meta, plan.fused, fin, True, True), reps=20),
+        "plain_ms": device_ms(lambda i: fused.fused_substeps_plain(meta, plan.fused, fin, True, True), reps=3,
+                              warmup=1)},
+        **{d: {k: m[k] for k in ("arenas", "rows", "max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms")}
+           for d, m in movers.items()}}
+    row["live_rows_bitwise"] = True
+    del pred, plan, cases, fin, fo, group, pairs, tables
+    torch.cuda.empty_cache()
+    log(f"phase 9: kernels on live inputs {json.dumps(row)}")
+    return row
+
+
+def sweep_run(argv, what: str) -> dict:
+    """`sweeps.main(argv)` in this process, so that the launch counters see
+    its kernels (set to 0 just before, read just after), its rows logged:
+    exit code 0, and the byte steps its rows ran (`byte_steps`) each
+    launching the spec's kernels (every sweep's spec has PPM and the LSTM:
+    3 + 2 + 1)."""
+    out = io.StringIO()
+    torch.cuda.empty_cache()
+    reset_launches()
+    with contextlib.redirect_stdout(out):
+        rc = sweeps.main(list(argv))
+    got = read_launches()
+    rows = [json.loads(line) for line in out.getvalue().splitlines()]
+    for row in rows:
+        log(f"phase 9: {what}: {json.dumps(row)}")
+    if rc != 0:
+        raise RuntimeError(f"phase 9 {what}: exit code {rc}")
+    body = rows[1:]
+    steps = sum(r["byte_steps"] for r in body)
+    want = tuple(c * steps for c in launches_per_step(reference_spec()))
+    if not steps or got != want:
+        raise RuntimeError(f"phase 9 {what}: launches (gather, scatter, fused) {got} in {steps} byte steps, "
+                           f"expected {want}")
+    return {"rows": body, "launches": list(got), "byte_steps": steps}
+
+
+def check_sweep(what: str, rows: list) -> dict:
+    """What each sweep's rows must say: every roundtrip exact, every
+    reading finite, the warm rows from their snapshots, one ring that wraps
+    and one that does not."""
+    def finite(*vals):
+        return all(isinstance(v, float) and math.isfinite(v) and v > 0 for v in vals)
+
+    last = rows[-1]
+    kind = what.split()[0]
+    if kind == "sequential" and "capture" in what:
+        ok = last["graphs"] > 0 and finite(last["capture_s"])
+    elif kind == "sequential":
+        ok = last["status"] == "done" and last["roundtrip_exact"] is True and finite(last["bpb"], last["model_bpb"])
+    elif kind == "warm":
+        warm = [r for r in rows if r["bench"] == "warm"]
+        ok = ([r["warm_bytes_actual"] for r in warm] == [8000, 32000] and all(r["overlaps_warm"] for r in warm)
+              and all(finite(r["bpb"], r["model_bpb"]) for r in warm))
+    elif kind == "ring":
+        ok = (sorted(r["wraps"] for r in rows) == [False, True] and all(finite(r["bpb"], r["model_bpb"]) for r in rows))
+    elif kind == "scaling":
+        ok = [r["S"] for r in rows] == [1, 16, SWEEP_WIDE] and all(finite(r["chunk_ms"], r["mem_gb"]) for r in rows)
+    else:
+        ok = last["chain_byte_identical"] is True and finite(last["bpb_vs_original"])
+    if not ok:
+        raise RuntimeError(f"phase 9 {what}: {rows}")
+    return last
+
+
+def phase_sweeps(dev) -> dict:
+    """Phase 9: the kernels on live inputs at one stream (ref, best) and at
+    SWEEP_WIDE streams (scaling's spec at 12 bits), then every sweep of
+    SWEEP_RUNS with its launches asserted and its rows checked."""
+    kernels = {f"{name} S={S}": sweep_kernels(name, spec, S, dev)
+               for name, spec, S in (("ref", reference_spec(), 1), ("best", best_spec(), 1),
+                                     ("scaled-12", sweeps.scaling_spec(12), SWEEP_WIDE))}
+    runs, launches = {}, [0, 0, 0]
+    for what, argv in SWEEP_RUNS:
+        t0 = time.perf_counter()
+        run = sweep_run(argv, what)
+        runs[what] = {"last": check_sweep(what, run["rows"]), "launches": run["launches"],
+                      "byte_steps": run["byte_steps"], "wall_s": time.perf_counter() - t0}
+        launches = [a + b for a, b in zip(launches, run["launches"])]
+        log(f"phase 9: {what} done in {runs[what]['wall_s']:.1f} s")
+    return {"kernels": kernels, "runs": runs, "launches": launches}
+
+
 def code_sizes(lib_path) -> dict:
     """Instructions of each kernel in the built library, counted from
     `cuobjdump -sass` (16 bytes each); empty where the toolkit has no
@@ -1971,8 +2156,9 @@ def main() -> int:
     fused_only = sys.argv[1:] == ["--fused-only"]
     bench_only = sys.argv[1:] == ["--bench-only"]
     variants_only = sys.argv[1:] == ["--variants-only"]
-    if sys.argv[1:] and not (fused_only or bench_only or variants_only):
-        print("usage: chip_smoke.py [--fused-only | --bench-only | --variants-only]", file=sys.stderr)
+    sweeps_only = sys.argv[1:] == ["--sweeps-only"]
+    if sys.argv[1:] and not (fused_only or bench_only or variants_only or sweeps_only):
+        print("usage: chip_smoke.py [--fused-only | --bench-only | --variants-only | --sweeps-only]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's GPU path cannot run here", file=sys.stderr)
@@ -2005,6 +2191,12 @@ def main() -> int:
         elapsed("phase 7 done")
         print(smi, flush=True)
         print(json.dumps({"ok": True, "partial": "the bench only", "launches": bench_out["launches"]}), flush=True)
+        return 0
+    if sweeps_only:
+        sweeps_out = phase_sweeps(dev)
+        elapsed("phase 9 done")
+        print(smi, flush=True)
+        print(json.dumps({"ok": True, "partial": "the sweeps only", "launches": sweeps_out["launches"]}), flush=True)
         return 0
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     if variants_only:
@@ -2074,6 +2266,8 @@ def main() -> int:
         finally:
             for proc in procs.values():
                 stop(proc)
+    sweeps_out = phase_sweeps(dev)
+    elapsed("phase 9 done")
 
     def launches(i):
         """Kernel i's launches on each main path: encode + decode, the two
@@ -2094,6 +2288,8 @@ def main() -> int:
         # phase 8: the variants' roundtrips on the card (published sizes and
         # scaled-12) and the bench's two variant profiles
         by_path["variants"] = variants_out["launches"][i]
+        # phase 9: the sweeps' runs at their cut sizes
+        by_path["sweeps"] = sweeps_out["launches"][i]
         return by_path
 
     def mover(direction, replaces_key):
@@ -2120,6 +2316,9 @@ def main() -> int:
             "four_launches_call_ms": four["single_launches_call_ms"],
             "per_arena": [{"arena": r["arena"], "ms": r[f"{direction}_ms"], "plain_ms": r[f"{direction}_plain_ms"],
                            "bound_ms": r["bound_ms"], "library_ms": r[f"{direction}_library_ms"]} for r in per_arena],
+            # the byte step's group at the arenas of phase 9's live
+            # predictors (one stream of ref and best, 256 at scaled-12)
+            "sweeps": {k: v[direction] for k, v in sweeps_out["kernels"].items()},
         }
 
     def per_replay(i):
@@ -2142,7 +2341,8 @@ def main() -> int:
         "launches_by_path": fused_by_path,
         "launches_per_replay": per_replay(2),
         "max_abs_err": max(fused_row["max_abs_err"], fused_ppm_row["max_abs_err"], fused_full_row["max_abs_err"],
-                           *(v["fused"]["max_abs_err"] for k, v in variants_out.items() if k in VARIANTS)),
+                           *(v["fused"]["max_abs_err"] for k, v in variants_out.items() if k in VARIANTS),
+                           *(v["fused"]["max_abs_err"] for v in sweeps_out["kernels"].values())),
         "ms": fused_row["ms"],
         "call_ms": fused_row["call_ms"],
         "plain_ms": fused_row["plain_ms"],
@@ -2169,6 +2369,11 @@ def main() -> int:
         "variants": {k: {f: v["fused"][f] for f in ("ms", "bound_ms", "bound_by", "bytes_moved", "max_abs_err",
                                                     "instantiation")}
                      for k, v in variants_out.items() if k in VARIANTS},
+        # on the live inputs of phase 9 (one stream of ref and best, 256
+        # streams at scaled-12)
+        "sweeps": {k: {f: v["fused"][f] for f in ("ms", "plain_ms", "bound_ms", "bound_by", "bytes_moved",
+                                                 "max_abs_err", "instantiation")}
+                   for k, v in sweeps_out["kernels"].items()},
     }]
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

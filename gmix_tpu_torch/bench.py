@@ -282,7 +282,7 @@ def corpus(n: Optional[int] = None, offset: int = 0) -> bytes:
         return f.read(n)
 
 
-def _sync(device: torch.device) -> None:
+def sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
 
@@ -353,7 +353,7 @@ def check_warm_checkpoint(path: str, want: dict) -> bool:
     return True
 
 
-def _replace_file(path: str, write: Callable[[str], None]) -> None:
+def replace_file(path: str, write: Callable[[str], None]) -> None:
     tmp = f"{path}.tmp{os.getpid()}"
     try:
         write(tmp)
@@ -376,8 +376,8 @@ def save_warm_checkpoint(path: str, warm: Dict, sidecar: dict) -> None:
         with open(tmp, "w") as f:
             json.dump(sidecar, f, indent=1)
 
-    _replace_file(path + ".json", write_json)
-    _replace_file(path, lambda tmp: save_state(tmp, warm))
+    replace_file(path + ".json", write_json)
+    replace_file(path, lambda tmp: save_state(tmp, warm))
 
 
 def load_warm_checkpoint(path: str) -> Dict:
@@ -427,7 +427,7 @@ def warm_predictor(spec: EnsembleSpec, num_streams: int, warm: Dict, device=None
     return pred
 
 
-def _capture(pred: Predictor, chunk: int, per: int, decode: bool = True) -> None:
+def capture(pred: Predictor, chunk: int, per: int, decode: bool = True) -> None:
     """One chunk of zeros encoded and (with `decode`) one decoded, so that
     every CUDA graph the passes replay (encode and decode, the byte that
     wraps the LSTM's window, the backward pass) is captured before them.
@@ -545,12 +545,12 @@ def _trace_run(pred: Predictor, warm: Dict, data: bytes, chunk: int, n: int, enc
 
     def encode() -> None:
         run_chunks(pred, window, code, n, decode=False, chunk=n)
-        _sync(dev)
+        sync(dev)
 
     reset_to_warm(pred, warm)
     encode()  # captures the window's graphs
     reset_to_warm(pred, warm)
-    _sync(dev)
+    sync(dev)
     before = _launch_counts()
     row = trace_window(encode, n, dev)
     launches = [b - a for a, b in zip(before, _launch_counts())]
@@ -569,7 +569,7 @@ def _trace_run(pred: Predictor, warm: Dict, data: bytes, chunk: int, n: int, enc
     return row
 
 
-def _emit(out: list, kind: str, **fields) -> None:
+def emit(out: list, kind: str, **fields) -> None:
     row = {"bench": kind, **fields}
     out.append(row)
     print(json.dumps(row), flush=True)
@@ -642,17 +642,17 @@ def run_once(spec: EnsembleSpec, num_streams: int, chunk: int, data: bytes, warm
     t0 = time.perf_counter()
     capture_s = 0.0
     if dev.type == "cuda":  # the CPU runs the byte step op by op: nothing to capture
-        _capture(pred, chunk, per, decode=not encode_only)
-        _sync(dev)
+        capture(pred, chunk, per, decode=not encode_only)
+        sync(dev)
         capture_s = sum(g.capture_s for fn in pred.plan.fn_cache.values() for g in fn.graphs.values())
     warmup_s = time.perf_counter() - t0
 
     def timed(fn):
         reset_to_warm(pred, warm_state)
-        _sync(dev)
+        sync(dev)
         t = time.perf_counter()
         out = fn()
-        _sync(dev)
+        sync(dev)
         return out, time.perf_counter() - t
 
     enc_s, dec_s, blob = [], [], None
@@ -664,7 +664,7 @@ def run_once(spec: EnsembleSpec, num_streams: int, chunk: int, data: bytes, warm
         blob = b
         enc_s.append(t)
         model_bits = entropy_bits(pred)
-        _emit(lines, "pass", direction="encode", index=i + 1, seconds=t, bytes_per_s=n / t)
+        emit(lines, "pass", direction="encode", index=i + 1, seconds=t, bytes_per_s=n / t)
     ema = dict(zip(analysis_columns(spec), analysis_snapshot(pred).mean(axis=0).tolist())) if analysis else None
     for i in range(0 if encode_only else passes):
         out, t = timed(lambda: decompress_bytes(blob, spec, chunk, pred=pred,
@@ -673,11 +673,11 @@ def run_once(spec: EnsembleSpec, num_streams: int, chunk: int, data: bytes, warm
             at = next((j for j, (a, b) in enumerate(zip(out, data)) if a != b), min(len(out), n))
             raise RuntimeError(f"bench: decode pass {i + 1} differs from the input at byte {at} of {n}")
         dec_s.append(t)
-        _emit(lines, "pass", direction="decode", index=i + 1, seconds=t, bytes_per_s=n / t)
+        emit(lines, "pass", direction="decode", index=i + 1, seconds=t, bytes_per_s=n / t)
     step_ms = 1e3 * min(enc_s) / per
     work = step_work(pred.meta, S)
     if trace:
-        _emit(lines, "trace", **_trace_run(pred, warm_state, data, chunk, trace, step_ms, work))
+        emit(lines, "trace", **_trace_run(pred, warm_state, data, chunk, trace, step_ms, work))
 
     def rates(times):
         return {"best": n / min(times), "median": n / statistics.median(times)} if times else None
@@ -711,7 +711,7 @@ def run_once(spec: EnsembleSpec, num_streams: int, chunk: int, data: bytes, warm
     return out
 
 
-def _device_info(dev: torch.device) -> dict:
+def device_info(dev: torch.device) -> dict:
     """The device's name, and on a card its name and power limit as
     `nvidia-smi --query-gpu=name,power.limit --format=csv,noheader` prints
     them."""
@@ -728,7 +728,7 @@ def _default_budget(dev: torch.device) -> int:
     return os.sysconf("SC_PAGE_SIZE") * os.sysconf("SC_PHYS_PAGES")
 
 
-def _baseline() -> dict:
+def baseline() -> dict:
     """data/baseline_measured.json (read, never written); {} without it."""
     if not os.path.exists(BASELINE):
         return {}
@@ -737,7 +737,7 @@ def _baseline() -> dict:
 
 
 def _vs_baseline(mbps: float) -> Optional[float]:
-    ref = _baseline().get("ref_encdec_mbps", 0.0)
+    ref = baseline().get("ref_encdec_mbps", 0.0)
     return mbps / ref if ref > 0 else None
 
 
@@ -819,18 +819,18 @@ def main(argv=None) -> int:
     lines: list = []
     for spec, S, config in plans:  # every configuration is checked before any runs
         if S < 1 or config["state_estimate_bytes"] + config["headroom_bytes"] > budget:
-            _emit(lines, "config", **config, **_device_info(dev))
+            emit(lines, "config", **config, **device_info(dev))
             raise SystemExit(f"bench: refused: {max(S, 1)} streams of {config['spec']} need "
                              f"{config['state_estimate_bytes']} bytes of state and {config['headroom_bytes']} of "
                              f"headroom, over the budget of {budget} bytes")
     for spec, S, config in plans:
         held = torch.cuda.memory_allocated(dev) if dev.type == "cuda" else None
-        _emit(lines, "config", **config, allocated_bytes=held, **_device_info(dev))
+        emit(lines, "config", **config, allocated_bytes=held, **device_info(dev))
         res = run_once(spec, S, args.chunk, data, warm, args.passes, dev, lines, config["warm_checkpoint"],
                        args.trace, args.encode_only, args.analysis)
-        _emit(lines, "result", spec=config["spec"], **res,
+        emit(lines, "result", spec=config["spec"], **res,
               vs_baseline=None if res["encdec_mbps"] is None else _vs_baseline(res["encdec_mbps"]),
-              ref_bpb=_baseline().get("ref_1m", {}).get("bpb"))
+              ref_bpb=baseline().get("ref_1m", {}).get("bpb"))
     if args.out:
         with open(args.out, "w") as f:
             json.dump(lines, f, indent=1)

@@ -1,5 +1,7 @@
 """The port imports torch and never JAX, gmix_tpu or the repository's
-tools/ (the ensemble variants are the port's own copy, variants.py): a fresh
+tools/ (the ensemble variants and the dump generator are the port's own
+copies, variants.py and preprocess/wiki_corpus.py, and sweeps.py imports
+neither tools/ nor bench.py): a fresh
 interpreter imports every module under gmix_tpu_torch/ and must end with
 none of them loaded."""
 import os
@@ -21,7 +23,8 @@ bad = sorted(m for m in sys.modules if m.split(".")[0] in {"jax", "jaxlib", "gmi
 # command line, the preprocessors and the bench among them
 missing = {"gmix_tpu_torch.utils.serialization", "gmix_tpu_torch.parallel.mesh", "gmix_tpu_torch.cli",
            "gmix_tpu_torch.preprocess.dictionary", "gmix_tpu_torch.preprocess.wiki",
-           "gmix_tpu_torch.parallel.distributed", "gmix_tpu_torch.bench", "gmix_tpu_torch.variants"} - set(names)
+           "gmix_tpu_torch.parallel.distributed", "gmix_tpu_torch.bench", "gmix_tpu_torch.variants",
+           "gmix_tpu_torch.sweeps", "gmix_tpu_torch.preprocess.wiki_corpus"} - set(names)
 print(len(names), "modules")
 print("FORBIDDEN", bad, "MISSING", sorted(missing))
 sys.exit(1 if bad or missing or len(names) < 28 else 0)

@@ -1,0 +1,569 @@
+# Frozen copy of gmix_tpu_torch/core/step.py (the eager step) at commit 334906b, plain torch on the CPU only;
+# imports nothing of gmix_tpu_torch, gmix_tpu or jax (h100_bench/reference/__init__.py).
+"""The codec's byte step: boundary contexts, one gather of the per-byte
+working sets, the 8 bit sub-steps with their deferred writes, and the
+byte-end scatter.
+
+Port of `gmix_tpu.core.step._byte_step`. The 8 sub-steps and the deferred
+per-bit writes are one function, `core/fused.py:fused_substeps`: one
+hand-written CUDA kernel on a CUDA device, the eager torch loop on the CPU.
+The PPM byte model's boundary work is `core/ppm.py`, the LSTM byte model is
+`core/lstm.py`. This module keeps what surrounds them, in eager torch, with
+the arena rows moved by the kernels of `ops/rowmove.py`. On a GPU a byte
+step is therefore 3 hand-written launches (one gather of every arena, the
+sub-steps, one scatter of every arena), and 5 with PPM, whose count update
+gathers and scatters its own rows first; plus the eager boundary, packing
+and byte-end ops. With PPM and an LSTM it is 6: the LSTM's forward pass reads
+the PPM prediction and sets the `lstm_ctx` context, which an indirect model
+may be keyed on, so the rows of `ppm_tbl` are gathered on their own before
+the prediction, and the other arenas after the forward pass. A sampling step
+(generation: learn off) makes no byte-end scatter: 2, 4 and 5 launches.
+
+The JAX function is the reference; the port keeps its expression order op
+for op, because the decoder must replay the encoder's float updates bit for
+bit, and because the port is held bitwise against it:
+
+- Every float op is its own torch op. In particular nothing here uses
+  `add/sub(alpha=)`, `addcmul`, `addcdiv`, `lerp`, `addmm` or `baddbmm`,
+  which may contract `a*b+c` into one rounding on CUDA. XLA:CPU does
+  contract inside jitted programs, so the port follows gmix_tpu run eagerly
+  (`jax.disable_jit()`), where every op rounds on its own.
+- Inexact float reductions are fixed binary trees (`fused._tree_sum`). Where
+  gmix_tpu sums a one-hot selection, the port gathers (integers) or sums
+  the same selection (floats): a sum with one nonzero term is exact in any
+  order.
+
+The step updates the state dict in place: the arenas are scattered into
+where they lie instead of being copied every byte, and every other leaf
+that a step computes anew is copied back into its own storage at the step's
+end, so that no leaf moves. u32 values are int64 tensors in [0, 2^32) (see
+state.py).
+
+The compiled chunk (gmix_tpu's `make_chunk_fn` / `get_chunk_fn` and their
+sampling counterparts, at the end of this module) runs the same step: on a
+CUDA device as CUDA graphs that the host replays once a byte, on the CPU op
+by op. The step is written for the graphs: the byte index is a 0-d device
+tensor (the stream's first byte selects with it), the LSTM's epoch is read
+from its device leaf, and no op reads a value back to the host. What the
+host still decides (the direction, learn, analysis, sampling, the byte that
+wraps the LSTM's window, the deferred backward pass) picks the graph.
+"""
+from __future__ import annotations
+
+from typing import Callable, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from .murmur import MASK32, mul32, murmur3_u32, murmur3_u64
+from .rowmove import gather_rows_many_plain as gather_rows_many
+from .rowmove import gather_rows_plain as gather_rows
+from .rowmove import scatter_rows_many_plain as scatter_rows_many
+from .fused import (  # noqa: F401  (_tri_solve: held against gmix_tpu's by the step tests)
+    CODER_WIN,
+    _onehot_rows,
+    _tri_solve,
+    const_inputs,
+    fused_substeps_plain as fused_substeps,
+    pack_inputs,
+    unpack_outputs,
+)
+from .lstm import LstmPlan, _lstm_bptt, _lstm_forward, _lstm_perceive
+from .meta import ROLL_BASE, Meta
+from .ppm import _ppm_index, _ppm_predict, _ppm_update
+
+I32 = torch.int32
+I64 = torch.int64
+
+
+class StepPlan:
+    """The byte step's constants for one (meta, stream count, device): index
+    vectors and small tables, moved to the device once. The constants of the
+    sub-steps are `fused` (core/fused.py:const_inputs)."""
+
+    def __init__(self, meta: Meta, num_streams: int, device):
+        spec = meta.spec
+        self.meta = meta
+        self.S = num_streams
+        self.device = torch.device(device)
+        self.fused = const_inputs(meta, True, self.device)
+
+        def t(a, dtype=I64):
+            return torch.as_tensor(np.asarray(a), device=self.device).to(dtype)
+
+        self.s_ix = torch.arange(num_streams, device=self.device)[:, None]
+        self.win_lanes = torch.arange(CODER_WIN, device=self.device)
+        self.byte_ctx_cols = t(meta.byte_ctx_cols)
+        self.bitreg_ctx_cols = t(meta.bitreg_ctx_cols)
+        # boundary contexts
+        self.interval_maps = t(meta.interval_maps)
+        self.interval_slots = t(meta.interval_slots)
+        self.interval_shifts = t(meta.interval_shifts)[None, :]
+        self.interval_masks = t(meta.interval_masks)[None, :]
+        self.skip_gather = t(meta.skip_gather)
+        self.skip_lo_sh, self.skip_hi_sh = t(meta.skip_lo_sh), t(meta.skip_hi_sh)
+        self.skip_lo_on = t(meta.skip_lo_on, torch.bool)
+        self.skip_hi_on = t(meta.skip_hi_on, torch.bool)
+        self.skip_slots = t(meta.skip_slots)
+        self.ih_offsets = t(meta.ih_offsets)[None, :]
+        self.ih_masks = t(meta.ih_masks)[None, :]
+        self.ih_imask = t(meta.ih_inner_mods.astype(np.int64) - 1)[None, :]
+        self.ih_omask = t(meta.ih_outer_mods.astype(np.int64) - 1)[None, :]
+        self.ih_out_slots = t(meta.ih_out_slots)
+        self.roll_slots = t(meta.roll_slots)
+        self.roll_old_ix = t(meta.roll_old_ix)
+        self.roll_pows = t(meta.roll_pows)[None, :]
+        # indirect models
+        self.ind_ctx_slots = t(meta.ind_ctx_slots)
+        self.ind_blk_masks = t(meta.ind_blk_masks)[None, :]
+        self.ind_blk_offsets = t(meta.ind_blk_offsets)[None, :]
+        self.ind_rotate = t(meta.ind_rotate)[None, :]
+        # match models
+        self.match_ctx_slots = t(meta.match_ctx_slots)
+        self.match_masks = t(meta.match_masks)[None, :]
+        self.match_offsets = t(meta.match_offsets)[None, :]
+        # mixers
+        self.mix_st_slots = t(meta.mix_st_slots)
+        self.mix_st_masks = t(meta.mix_st_masks)[None, :]
+        self.mix_st_offsets = t(meta.mix_st_offsets)[None, :]
+        self.mix_pos_slots = t(meta.mix_pos_slots)
+        self.mix_pos_masks = t(meta.mix_pos_masks)[None, :]
+        self.mix_pos_offsets = t(meta.mix_pos_offsets)[None, :]
+        self.cd_aranges = [torch.arange(int(T), device=self.device)[None, :] for T in meta.mix_cd_sizes]
+        # APM
+        self.apm_ctx_slots = t(meta.apm_ctx_slots)
+        self.apm_masks = t(meta.apm_masks)[None, :]
+        self.apm_offsets = t(meta.apm_offsets)[None, :]
+        # PPM
+        if spec.ppm is not None:
+            self.ppm_slots = t(meta.ppm_slots)
+            self.ppm_masks = t(meta.ppm_masks)[None, :]
+            self.ppm_row_offsets = t(meta.ppm_row_offsets)[None, :]
+            self.lane256 = torch.arange(256, device=self.device)[None, :]
+            self.ppm_buckets = torch.arange(spec.ppm.see_buckets, device=self.device)[None, None, :]
+            self.ppm_see_lr = t(np.float32(spec.ppm.see_lr), torch.float32)
+            self.ppm_uniform = t(np.float32(1.0 / 256), torch.float32)
+        # LSTM
+        if spec.lstm is not None:
+            self.lstm = LstmPlan(spec.lstm, num_streams, self.device)
+            self.lstm_ctx_slot = int(meta.slots["lstm_ctx"])
+        # the host's copy of the LSTM's epoch and the leaf it was read from
+        self._epoch: Optional[int] = None
+        self._epoch_leaf: Optional[torch.Tensor] = None
+    def host_epoch(self, lst: Dict) -> int:
+        """The LSTM's epoch as a host integer, kept beside the state's 0-d
+        `epoch` leaf: read from the device once for a leaf this plan has not
+        seen (a state from outside, or after `forget_epoch`), then advanced
+        by `advance_epoch` without reading the device. The byte step reads
+        the leaf itself; the host's copy only chooses which graph runs (the
+        byte that wraps the window, the deferred backward pass)."""
+        if lst["epoch"] is not self._epoch_leaf:
+            self._epoch, self._epoch_leaf = int(lst["epoch"]), lst["epoch"]
+        return self._epoch
+
+    def advance_epoch(self, lst: Dict) -> None:
+        """After a byte's forward pass (`lst` the state's LSTM leaves)."""
+        self._epoch = (self.host_epoch(lst) + 1) % self.meta.spec.lstm.horizon
+
+    def forget_epoch(self) -> None:
+        """The state's leaves were refilled from outside: read the epoch again."""
+        self._epoch_leaf = None
+
+    def wraps(self, state: Dict) -> bool:
+        """Whether the next byte's forward pass wraps the LSTM's window (its
+        byte end then runs the backward pass, or leaves it to the caller)."""
+        lst = state["stm"].get("lstm")
+        return lst is not None and self.host_epoch(lst) == self.meta.spec.lstm.horizon - 1
+
+    def take_epoch(self, src: "StepPlan", src_lst: Dict, lst: Dict) -> None:
+        """For `lst`, a copy of the LSTM state `src_lst` that the plan `src`
+        runs: take over src's host epoch, so that neither plan reads the
+        device when the two run side by side. A leaf that src has not read
+        stays, to be read once."""
+        if src._epoch_leaf is not None and src_lst["epoch"] is src._epoch_leaf:
+            self._epoch, self._epoch_leaf = src._epoch, lst["epoch"]
+
+
+def _as_index(t, device) -> torch.Tensor:
+    """A byte index as a 0-d int64 tensor on `device`: a tensor as it is, a
+    host integer filled into a new one (a fill, no copy from host memory)."""
+    if torch.is_tensor(t):
+        return t
+    return torch.full((), int(t), dtype=I64, device=device)
+
+
+def _boundary(stm: Dict, t, plan: StepPlan) -> None:
+    """Byte-boundary contexts (gmix_tpu.core.step._boundary up to the PPM
+    prediction and the LSTM's forward pass, which follow in `_byte_inputs`);
+    updates stm in place. `t`, the byte index, is a 0-d device tensor (or a
+    host integer): the stream's first byte selects with it, as gmix_tpu's
+    `not_first = t > 0` does, so one program serves every byte."""
+    meta = plan.meta
+    spec = meta.spec
+    s_ix = plan.s_ix
+    not_first = _as_index(t, plan.device) > 0
+    completed = stm["acc"]
+    # PPM count update with the completed byte, against the PRE-update
+    # contexts, at every byte (the stream's first included)
+    if spec.ppm is not None:
+        _ppm_update(stm, completed, plan)
+    last_byte = torch.where(not_first, completed, stm["last_byte"])
+    recent = torch.where(not_first, torch.cat([completed[:, None], stm["recent"][:, :-1]], dim=1), stm["recent"])
+    ctx = stm["ctx"].clone()
+    ctx[:, plan.byte_ctx_cols] = torch.cat([last_byte[:, None], recent[:, 1:10]], dim=1)
+
+    # interval contexts (interval-context.cpp:17-23)
+    if spec.interval_ctxs:
+        vals = plan.interval_maps[:, last_byte].T  # (S, NI)
+        old = ctx[:, plan.interval_slots]
+        ctx[:, plan.interval_slots] = plan.interval_masks & ((old << plan.interval_shifts) + vals)
+
+    # skip hashes (skip-context.cpp:9-19): bytes packed big-endian into a u64
+    if spec.skip_ctxs:
+        bg = recent[:, plan.skip_gather]  # (S, NSK, MAX_SKIP)
+        lo = torch.where(plan.skip_lo_on, bg << plan.skip_lo_sh, 0).sum(dim=2) & MASK32
+        hi = torch.where(plan.skip_hi_on, bg << plan.skip_hi_sh, 0).sum(dim=2) & MASK32
+        ctx[:, plan.skip_slots] = murmur3_u64(lo, hi)
+
+    # rolling-hash contexts (deep PPM orders): h' = (h - leaving * B^(n-1)) * B
+    # + completed over the pre-shift recent ring, published murmur-finalised.
+    # The difference is masked to 32 bits before the multiply: it can be
+    # negative, and an unmasked product overflows int64.
+    if spec.roll_ctxs:
+        h_old = stm["roll_h"]
+        old_b = stm["recent"][:, plan.roll_old_ix]
+        h_rolled = (mul32((h_old - old_b * plan.roll_pows) & MASK32, ROLL_BASE) + completed[:, None]) & MASK32
+        h_new = torch.where(not_first, h_rolled, h_old)
+        ctx[:, plan.roll_slots] = murmur3_u32(h_new)
+        stm["roll_h"] = h_new
+
+    # indirect-hash contexts (indirect-hash.cpp:16-31), one flat arena of
+    # u32 values stored as int32 bits
+    if spec.ihash_ctxs:
+        f = stm["ih_tbl"]
+        old_idx = (stm["ih_outer_hash"] & plan.ih_masks) + plan.ih_offsets
+        inner = f[s_ix, old_idx].to(I64) & MASK32
+        inner_new = ((inner & plan.ih_imask) << 8) + last_byte[:, None]
+        f[s_ix, old_idx] = inner_new.to(I32)
+        outer_new = ((stm["ih_outer_ctx"] & plan.ih_omask) << 8) + last_byte[:, None]
+        new_hash = murmur3_u64(outer_new, torch.zeros_like(outer_new))
+        new_idx = (new_hash & plan.ih_masks) + plan.ih_offsets
+        ctx[:, plan.ih_out_slots] = murmur3_u32(f[s_ix, new_idx].to(I64) & MASK32)
+        stm["ih_outer_ctx"], stm["ih_outer_hash"] = outer_new, new_hash
+
+    stm.update(last_byte=last_byte, recent=recent, acc=torch.zeros_like(completed), ctx=ctx)
+
+
+def _byte_inputs(state: Dict, data_buf: torch.Tensor, code_buf: torch.Tensor, t,
+                 decode: bool, plan: StepPlan, analysis: bool = True,
+                 sample_u: Optional[torch.Tensor] = None, inv_temp: Optional[torch.Tensor] = None,
+                 col: Optional[torch.Tensor] = None):
+    """The byte step up to the sub-steps: boundary contexts, the match
+    pointer logic, the gathers of the per-byte working sets and the coder
+    window. Updates `state["stm"]` in place and returns (fin, work, ix): the
+    packed inputs of `fused_substeps`, the working sets they were packed
+    from, and the row indices the byte end scatters back to. `sample_u` and
+    `inv_temp` make it a sampling step (`_byte_step`). `t` is the byte index
+    (a 0-d device tensor or a host integer), `col` the byte's column of
+    `data_buf` when that is not `t` (a compiled chunk's window of the
+    input). With an LSTM the forward pass advances the state's epoch leaf;
+    the plan's host copy of it is the caller's to advance."""
+    meta = plan.meta
+    spec = meta.spec
+    stm, ltm, coder, metrics = state["stm"], state["ltm"], state["coder"], state["metrics"]
+    S, s_ix = plan.S, plan.s_ix
+    M = len(spec.indirects)
+    WP = meta.mix_width_pad
+    NM = len(spec.matches)
+    NA = len(spec.apm)
+
+    # ---- byte boundary: contexts ----
+    t = _as_index(t, plan.device)
+    col = t if col is None else col
+    _boundary(stm, t, plan)
+    data_byte = data_buf.index_select(1, col.reshape(1))[:, 0].to(I64)
+    work: Dict = {"max_steps": ltm["mix_max_steps"]}
+
+    # ---- with an LSTM: the PPM prediction from rows gathered on their own,
+    # then the forward pass, which reads it and sets the lstm_ctx context ----
+    ppm_grouped = spec.ppm is not None and spec.lstm is None
+    if spec.lstm is not None:
+        if spec.ppm is not None:
+            ppm_cv, ppm_ix = _ppm_index(stm["ctx"], plan)
+            _ppm_predict(stm, gather_rows(stm["ppm_tbl"], ppm_ix), ppm_cv, plan)
+        _lstm_forward(stm, ltm, plan.lstm, plan.lstm_ctx_slot)
+        lst = stm["lstm"]
+        work["lstm_probs"] = lst["probs"]
+        work["lstm_regs"] = torch.stack([lst["top"], lst["bot"], lst["mid"], torch.zeros_like(lst["top"])], dim=1)
+
+    # ---- match byte-boundary pointer logic (match.cpp:38-58) ----
+    if NM:
+        hit = stm["new_bit"][:, None] == ((stm["match_byte"] & 1) != 0).to(I64)
+        mlen = torch.where(hit, torch.clamp(stm["match_len"] + 1, max=255), 0)
+        mlen = torch.where(stm["match_ptr"] == ((stm["hist_n"] - 1) & MASK32)[:, None], 0, mlen)
+        mcv = stm["ctx"][:, plan.match_ctx_slots]
+        match_ix = (mcv & plan.match_masks) + plan.match_offsets
+        tbl_ptr = ltm["match_tbl"][s_ix, match_ix].to(I64) & MASK32
+        mptr = torch.where(mlen < 8, tbl_ptr, (stm["match_ptr"] + 1) & MASK32)
+        hb = ltm["hist"][s_ix, mptr & (meta.history_size - 1)]
+        mbyte = torch.where((stm["hist_n"] > 0)[:, None], hb.to(I64), stm["match_byte"])
+        stm.update(match_ptr=mptr, match_byte=mbyte, match_len=mlen)
+
+    # ---- gather the per-byte working sets (byte-stable gating contexts):
+    # all row indices first, then every arena's rows in one launch ----
+    ctx_byte = stm["ctx"]
+    Kst, Kp = len(meta.mix_st_ix), len(meta.mix_pos_ix)
+    Kcd, Kpd, Klm = len(meta.mix_cd_ix), len(meta.mix_pd_ix), len(meta.mix_lm_ix)
+    arenas = []  # (working-set name, table, row indices)
+    if M:
+        ind_ctx_vals = ctx_byte[:, plan.ind_ctx_slots]  # (S, M)
+        blk_ix = ((ind_ctx_vals & plan.ind_blk_masks) + plan.ind_blk_offsets).to(I32)
+        # hash-derived lane rotation (gmix_tpu step.py:709-716)
+        work["ind_rot"] = ((ind_ctx_vals >> 16) & 255) * plan.ind_rotate  # (S, M)
+        work["p_tbl"] = ltm["ind"]["p"]  # (S, 2M, 256)
+        arenas.append(("ind_blk", ltm["ind"]["st"], blk_ix))  # (S, M, 256) int16 bits
+    if Kst:
+        rowix_st = ((ctx_byte[:, plan.mix_st_slots] & plan.mix_st_masks) + plan.mix_st_offsets).to(I32)
+        arenas.append(("rows_st", ltm["mix_w"], rowix_st))  # (S, Kst, WP)
+    if Kp:
+        posix = ((ctx_byte[:, plan.mix_pos_slots] & plan.mix_pos_masks) + plan.mix_pos_offsets).to(I32)
+        arenas.append(("rows_pos", ltm["mix_pos"], posix))  # (S, Kp, 8 * WP)
+    if NA:
+        apm_ix = ((ctx_byte[:, plan.apm_ctx_slots] & plan.apm_masks) + plan.apm_offsets).to(I32)
+        arenas.append(("apm_rows", ltm["apm"], apm_ix))  # (S, NA, 8*APM_BINS)
+    if ppm_grouped:
+        ppm_cv, ppm_ix = _ppm_index(ctx_byte, plan)
+        arenas.append(("ppm_rows", stm["ppm_tbl"], ppm_ix))  # (S, NO, PPM_ROW_W) int16 bits
+    for (name, _, _), rows in zip(arenas, gather_rows_many([(tbl, idx) for _, tbl, idx in arenas])):
+        work[name] = rows
+    if Kp:
+        work["rows_pos"] = work["rows_pos"].view(S, Kp, 8, WP)
+    if ppm_grouped:
+        # next-byte distribution from the new contexts' rows
+        _ppm_predict(stm, work.pop("ppm_rows"), ppm_cv, plan)
+    if spec.ppm is not None:
+        # the head's interval registers go through the sub-steps
+        work["ppm_probs"] = stm["ppm_probs"]
+        work["ppm_regs"] = torch.stack(
+            [stm["ppm_top"], stm["ppm_bot"], stm["ppm_mid"], torch.zeros_like(stm["ppm_top"])], dim=1)
+    dense0 = ltm.get("mix_dense")
+    cd_oh = []
+    if Kcd:
+        rows_cd = []
+        for i in range(Kcd):
+            off, T = int(meta.mix_cd_offsets[i]), int(meta.mix_cd_sizes[i])
+            val = ctx_byte[:, int(meta.mix_cd_slots[i])] & (T - 1)
+            oh = plan.cd_aranges[i] == val[:, None]  # (S, T)
+            cd_oh.append(oh)
+            rows_cd.append(_onehot_rows(oh, dense0[:, off : off + T]))
+        work["rows_cd"] = torch.stack(rows_cd, dim=1)
+    if Kpd:
+        work["blocks_pd"] = torch.stack([dense0[:, int(o) : int(o) + 8] for o in meta.mix_pd_offsets], dim=1)
+    if Klm:
+        work["lm_tbl"] = [
+            dense0[:, int(meta.mix_lm_offsets[i]) : int(meta.mix_lm_offsets[i]) + int(meta.mix_lm_sizes[i])]
+            for i in range(Klm)
+        ]
+    if NM:
+        work["mt_pred"], work["mt_cnt"] = ltm["match_pred"], ltm["match_cnt"]
+
+    # ---- coder byte window: the decoder's input bytes, read once per byte ----
+    wpos0 = coder["wpos"]
+    if decode:
+        cap_total = code_buf.shape[1]
+        look = coder["rpos"][:, None] + plan.win_lanes[None, :]
+        win_r = torch.where(
+            look < cap_total, code_buf[s_ix, torch.clamp(look, max=cap_total - 1)].to(I64), 0
+        )
+    else:
+        win_r = torch.zeros((S, CODER_WIN), dtype=I64, device=plan.device)
+
+    fin = pack_inputs(meta, stm, coder, metrics, work, data_byte, win_r, decode, t > 0, analysis, sample_u, inv_temp)
+    ix = dict(wpos0=wpos0, cd_oh=cd_oh)
+    if M:
+        ix["blk_ix"] = blk_ix
+    if Kst:
+        ix["rowix_st"] = rowix_st
+    if Kp:
+        ix["posix"] = posix
+    if NA:
+        ix["apm_ix"] = apm_ix
+    if NM:
+        ix["match_ix"] = match_ix
+    return fin, work, ix
+
+
+def _byte_finish(state: Dict, data_buf: torch.Tensor, col: torch.Tensor, plan: StepPlan, fo: Dict, work: Dict,
+                 ix: Dict, learn: bool, bptt: bool = True, wrap: bool = False):
+    """The byte step after the sub-steps: registers back into the state, the
+    byte-end scatters, the history append, the match-table write and the
+    LSTM's byte end (`bptt`, `wrap`: see `_step`). Writes the byte to
+    `data_buf` at column `col` (a 0-d device tensor) and returns the
+    encoder's renorm bytes of this input byte (win, nw)."""
+    meta = plan.meta
+    spec = meta.spec
+    stm, ltm, coder, metrics = state["stm"], state["ltm"], state["coder"], state["metrics"]
+    S, s_ix = plan.S, plan.s_ix
+    M, NM, NA = len(spec.indirects), len(spec.matches), len(spec.apm)
+    WP = meta.mix_width_pad
+    Kst, Kp = len(meta.mix_st_ix), len(meta.mix_pos_ix)
+    Kcd, Kpd, Klm = len(meta.mix_cd_ix), len(meta.mix_pd_ix), len(meta.mix_lm_ix)
+    dense0 = ltm.get("mix_dense")
+
+    win_w, bitregs = unpack_outputs(meta, fo, stm, coder, metrics, work)
+    cur_byte = stm["acc"]  # all 8 bits accumulated = the completed byte
+    longest = bitregs[:, 3]
+
+    # ---- the renorm bytes of this input byte (host assembles the stream) ----
+    win_out = win_w.to(torch.uint8)
+    nw_out = (coder["wpos"] - ix["wpos0"]).to(torch.uint8)
+
+    # ---- final per-bit context values -> ctx (checkpoint consistency) ----
+    stm["ctx"][:, plan.bitreg_ctx_cols] = bitregs
+
+    if spec.ppm is not None:
+        pr = work["ppm_regs"]
+        stm.update(ppm_top=pr[:, 0], ppm_bot=pr[:, 1], ppm_mid=pr[:, 2])
+    if spec.lstm is not None:
+        lr_ = work["lstm_regs"]
+        stm["lstm"].update(top=lr_[:, 0], bot=lr_[:, 1], mid=lr_[:, 2])
+
+    # ---- byte end: scatter the working sets back (every arena in one
+    # launch; the arenas are distinct tensors), history append, match pointer
+    # write ----
+    if learn:
+        back = []  # (table, row indices, rows)
+        if M:
+            back.append((ltm["ind"]["st"], ix["blk_ix"], work["ind_blk"]))
+            ltm["ind"]["p"] = work["p_tbl"]
+        ltm["mix_max_steps"] = work["max_steps"]
+        if Kst:
+            back.append((ltm["mix_w"], ix["rowix_st"], work["rows_st"]))
+        if Kp:
+            back.append((ltm["mix_pos"], ix["posix"], work["rows_pos"].view(S, Kp, 8 * WP)))
+        if NA:
+            back.append((ltm["apm"], ix["apm_ix"], work["apm_rows"]))
+        scatter_rows_many(back)
+        if meta.mix_dense_total:
+            # dense arena write-back: static slices + one-hot selects
+            for i in range(Kcd):
+                off, T = int(meta.mix_cd_offsets[i]), int(meta.mix_cd_sizes[i])
+                cur = dense0[:, off : off + T]
+                dense0[:, off : off + T] = torch.where(ix["cd_oh"][i][:, :, None], work["rows_cd"][:, i][:, None, :], cur)
+            for i in range(Kpd):
+                off = int(meta.mix_pd_offsets[i])
+                dense0[:, off : off + 8] = work["blocks_pd"][:, i]
+            for i in range(Klm):
+                off, T = int(meta.mix_lm_offsets[i]), int(meta.mix_lm_sizes[i])
+                dense0[:, off : off + T] = work["lm_tbl"][i]
+        if NM:
+            ltm["match_pred"], ltm["match_cnt"] = work["mt_pred"], work["mt_cnt"]
+        # dedup history: append unless inside a long match (the write is
+        # masked instead of dropped out of range as gmix_tpu does)
+        hist_n = stm["hist_n"]
+        append = longest < 2
+        hpos = hist_n & (meta.history_size - 1)
+        old = ltm["hist"][plan.s_ix[:, 0], hpos]
+        ltm["hist"][plan.s_ix[:, 0], hpos] = torch.where(append, cur_byte.to(torch.uint8), old)
+        hist_n = (hist_n + append.to(I64)) & MASK32
+        stm["hist_n"] = hist_n
+        if NM:
+            # match.cpp:92-108: tables skip updates on long matches
+            newp = ((hist_n - 1) & MASK32).to(I32)  # position of the appended byte
+            old = ltm["match_tbl"][s_ix, ix["match_ix"]]
+            ltm["match_tbl"][s_ix, ix["match_ix"]] = torch.where(append[:, None], newp[:, None], old)
+        if spec.lstm is not None:
+            _lstm_perceive(stm, ltm, cur_byte, plan.lstm, wrap, bptt)
+
+    # the reconstructed byte (decode reconstructs; encode rewrites it)
+    data_buf.index_copy_(1, col.reshape(1), cur_byte.to(data_buf.dtype)[:, None])
+    return win_out, nw_out
+
+
+def _leaf_refs(state: Dict, refs: Optional[List] = None) -> List[Tuple[Dict, str, torch.Tensor]]:
+    """(dict, key, tensor) of every leaf of a state, in order."""
+    refs = [] if refs is None else refs
+    for k, v in state.items():
+        if isinstance(v, dict):
+            _leaf_refs(v, refs)
+        else:
+            refs.append((state, k, v))
+    return refs
+
+
+def _keep_storage(refs: List[Tuple[Dict, str, torch.Tensor]]) -> None:
+    """Put every leaf that a step has rebound back into the tensor that held
+    it before: the new value is copied into the old storage and the dict
+    holds the old tensor again. A captured graph reads and writes the state
+    at fixed addresses, so a step leaves each leaf where it found it (the
+    arenas are written in place by the row movers and need no copy). A new
+    value that shares storage with some leaf is copied aside first, so that
+    no copy reads what another one has overwritten."""
+    moved = [(d, k, old, d[k]) for d, k, old in refs if d[k] is not old]
+    if not moved:
+        return
+    held = {old.untyped_storage().data_ptr() for _, _, old in refs}
+    staged = []
+    for d, k, old, new in moved:
+        if new.shape != old.shape or new.dtype != old.dtype or new.device != old.device:
+            raise RuntimeError(f"byte step: leaf {k!r} came back as {tuple(new.shape)} {new.dtype} on {new.device}, "
+                               f"was {tuple(old.shape)} {old.dtype} on {old.device}")
+        staged.append((d, k, old, new.clone() if new.untyped_storage().data_ptr() in held else new))
+    for d, k, old, new in staged:
+        old.copy_(new)
+        d[k] = old
+
+
+def _step(state: Dict, data_buf: torch.Tensor, code_buf: torch.Tensor, t: torch.Tensor, col: torch.Tensor,
+          decode: bool, plan: StepPlan, learn: bool, analysis: bool, bptt: bool, wrap: bool,
+          sample_u: Optional[torch.Tensor] = None, inv_temp: Optional[torch.Tensor] = None):
+    """One byte step with every host choice made, on device tensors alone:
+    what a graph of the compiled chunk captures, and what `_byte_step` runs
+    op by op. `t` is the byte index and `col` its column of `data_buf`, both
+    0-d int64 tensors on the state's device; `wrap` says that this byte's
+    forward pass wraps the LSTM's window (its byte end then runs the backward
+    pass when `bptt` is on). Every state leaf keeps its storage
+    (`_keep_storage`)."""
+    refs = _leaf_refs(state)
+    fin, work, ix = _byte_inputs(state, data_buf, code_buf, t, decode, plan, analysis, sample_u, inv_temp, col)
+    fo = fused_substeps(plan.meta, plan.fused, fin, learn, analysis, sample_u is not None)
+    out = _byte_finish(state, data_buf, col, plan, fo, work, ix, learn, bptt, wrap)
+    _keep_storage(refs)
+    return out
+
+
+def _byte_step(state: Dict, data_buf: torch.Tensor, code_buf: torch.Tensor, t,
+               decode: bool, plan: StepPlan, learn: bool = True, analysis: bool = True, bptt: bool = True,
+               sample_u: Optional[torch.Tensor] = None, inv_temp: Optional[torch.Tensor] = None):
+    """One byte for all S streams, op by op: boundary work, 8 bit sub-steps,
+    byte-end learn. Updates `state` and `data_buf[:, t]` in place, every
+    leaf in its own storage, and returns the encoder's renorm bytes of this
+    input byte: (win (S, 40) u8, nw (S,) u8). Decode reads the code stream
+    from `code_buf` (S, cap) u8. `t` is a host integer or a 0-d int64 tensor
+    on the state's device.
+
+    With an LSTM and `bptt` (gmix_tpu's mode "cond") the byte that wraps the
+    horizon window runs the backward pass at its end, before the output
+    layer's SGD; without `bptt` (mode "defer") the caller runs `lstm_bptt`
+    after that byte, which then reads the slot the SGD has just written.
+    Which byte wraps, the plan knows on the host (`StepPlan.host_epoch`).
+
+    A sampling step (learn off, encode) takes `sample_u` (8, S) float32
+    uniforms and `inv_temp`, a one-element float32 tensor, both on the
+    state's device: the byte's bits are drawn in the sub-steps and coded, and
+    the drawn byte is written to `data_buf[:, t]`."""
+    wrap = plan.wraps(state)
+    t = _as_index(t, plan.device)
+    out = _step(state, data_buf, code_buf, t, t, decode, plan, learn, analysis, bptt, wrap, sample_u, inv_temp)
+    if plan.meta.spec.lstm is not None:
+        plan.advance_epoch(state["stm"]["lstm"])
+    return out
+
+
+def lstm_bptt(state: Dict, plan: StepPlan) -> None:
+    """The LSTM's backward pass and Adam step on the recorded window, for a
+    caller that defers it to the end of a horizon-aligned segment; every leaf
+    keeps its storage."""
+    refs = _leaf_refs(state)
+    _lstm_bptt(state["stm"]["lstm"], state["ltm"]["lstm"], plan.lstm)
+    _keep_storage(refs)

@@ -51,13 +51,14 @@ Phases; any failure ends the run with a non-zero exit:
    prediction's `ppm_tbl` rows come before the LSTM's forward pass, the other
    arenas after it) and the LSTM must have made its 10 backward passes per
    direction (chunk 1024: inside the byte that wraps the horizon window).
-   The launches of a graph are counted at every replay. Each graph's
+   A graph's launches are its replays times the launches its capture
+   recorded (obs.launches). Each graph's
    capture seconds, launches a replay and the graph pool's bytes are
    printed. Then the same bytes through the eager loop (the byte steps
    dispatched op by op) and through graph replay on a copy of the
    predictor: two windows of STEP_WINDOW bytes for the wall ms a step (the
    first with the capture), then TRACE_STEPS bytes under torch.profiler for
-   CUDA kernels, aten ops, device busy ms and idle share a step, for each; the two states must be equal leaf for leaf after, and
+   CUDA kernels, device busy ms and idle share a step, for each; the two states must be equal leaf for leaf after, and
    each window must launch the counts above. At ref-full also one backward
    pass op by op against its graph (wall, capture, LSTM leaves equal).
    Then generate_bytes on the warm predictor: a 256-byte prompt (replayed
@@ -235,7 +236,7 @@ import numpy as np
 import torch
 
 import gmix_tpu_torch as gt
-from gmix_tpu_torch import bench, cli, sweeps
+from gmix_tpu_torch import bench, cli, obs, sweeps
 from gmix_tpu_torch.bench import padded_per, ref_noppm_spec, ref_ppm_spec, spec_for, trace_window
 from gmix_tpu_torch.config import best_spec, reference_spec, scale_tables
 from gmix_tpu_torch.core import fused
@@ -286,10 +287,10 @@ REPLACES = {
 # ref-noppm has the first four
 ARENAS = (("ind.st", ("ltm", "ind", "st")), ("mix_w", ("ltm", "mix_w")), ("mix_pos", ("ltm", "mix_pos")),
           ("apm", ("ltm", "apm")), ("ppm_tbl", ("stm", "ppm_tbl")))
-# launch counters by kernel: each mover kernel has two wrappers (one arena,
-# a group of arenas)
-WRAPPERS = ((rowmove.gather_rows, rowmove.gather_rows_many), (rowmove.scatter_rows, rowmove.scatter_rows_many),
-            (fused.fused_substeps,))
+# launches by kernel (obs.launches, by wrapper): each mover kernel has two
+# wrappers (one arena, a group of arenas)
+WRAPPERS = (("gather_rows", "gather_rows_many"), ("scatter_rows", "scatter_rows_many"), ("fused_substeps",))
+_LAUNCHES_AT_RESET = {}
 # archive sizes that must not change: the codec is deterministic, and these
 # specs' archives have been these bytes since the port first produced them
 # (phase 4 of ref-noppm and ref-ppm coded 1 KB into 794 and 710 bytes until
@@ -477,14 +478,15 @@ def fill_random_(t: torch.Tensor, gen: torch.Generator) -> None:
 
 
 def reset_launches() -> None:
-    for group in WRAPPERS:
-        for w in group:
-            w.launches = 0
+    """Count launches from here (`read_launches`)."""
+    _LAUNCHES_AT_RESET.clear()
+    _LAUNCHES_AT_RESET.update(obs.launches())
 
 
 def read_launches():
     """(gather, scatter, fused) launches since the last reset."""
-    return tuple(sum(w.launches for w in group) for group in WRAPPERS)
+    now = obs.launches()
+    return tuple(sum(now.get(w, 0) - _LAUNCHES_AT_RESET.get(w, 0) for w in group) for group in WRAPPERS)
 
 
 # ---------------------------------------------------------------------------
@@ -674,7 +676,7 @@ def phase_fused(pred, dev):
     meta, plan, S = pred.meta, pred.plan, pred.num_streams
     cases, err = compare_fused_live("ref-noppm", pred, dev)
     fin = cases["encode"]
-    n_cmp = fused.fused_substeps.launches
+    n_cmp = obs.launches().get("fused_substeps", 0)
     inst = fused.fused_instantiation(meta, plan.fused, True, True, S, dev)
     log(f"phase 2: fused_substeps instantiation at ref-noppm {json.dumps(inst)}")
     clocks = phase_stage_clocks(meta, plan.fused, fin, dev)
@@ -821,11 +823,11 @@ def phase_grouped(direction, names, tables, counts, rng, gen, dev):
 
     idx = fresh()
     refs = tables if gather else [t.clone() for t in tables]
-    n0 = many.launches
+    n0 = obs.launches().get(many.__name__, 0)
     got = many(args(idx))
     want = many_plain(args(idx, refs))
     torch.cuda.synchronize()
-    if many.launches != n0 + 1:
+    if obs.launches().get(many.__name__, 0) != n0 + 1:
         raise RuntimeError(f"{direction}_rows_many did not make exactly one launch")
     err = 0.0
     for name, a, b in zip(names, want, got):
@@ -891,11 +893,12 @@ def pool_bytes(plan):
 
 def graph_summary(fn) -> dict:
     """Each graph of a compiled chunk by variant: its capture seconds and the
-    (gather, scatter, fused) launches one replay adds to the counters."""
+    (gather, scatter, fused) launches its capture recorded, which each
+    replay adds."""
     out = {}
     for key, g in fn.graphs.items():
-        per = dict(g.launches)
-        out["/".join(map(str, key))] = {"capture_s": g.capture_s,
+        per = g.record.launches
+        out["/".join(map(str, key))] = {"capture_s": g.record.capture_s,
                                         "launches_per_replay": [sum(per.get(w, 0) for w in group) for group in WRAPPERS]}
     return out
 
@@ -998,7 +1001,7 @@ def bptt_against_graph(name, pred, twin, reps: int = 3) -> dict:
         return 1e3 * float(np.median(times))
 
     eager_ms = timed_reps(lambda: step_mod.lstm_bptt(pred.state, pred.plan))
-    graph = step_mod.CapturedStep(twin.plan, lambda: step_mod.lstm_bptt(twin.state, twin.plan))
+    graph = step_mod.CapturedStep(twin.plan, lambda: step_mod.lstm_bptt(twin.state, twin.plan), "bptt")
     graph_ms = timed_reps(graph.replay)
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         step_mod.lstm_bptt(pred.state, pred.plan)
@@ -1011,7 +1014,7 @@ def bptt_against_graph(name, pred, twin, reps: int = 3) -> dict:
             if not torch.equal(a, b):
                 raise RuntimeError(f"phase 3 {name}: the backward pass's graph differs from its eager run at {path}")
     Hz = pred.spec.lstm.horizon
-    return {"eager_wall_ms": eager_ms, "graph_wall_ms": graph_ms, "capture_s": graph.capture_s, "aten_ops": aten,
+    return {"eager_wall_ms": eager_ms, "graph_wall_ms": graph_ms, "capture_s": graph.record.capture_s, "aten_ops": aten,
             "horizon": Hz, "eager_wall_ms_per_byte_amortised": eager_ms / Hz,
             "graph_wall_ms_per_byte_amortised": graph_ms / Hz}
 
@@ -1194,16 +1197,16 @@ def phase_cross(name, spec, dev, d: str):
     data = corpus(n_bytes)
     S = 2
     per = n_bytes // S
-    n0 = fused.fused_substeps.launches
+    n0 = obs.launches().get("fused_substeps", 0)
     pred_gpu, pred_cpu = Predictor(spec12, S, device=dev), Predictor(spec12, S, device="cpu")
     t0 = time.perf_counter()
     blob_gpu = compress_bytes(data, spec12, S, chunk, pred=pred_gpu)
     t1 = time.perf_counter()
-    if fused.fused_substeps.launches != n0 + per:
+    if obs.launches().get("fused_substeps", 0) != n0 + per:
         raise RuntimeError(f"phase 4 {name}: the GPU encode did not go through the fused kernel once per byte step")
     blob_cpu = compress_bytes(data, spec12, S, chunk, pred=pred_cpu)
     t2 = time.perf_counter()
-    if fused.fused_substeps.launches != n0 + per:
+    if obs.launches().get("fused_substeps", 0) != n0 + per:
         raise RuntimeError(f"phase 4 {name}: the CPU encode launched a kernel")
     if blob_gpu != blob_cpu:
         diff = next(i for i, (a, b) in enumerate(zip(blob_gpu, blob_cpu)) if a != b) if len(blob_gpu) == len(blob_cpu) else -1

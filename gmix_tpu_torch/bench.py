@@ -61,8 +61,9 @@ PATH must hold `{profile}`, which each run fills with its profile's name
 (tools/tpu_profile.py): after the timed passes, the predictor is put back
 to the warm start, the passes' CUDA graphs are released, a window of N
 encode byte steps is captured, and then run again under torch.profiler
-(`trace_window`): one `trace` row of device busy time, idle shares and the
-kernels with the most device time. With an LSTM, N must be a multiple of
+(`trace_window`): one `trace` row of device busy time, idle shares, the
+kernels with the most device time and each part of the byte step's device
+time (the replays mapped onto the graphs' layouts, obs.replay_parts). With an LSTM, N must be a multiple of
 its horizon, so that the window runs the passes' deferred backward pass.
 
 Every knob also reads bench.py's environment variable: GMIX_BENCH_PROFILE,
@@ -122,13 +123,11 @@ from typing import Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from . import variants
+from . import obs, variants
 from .config import ApmStage, EnsembleSpec, best_spec, reference_spec, scale_tables
-from .core import fused
 from .core.codec import (_WORST_PER_BYTE, Predictor, _pad_streams, analysis_columns, analysis_snapshot, compress_bytes,
                          decompress_bytes, default_device, entropy_bits, run_chunks)
 from .core.meta import build_meta
-from .ops import rowmove
 from .roofline import RATES, SHARES, bound, roofline, step_work
 from .state import coder_state, copy_into, init_state, metrics_state, state_bytes, state_from_numpy
 from .utils.serialization import load_state, save_state
@@ -410,12 +409,13 @@ def reset_to_warm(pred: Predictor, warm: Dict) -> None:
     in the predictor's own leaves: no second S-stream state is made, and the
     predictor's CUDA graphs stay valid (bench.py's `_broadcast_warm`, which
     builds a predictor each time)."""
-    st = pred.state
-    _tile_into({k: v for k, v in st.items() if k not in ("coder", "metrics")},
-               {k: v for k, v in warm.items() if k not in ("coder", "metrics")}, pred.device)
-    copy_into(st["coder"], coder_state(pred.num_streams, pred.device))
-    copy_into(st["metrics"], metrics_state(pred.meta, pred.num_streams, pred.device))
-    pred.plan.forget_epoch()
+    with obs.span("gmix.reset"):
+        st = pred.state
+        _tile_into({k: v for k, v in st.items() if k not in ("coder", "metrics")},
+                   {k: v for k, v in warm.items() if k not in ("coder", "metrics")}, pred.device)
+        copy_into(st["coder"], coder_state(pred.num_streams, pred.device))
+        copy_into(st["metrics"], metrics_state(pred.meta, pred.num_streams, pred.device))
+        pred.plan.forget_epoch()
 
 
 def warm_predictor(spec: EnsembleSpec, num_streams: int, warm: Dict, device=None,
@@ -452,9 +452,11 @@ def release_device(device) -> None:
 
 
 def _launch_counts() -> Tuple[int, int, int]:
-    """The hand-written kernels' launch counters: (gather, scatter, fused)."""
-    return (rowmove.gather_rows.launches + rowmove.gather_rows_many.launches,
-            rowmove.scatter_rows.launches + rowmove.scatter_rows_many.launches, fused.fused_substeps.launches)
+    """The hand-written kernels' launches so far (obs.launches): (gather,
+    scatter, fused)."""
+    n = obs.launches()
+    return (n.get("gather_rows", 0) + n.get("gather_rows_many", 0),
+            n.get("scatter_rows", 0) + n.get("scatter_rows_many", 0), n.get("fused_substeps", 0))
 
 
 # the hand-written kernels, by a part of their name in a trace
@@ -463,49 +465,53 @@ TOP_KERNELS, KERNEL_NAME_CHARS = 10, 120
 
 
 def trace_window(run: Callable[[], None], n: int, device) -> dict:
-    """`run()` (n byte steps, ending in a synchronize) under torch.profiler:
-    CUDA kernels, aten ops and device busy time per byte step, the device's
-    idle share of the traced window, each hand-written kernel's device time
-    a launch, and the TOP_KERNELS kernels with the most device time (name
-    cut to KERNEL_NAME_CHARS, launches and us a step). A trace without
-    device time raises. On the CPU, where the profiler would record no
-    device activity, `run()` is timed alone and the device numbers read
-    "not measured"."""
-    from torch.autograd import DeviceType
+    """`run()` (n byte steps, ending in a synchronize) under torch.profiler,
+    read from the profiler's raw events: CUDA kernels and device operations
+    a byte step, the device's busy time a step (the union of its
+    operations' intervals: overlaps count once) and its idle share of the
+    traced window, each hand-written kernel's device time a launch, the
+    TOP_KERNELS kernels with the most device time (name cut to
+    KERNEL_NAME_CHARS, launches and us a step), and over the graph replays
+    (obs.replay_parts) each part's device us a step and the replays' busy us
+    a step. A trace without device time raises. On the CPU, where the profiler would
+    record no device activity, `run()` is timed alone and the device
+    numbers read "not measured"."""
     from torch.profiler import ProfilerActivity, profile
 
     cuda = torch.device(device).type == "cuda"
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) if cuda else contextlib.nullcontext() as prof:
-        t0 = time.perf_counter()
+        t0 = time.time_ns()
         run()
-        traced = time.perf_counter() - t0
-    out = {"traced_wall_ms_per_step": 1e3 * traced / n}
+        t1 = time.time_ns()
+    out = {"traced_wall_ms_per_step": (t1 - t0) / 1e6 / n}
     if not cuda:
         out["device_trace"] = f"not measured: no device activity on {device}"
         return out
-    kernels = aten = 0
-    busy_us = 0.0
-    own_us = {}  # device us per launch of each hand-written kernel
-    by_kernel = []
-    for ka in prof.key_averages():
-        if ka.device_type == DeviceType.CUDA:
-            us = getattr(ka, "self_device_time_total", None) or getattr(ka, "self_cuda_time_total", 0.0)
-            kernels += ka.count
-            busy_us += us
-            by_kernel.append((us, ka.key, ka.count))
-            for own in OWN_KERNELS:
-                if own in ka.key:
-                    own_us[own] = {"us_per_launch": us / ka.count, "launches_per_step": ka.count / n}
-        elif ka.key.startswith("aten::"):
-            aten += ka.count
-    if not kernels or busy_us <= 0:
+    ops, host = obs.profile_events(prof)
+    ops = [(k, name, s, min(e, t1)) for k, name, s, e in ops if t0 <= s < t1]
+    busy = obs.union_ns([(s, e) for _, _, s, e in ops])
+    if not ops or busy <= 0:
         raise RuntimeError(f"the profiler recorded no device time in {n} byte steps on {device}")
-    by_kernel.sort(key=lambda r: -r[0])
-    out.update(cuda_kernels_per_step=kernels / n, aten_ops_per_step=aten / n,
-               device_busy_ms_per_step=busy_us / 1e3 / n, device_idle_share=1.0 - (busy_us / 1e6) / traced,
+    by_kernel: Dict[str, list] = {}
+    for kind, name, s, e in ops:
+        if kind == "kernel":
+            row = by_kernel.setdefault(name, [0, 0])
+            row[0] += e - s
+            row[1] += 1
+    own_us = {own: {"us_per_launch": ns / 1e3 / count, "launches_per_step": count / n}
+              for own in OWN_KERNELS for name, (ns, count) in by_kernel.items() if own in name}
+    top = sorted(by_kernel.items(), key=lambda r: -r[1][0])[:TOP_KERNELS]
+    out.update(cuda_kernels_per_step=sum(c for _, c in by_kernel.values()) / n, device_ops_per_step=len(ops) / n,
+               device_busy_ms_per_step=busy / 1e6 / n, device_idle_share=1.0 - busy / (t1 - t0),
                own_kernel_us_per_launch=own_us,
-               top_kernels=[{"name": key[:KERNEL_NAME_CHARS], "launches_per_step": count / n, "us_per_step": us / n}
-                            for us, key, count in by_kernel[:TOP_KERNELS]])
+               top_kernels=[{"name": name[:KERNEL_NAME_CHARS], "launches_per_step": count / n, "us_per_step": ns / 1e3 / n}
+                            for name, (ns, count) in top])
+    parts = obs.replay_parts(ops, host, obs.layouts(), ("fused_substeps_kernel",))
+    if parts is None:
+        out["part_us_per_step"] = "not measured: the window's device operations do not align onto the graphs' layouts"
+    else:
+        out["part_us_per_step"] = {p: ns / 1e3 / n for p, ns in sorted(parts["parts"].items(), key=str)}
+        out["replays_busy_us_per_step"] = parts["busy_ns"] / 1e3 / n
     return out
 
 
@@ -644,7 +650,7 @@ def run_once(spec: EnsembleSpec, num_streams: int, chunk: int, data: bytes, warm
     if dev.type == "cuda":  # the CPU runs the byte step op by op: nothing to capture
         capture(pred, chunk, per, decode=not encode_only)
         sync(dev)
-        capture_s = sum(g.capture_s for fn in pred.plan.fn_cache.values() for g in fn.graphs.values())
+        capture_s = sum(g.record.capture_s for fn in pred.plan.fn_cache.values() for g in fn.graphs.values())
     warmup_s = time.perf_counter() - t0
 
     def timed(fn):

@@ -109,6 +109,10 @@ def main(argv=None):
                    help="where the model runs: a torch device such as cuda:1 "
                         "or cpu (default: the current CUDA device; without "
                         "one the command fails)")
+    p.add_argument("--obs", default=None, metavar="FILE",
+                   help="keep the port's spans, sampled replay times and "
+                        "counters (gmix_tpu_torch.obs) and write them to FILE "
+                        "as a Chrome-trace JSON when the command ends")
     sub = p.add_subparsers(dest="cmd", required=True)
 
     pc = sub.add_parser("compress")
@@ -159,7 +163,20 @@ def main(argv=None):
     pwd.add_argument("output")
 
     args = p.parse_args(argv)
+    if args.obs is None:
+        return _command(args)
+    from . import obs
 
+    obs.enable()
+    try:
+        return _command(args)
+    finally:
+        obs.dump(args.obs)
+        obs.disable()
+
+
+def _command(args) -> int:
+    """Run the parsed command."""
     if args.cmd == "wiki-encode":
         from .preprocess import wiki
 

@@ -27,6 +27,7 @@ from typing import Callable, List, Optional, Tuple
 import numpy as np
 import torch
 
+from .. import obs
 from ..config import EnsembleSpec
 from ..ops import coder as coder_ops
 from ..parallel.mesh import gather_state, make_mesh, shard_rows, shard_state
@@ -325,19 +326,21 @@ def _run(pred: Predictor, data_bufs: List[torch.Tensor], code_bufs: List[torch.T
         else:
             out_w, out_n = ([x] for x in fn(data_bufs[0], code_bufs[0], c0, decode))
         if not decode:
-            for i in range(len(parts)):
-                wins[i].append(out_w[i].cpu().numpy())
-                nws[i].append(out_n[i].cpu().numpy())
+            with obs.span("gmix.readback"):
+                for i in range(len(parts)):
+                    wins[i].append(out_w[i].cpu().numpy())
+                    nws[i].append(out_n[i].cpu().numpy())
         if progress is not None:
             progress(c0 + chunk)
     if decode:
         return [b""] * S
     payloads = []
-    for i in range(len(parts)):
-        n = data_bufs[i].shape[0]
-        win = np.concatenate(wins[i]) if wins[i] else np.zeros((0, n, CODER_WIN), np.uint8)
-        nw = np.concatenate(nws[i]) if nws[i] else np.zeros((0, n), np.uint8)
-        payloads += _compact_emits(win, nw, n)
+    with obs.span("gmix.compact"):
+        for i in range(len(parts)):
+            n = data_bufs[i].shape[0]
+            win = np.concatenate(wins[i]) if wins[i] else np.zeros((0, n, CODER_WIN), np.uint8)
+            nw = np.concatenate(nws[i]) if nws[i] else np.zeros((0, n), np.uint8)
+            payloads += _compact_emits(win, nw, n)
     return payloads
 
 
@@ -366,7 +369,8 @@ def compress_bytes(
     S = num_streams
     if pred is None:
         pred = Predictor(spec, S, device=device)
-    payloads = _encode_streams(pred, arr, chunk, progress)
+    with obs.span("gmix.encode"):
+        payloads = _encode_streams(pred, arr, chunk, progress)
     sizes = struct.pack(f"<{S}Q", *[len(p) for p in payloads])
     return _header(spec, S, orig, per) + sizes + b"".join(payloads)
 
@@ -380,8 +384,9 @@ def _encode_streams(pred: Predictor, arr: np.ndarray, chunk: int, progress=None)
     # encode never reads the code buffer
     code_bufs = [torch.zeros((p.num_streams, 1), dtype=torch.uint8, device=p.device) for p in pred._parts()]
     bodies = _run(pred, _rows(pred, arr), code_bufs, per, False, True, 0, chunk, progress)
-    coder = {k: _stream_leaf(pred, "coder", k).numpy() for k in ("x1", "x2", "wpos")}
-    tails = coder_ops.flush_bytes(coder["x1"], coder["x2"])
+    with obs.span("gmix.compact"):
+        coder = {k: _stream_leaf(pred, "coder", k).numpy() for k in ("x1", "x2", "wpos")}
+        tails = coder_ops.flush_bytes(coder["x1"], coder["x2"])
     for s in range(S):
         if len(bodies[s]) != int(coder["wpos"][s]):
             raise RuntimeError("emitted byte count disagrees with the coder's write cursor")
@@ -444,14 +449,16 @@ def decompress_bytes(
     x0 = np.zeros((S,), np.int64)
     for i in range(4):
         x0 = (x0 << 8) | codes[:, i]
-    parts = pred._parts()
-    for p, x in zip(parts, _rows(pred, x0)):
-        # into the leaves' own storage (the compiled chunks hold it)
-        p.state["coder"]["x"].copy_(x)
-        p.state["coder"]["rpos"].fill_(4)
-    data_bufs = [torch.zeros((p.num_streams, per), dtype=torch.uint8, device=p.device) for p in parts]
-    _run(pred, data_bufs, _rows(pred, codes), per, True, True, 0, chunk, progress)
-    return torch.cat([d.cpu() for d in data_bufs]).numpy().reshape(-1)[:orig].tobytes()
+    with obs.span("gmix.decode"):
+        parts = pred._parts()
+        for p, x in zip(parts, _rows(pred, x0)):
+            # into the leaves' own storage (the compiled chunks hold it)
+            p.state["coder"]["x"].copy_(x)
+            p.state["coder"]["rpos"].fill_(4)
+        data_bufs = [torch.zeros((p.num_streams, per), dtype=torch.uint8, device=p.device) for p in parts]
+        _run(pred, data_bufs, _rows(pred, codes), per, True, True, 0, chunk, progress)
+        with obs.span("gmix.readback"):
+            return torch.cat([d.cpu() for d in data_bufs]).numpy().reshape(-1)[:orig].tobytes()
 
 
 def generate_bytes(

@@ -47,6 +47,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from .. import obs
 from ..ops import coder as coder_ops
 from ..ops.murmur import MASK32
 from ..ops.sigmoid import clamp_prob, logistic, logit, pow_det, rdiv
@@ -245,6 +246,7 @@ def const_inputs(meta: Meta, learn: bool, device="cpu") -> FusedConsts:
     return out
 
 
+@obs.in_part("inputs")
 def pack_inputs(meta: Meta, stm: Dict, coder: Dict, metrics: Dict, work: Dict, data_byte: torch.Tensor,
                 win_r: torch.Tensor, decode: bool, not_first, analysis: bool,
                 sample_u: Optional[torch.Tensor] = None, inv_temp: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
@@ -929,6 +931,7 @@ def _launch(meta, consts, fin, learn: bool, analysis: bool, sample: bool, clocks
     return fo, clk
 
 
+@obs.in_part("fused")
 def fused_substeps(meta: Meta, consts: Dict[str, torch.Tensor], fin: Dict[str, torch.Tensor],
                    learn: bool, analysis: bool, sample: bool = False) -> Dict[str, torch.Tensor]:
     """The 8 bit sub-steps of one byte for every stream: the CUDA kernel on
@@ -942,7 +945,7 @@ def fused_substeps(meta: Meta, consts: Dict[str, torch.Tensor], fin: Dict[str, t
     if fin["sc"].device.type == "cpu":
         return fused_substeps_plain(meta, consts, fin, learn, analysis, sample)
     fo, _ = _launch(meta, consts, fin, learn, analysis, sample, clocks=False)
-    fused_substeps.launches += 1
+    obs.launched("fused_substeps")
     return fo
 
 
@@ -978,7 +981,3 @@ def fused_instantiation(meta: Meta, consts: Dict[str, torch.Tensor], learn: bool
     they stay in global memory), and the block's shared memory in bytes."""
     return dict(_launch_plan(meta, consts, learn, analysis, False, S, _cuda_device(device)).instantiation)
 
-
-# kernel launch counter: one per launch of the CUDA kernel, none for the
-# plain CPU path
-fused_substeps.launches = 0

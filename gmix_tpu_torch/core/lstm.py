@@ -42,6 +42,7 @@ from typing import Dict
 import numpy as np
 import torch
 
+from .. import obs
 from ..ops.sigmoid import exp_det, logistic, powc_det, rdiv, sqrt_det, tanh_det
 
 F32 = torch.float32
@@ -90,6 +91,7 @@ def _epoch_index(lst: Dict) -> torch.Tensor:
     return lst["epoch"].to(torch.int64).reshape(1)
 
 
+@obs.in_part("lstm")
 def _lstm_forward(stm: Dict, ltm: Dict, lp: LstmPlan, lstm_ctx_slot: int) -> None:
     """One byte of the forward pass at the state's epoch (lstm.cpp:91-122,
     lstm-layer.cpp:198-241): records the epoch's activations, sets `probs`,
@@ -244,12 +246,14 @@ def _lstm_grads(lst: Dict, lw: Dict, lp: LstmPlan) -> Dict[str, torch.Tensor]:
     return {"sym": upd_sym, "in": upd_in, "gamma": upd_g, "beta": upd_b}
 
 
+@obs.in_part("lstm")
 def _lstm_bptt(lst: Dict, lw: Dict, lp: LstmPlan) -> None:
     """Horizon-window backward pass + Adam: reads the recorded forward
     history and the Hz output layers, updates the gate weights."""
     _adam_all(lst, lw, _lstm_grads(lst, lw, lp), lp)
 
 
+@obs.in_part("lstm")
 def _lstm_perceive(stm: Dict, ltm: Dict, inp: torch.Tensor, lp: LstmPlan, wrap: bool, bptt: bool) -> None:
     """Lstm::Perceive (lstm.cpp:52-89) at the byte end, after this byte's
     forward pass has advanced the epoch leaf: record the observed symbol, run

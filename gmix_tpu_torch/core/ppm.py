@@ -34,6 +34,7 @@ from typing import Dict, Tuple
 
 import torch
 
+from .. import obs
 from ..ops.rowmove import gather_rows, scatter_rows
 from ..ops.sigmoid import logistic, logit
 from .fused import _FLT_MIN, _tree_sum
@@ -58,6 +59,7 @@ def _or_above(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return (at_or_above - xi) > 0, at_or_above[:, 0] > 0
 
 
+@obs.in_part("ppm")
 def _ppm_index(ctx: torch.Tensor, plan) -> Tuple[torch.Tensor, torch.Tensor]:
     """(context values (S, NO) of the PPM orders, their arena rows as int32)."""
     cv = ctx[:, plan.ppm_slots]
@@ -106,6 +108,7 @@ def _ppm_cascade(rows_f: torch.Tensor, see: torch.Tensor, sp, plan):
     return mrow, total, has, esc, oh, excl
 
 
+@obs.in_part("ppm")
 def _ppm_update(stm: Dict, completed: torch.Tensor, plan) -> None:
     """Per-byte PPM learn against the contexts in `stm["ctx"]`: escape
     correction, update exclusion, count increment and rescale. One gather and
@@ -149,6 +152,7 @@ def _ppm_update(stm: Dict, completed: torch.Tensor, plan) -> None:
     scatter_rows(stm["ppm_tbl"], h, torch.cat([counts_w, tag_w[:, :, None], pad], dim=2))
 
 
+@obs.in_part("ppm")
 def _ppm_predict(stm: Dict, raw_rows: torch.Tensor, cv: torch.Tensor, plan) -> None:
     """Next-byte distribution from the gathered rows of the current
     contexts: highest order first with symbol exclusion and adaptive

@@ -55,6 +55,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from .. import obs
 from ..ops import rowmove as _rowmove
 from ..ops.murmur import MASK32, mul32, murmur3_u32, murmur3_u64
 from ..ops.rowmove import gather_rows, gather_rows_many, scatter_rows_many
@@ -217,6 +218,7 @@ def _as_index(t, device) -> torch.Tensor:
     return torch.full((), int(t), dtype=I64, device=device)
 
 
+@obs.in_part("contexts")
 def _boundary(stm: Dict, t, plan: StepPlan) -> None:
     """Byte-boundary contexts (gmix_tpu.core.step._boundary up to the PPM
     prediction and the LSTM's forward pass, which follow in `_byte_inputs`);
@@ -295,44 +297,68 @@ def _byte_inputs(state: Dict, data_buf: torch.Tensor, code_buf: torch.Tensor, t,
     the plan's host copy of it is the caller's to advance."""
     meta = plan.meta
     spec = meta.spec
-    stm, ltm, coder, metrics = state["stm"], state["ltm"], state["coder"], state["metrics"]
-    S, s_ix = plan.S, plan.s_ix
-    M = len(spec.indirects)
-    WP = meta.mix_width_pad
+    stm, ltm = state["stm"], state["ltm"]
+    s_ix = plan.s_ix
     NM = len(spec.matches)
-    NA = len(spec.apm)
 
     # ---- byte boundary: contexts ----
     t = _as_index(t, plan.device)
     col = t if col is None else col
     _boundary(stm, t, plan)
-    data_byte = data_buf.index_select(1, col.reshape(1))[:, 0].to(I64)
+    with obs.part("inputs"):
+        data_byte = data_buf.index_select(1, col.reshape(1))[:, 0].to(I64)
     work: Dict = {"max_steps": ltm["mix_max_steps"]}
 
     # ---- with an LSTM: the PPM prediction from rows gathered on their own,
     # then the forward pass, which reads it and sets the lstm_ctx context ----
     ppm_grouped = spec.ppm is not None and spec.lstm is None
     if spec.lstm is not None:
-        if spec.ppm is not None:
-            ppm_cv, ppm_ix = _ppm_index(stm["ctx"], plan)
-            _ppm_predict(stm, gather_rows(stm["ppm_tbl"], ppm_ix), ppm_cv, plan)
-        _lstm_forward(stm, ltm, plan.lstm, plan.lstm_ctx_slot)
-        lst = stm["lstm"]
-        work["lstm_probs"] = lst["probs"]
-        work["lstm_regs"] = torch.stack([lst["top"], lst["bot"], lst["mid"], torch.zeros_like(lst["top"])], dim=1)
+        with obs.part("lstm"):
+            if spec.ppm is not None:
+                with obs.part("ppm"):
+                    ppm_cv, ppm_ix = _ppm_index(stm["ctx"], plan)
+                    _ppm_predict(stm, gather_rows(stm["ppm_tbl"], ppm_ix), ppm_cv, plan)
+            _lstm_forward(stm, ltm, plan.lstm, plan.lstm_ctx_slot)
+            lst = stm["lstm"]
+            work["lstm_probs"] = lst["probs"]
+            work["lstm_regs"] = torch.stack([lst["top"], lst["bot"], lst["mid"], torch.zeros_like(lst["top"])], dim=1)
 
     # ---- match byte-boundary pointer logic (match.cpp:38-58) ----
     if NM:
-        hit = stm["new_bit"][:, None] == ((stm["match_byte"] & 1) != 0).to(I64)
-        mlen = torch.where(hit, torch.clamp(stm["match_len"] + 1, max=255), 0)
-        mlen = torch.where(stm["match_ptr"] == ((stm["hist_n"] - 1) & MASK32)[:, None], 0, mlen)
-        mcv = stm["ctx"][:, plan.match_ctx_slots]
-        match_ix = (mcv & plan.match_masks) + plan.match_offsets
-        tbl_ptr = ltm["match_tbl"][s_ix, match_ix].to(I64) & MASK32
-        mptr = torch.where(mlen < 8, tbl_ptr, (stm["match_ptr"] + 1) & MASK32)
-        hb = ltm["hist"][s_ix, mptr & (meta.history_size - 1)]
-        mbyte = torch.where((stm["hist_n"] > 0)[:, None], hb.to(I64), stm["match_byte"])
-        stm.update(match_ptr=mptr, match_byte=mbyte, match_len=mlen)
+        with obs.part("contexts"):
+            hit = stm["new_bit"][:, None] == ((stm["match_byte"] & 1) != 0).to(I64)
+            mlen = torch.where(hit, torch.clamp(stm["match_len"] + 1, max=255), 0)
+            mlen = torch.where(stm["match_ptr"] == ((stm["hist_n"] - 1) & MASK32)[:, None], 0, mlen)
+            mcv = stm["ctx"][:, plan.match_ctx_slots]
+            match_ix = (mcv & plan.match_masks) + plan.match_offsets
+            tbl_ptr = ltm["match_tbl"][s_ix, match_ix].to(I64) & MASK32
+            mptr = torch.where(mlen < 8, tbl_ptr, (stm["match_ptr"] + 1) & MASK32)
+            hb = ltm["hist"][s_ix, mptr & (meta.history_size - 1)]
+            mbyte = torch.where((stm["hist_n"] > 0)[:, None], hb.to(I64), stm["match_byte"])
+            stm.update(match_ptr=mptr, match_byte=mbyte, match_len=mlen)
+
+    fin, ix = _gathered_inputs(state, work, data_byte, code_buf, t, decode, plan, analysis, sample_u, inv_temp,
+                               ppm_grouped)
+    if NM:
+        ix["match_ix"] = match_ix
+    return fin, work, ix
+
+
+@obs.in_part("inputs")
+def _gathered_inputs(state: Dict, work: Dict, data_byte: torch.Tensor, code_buf: torch.Tensor, t: torch.Tensor,
+                     decode: bool, plan: StepPlan, analysis: bool, sample_u: Optional[torch.Tensor],
+                     inv_temp: Optional[torch.Tensor], ppm_grouped: bool):
+    """The gathers of the per-byte working sets into `work`, the coder byte
+    window and the packed inputs of the sub-steps: (fin, ix) of
+    `_byte_inputs`."""
+    meta = plan.meta
+    spec = meta.spec
+    stm, ltm, coder, metrics = state["stm"], state["ltm"], state["coder"], state["metrics"]
+    S, s_ix = plan.S, plan.s_ix
+    M = len(spec.indirects)
+    WP = meta.mix_width_pad
+    NM = len(spec.matches)
+    NA = len(spec.apm)
 
     # ---- gather the per-byte working sets (byte-stable gating contexts):
     # all row indices first, then every arena's rows in one launch ----
@@ -413,11 +439,10 @@ def _byte_inputs(state: Dict, data_buf: torch.Tensor, code_buf: torch.Tensor, t,
         ix["posix"] = posix
     if NA:
         ix["apm_ix"] = apm_ix
-    if NM:
-        ix["match_ix"] = match_ix
-    return fin, work, ix
+    return fin, ix
 
 
+@obs.in_part("byte_end")
 def _byte_finish(state: Dict, data_buf: torch.Tensor, col: torch.Tensor, plan: StepPlan, fo: Dict, work: Dict,
                  ix: Dict, learn: bool, bptt: bool = True, wrap: bool = False):
     """The byte step after the sub-steps: registers back into the state, the
@@ -553,7 +578,8 @@ def _step(state: Dict, data_buf: torch.Tensor, code_buf: torch.Tensor, t: torch.
     fin, work, ix = _byte_inputs(state, data_buf, code_buf, t, decode, plan, analysis, sample_u, inv_temp, col)
     fo = fused_substeps(plan.meta, plan.fused, fin, learn, analysis, sample_u is not None)
     out = _byte_finish(state, data_buf, col, plan, fo, work, ix, learn, bptt, wrap)
-    _keep_storage(refs)
+    with obs.part("byte_end"):
+        _keep_storage(refs)
     return out
 
 
@@ -588,10 +614,11 @@ def _byte_step(state: Dict, data_buf: torch.Tensor, code_buf: torch.Tensor, t,
 def lstm_bptt(state: Dict, plan: StepPlan) -> None:
     """The LSTM's backward pass and Adam step on the recorded window, for a
     caller that defers it to the end of a horizon-aligned segment; every leaf
-    keeps its storage."""
-    refs = _leaf_refs(state)
-    _lstm_bptt(state["stm"]["lstm"], state["ltm"]["lstm"], plan.lstm)
-    _keep_storage(refs)
+    keeps its storage. All of it is the LSTM's part of the step."""
+    with obs.part("lstm"):
+        refs = _leaf_refs(state)
+        _lstm_bptt(state["stm"]["lstm"], state["ltm"]["lstm"], plan.lstm)
+        _keep_storage(refs)
 
 
 # ---------------------------------------------------------------------------
@@ -599,39 +626,26 @@ def lstm_bptt(state: Dict, plan: StepPlan) -> None:
 # ---------------------------------------------------------------------------
 
 
-def _counted():
-    """The wrappers that count their kernel's launches."""
-    return (_rowmove.gather_rows, _rowmove.gather_rows_many, _rowmove.scatter_rows, _rowmove.scatter_rows_many,
-            _fused.fused_substeps)
-
-
 class CapturedStep:
-    """One CUDA graph of byte-step work, captured on its plan's device and
-    stream into the plan's memory pool, and the hand-written launches it
-    holds. Capturing records the work and runs none of it; the wrappers'
-    launch counts, which Python raises while the work is recorded, are set
-    back, and each replay adds the graph's launches to them."""
+    """One CUDA graph of byte-step work of variant `variant` (`encode/byte`,
+    `bptt`, ...), captured on its plan's device and stream into the plan's
+    memory pool. Capturing records the work and runs none of it; `record`
+    (obs.GraphRecord) holds the graph's layout, its hand-written launches,
+    the capture's seconds and the replays so far."""
 
-    def __init__(self, plan: StepPlan, body: Callable[[], None]):
+    def __init__(self, plan: StepPlan, body: Callable[[], None], variant: str):
         _rowmove.prepare(plan.device)
-        counters = _counted()
-        before = [w.launches for w in counters]
         pool, stream = plan.graph_pool()
         self.graph = torch.cuda.CUDAGraph()
         t0 = time.perf_counter()
-        try:
-            with torch.cuda.device(plan.device), torch.cuda.graph(self.graph, pool=pool, stream=stream):
+        with torch.cuda.device(plan.device), torch.cuda.graph(self.graph, pool=pool, stream=stream):
+            with obs.capturing(variant, obs.CudaNodes(stream.cuda_stream)) as self.record:
                 body()
-        finally:
-            self.launches = [(w, w.launches - n) for w, n in zip(counters, before) if w.launches != n]
-            for w, n in zip(counters, before):
-                w.launches = n
-        self.capture_s = time.perf_counter() - t0
+        obs.captured(self.record, time.perf_counter() - t0)
 
     def replay(self) -> None:
         self.graph.replay()
-        for w, n in self.launches:
-            w.launches += n
+        self.record.replays += 1
 
 
 class _Compiled:
@@ -690,6 +704,7 @@ class _Compiled:
                 leaf.copy_(cur)
                 d[path[-1]] = leaf
                 refilled = True
+                obs.refilled(leaf.numel() * leaf.element_size())
         if refilled:
             plan.forget_epoch()
         if data_buf.dtype != self.buf["data"].dtype:
@@ -700,8 +715,17 @@ class _Compiled:
         needed."""
         g = self.graphs.get(key)
         if g is None:
-            g = self.graphs[key] = CapturedStep(plan, body())
+            g = self.graphs[key] = CapturedStep(plan, body(), "/".join(key))
         return g
+
+    def _replay(self, rec: Optional[obs.Replays], key, plan: StepPlan, body: Callable[[], Callable[[], None]]) -> None:
+        """Replay the graph of variant `key` (`_graph`), in its span while
+        something records (`rec`, obs.replays)."""
+        g = self._graph(key, plan, body)
+        if rec is None:
+            g.replay()
+        else:
+            rec.run(g.record.variant, g.replay)
 
     def _window_in(self, data_buf: torch.Tensor, t0: int) -> None:
         b = self.buf
@@ -778,22 +802,28 @@ class ChunkFn(_Compiled):
         deferred backward pass), buffers out."""
         if self.defer and t0 % self.horizon:
             raise ValueError("t0 must be a multiple of the LSTM horizon when the horizon divides the chunk")
-        self._bind(state, plan, data_buf, t0)
-        if decode:
-            self._code_in(code_buf)
-        _fused.prepare(self.meta, plan.fused, self.learn, self.analysis, False, plan.S, plan.device)
-        self._window_in(data_buf, t0)
+        rec = obs.replays()
+        with obs.span("gmix.chunk.in"):
+            self._bind(state, plan, data_buf, t0)
+            if decode:
+                self._code_in(code_buf)
+            _fused.prepare(self.meta, plan.fused, self.learn, self.analysis, False, plan.S, plan.device)
+            self._window_in(data_buf, t0)
         lst = state["stm"].get("lstm")
         for i in range(self.chunk):
             wrap = self.learn and plan.wraps(state)
-            self._graph(("decode" if decode else "encode", "wrap" if wrap else "byte"), plan,
-                        lambda: self._byte_body(state, plan, decode, wrap)).replay()
+            self._replay(rec, ("decode" if decode else "encode", "wrap" if wrap else "byte"), plan,
+                         lambda: self._byte_body(state, plan, decode, wrap))
             if lst is not None:
                 plan.advance_epoch(lst)
             if self.defer and (i + 1) % self.horizon == 0:
-                self._graph(("bptt",), plan, lambda: lambda: lstm_bptt(state, plan)).replay()
-        data_buf[:, t0 : t0 + self.chunk].copy_(self.buf["data"])
-        return self.buf["win"].clone(), self.buf["nw"].clone()
+                self._replay(rec, ("bptt",), plan, lambda: lambda: lstm_bptt(state, plan))
+        with obs.span("gmix.chunk.out"):
+            data_buf[:, t0 : t0 + self.chunk].copy_(self.buf["data"])
+            out = self.buf["win"].clone(), self.buf["nw"].clone()
+        if rec is not None:
+            rec.close()
+        return out
 
     def _code_in(self, code_buf: torch.Tensor) -> None:
         """The decoder's code stream into the static code buffer: zeros past
@@ -805,7 +835,10 @@ class ChunkFn(_Compiled):
         if code is None or code.shape[1] < n:
             cap = 1 << max(n - 1, 63).bit_length()
             self.buf["code"] = code = torch.zeros((S, cap), dtype=torch.uint8, device=code_buf.device)
-            self.graphs = {k: g for k, g in self.graphs.items() if k[0] != "decode"}
+            kept = {k: g for k, g in self.graphs.items() if k[0] != "decode"}
+            if len(kept) < len(self.graphs):
+                obs.recaptured()
+            self.graphs = kept
         code[:, :n].copy_(code_buf)
         code[:, n:].zero_()
 
@@ -815,10 +848,11 @@ class ChunkFn(_Compiled):
         def body() -> None:
             win, nw = _step(state, b["data"], b["code"] if decode else b["sink"], b["t"], b["col"], decode, plan,
                             self.learn, self.analysis, not self.defer, wrap)
-            at = b["col"].reshape(1)
-            b["win"].index_copy_(0, at, win[None])
-            b["nw"].index_copy_(0, at, nw[None])
-            self._advance()
+            with obs.part("byte_end"):
+                at = b["col"].reshape(1)
+                b["win"].index_copy_(0, at, win[None])
+                b["nw"].index_copy_(0, at, nw[None])
+                self._advance()
 
         return body
 
@@ -859,30 +893,37 @@ class GenChunkFn(_Compiled):
     def _replayed(self, state: Dict, plan: StepPlan, data_buf: torch.Tensor, t0: int, u: torch.Tensor,
                   inv_temp: torch.Tensor) -> None:
         """The graph's loop: bind, buffers in, one replay a byte, bytes out."""
-        self._bind(state, plan, data_buf, t0)
-        b = self.buf
-        if "u" not in b:
-            b["u"] = torch.zeros((self.chunk, 8, plan.S), dtype=torch.float32, device=plan.device)
-            b["inv_temp"] = torch.zeros((1,), dtype=torch.float32, device=plan.device)
-        _fused.prepare(self.meta, plan.fused, False, True, True, plan.S, plan.device)
-        b["u"].copy_(u.view(self.chunk, 8, plan.S))
-        b["inv_temp"].copy_(inv_temp.reshape(1))
-        self._window_in(data_buf, t0)
+        rec = obs.replays()
+        with obs.span("gmix.chunk.in"):
+            self._bind(state, plan, data_buf, t0)
+            b = self.buf
+            if "u" not in b:
+                b["u"] = torch.zeros((self.chunk, 8, plan.S), dtype=torch.float32, device=plan.device)
+                b["inv_temp"] = torch.zeros((1,), dtype=torch.float32, device=plan.device)
+            _fused.prepare(self.meta, plan.fused, False, True, True, plan.S, plan.device)
+            b["u"].copy_(u.view(self.chunk, 8, plan.S))
+            b["inv_temp"].copy_(inv_temp.reshape(1))
+            self._window_in(data_buf, t0)
         lst = state["stm"].get("lstm")
         for _ in range(self.chunk):
-            self._graph(("sample",), plan, lambda: self._sample_body(state, plan)).replay()
+            self._replay(rec, ("sample",), plan, lambda: self._sample_body(state, plan))
             if lst is not None:
                 plan.advance_epoch(lst)
-        data_buf[:, t0 : t0 + self.chunk].copy_(b["data"])
+        with obs.span("gmix.chunk.out"):
+            data_buf[:, t0 : t0 + self.chunk].copy_(b["data"])
+        if rec is not None:
+            rec.close()
 
     def _sample_body(self, state: Dict, plan: StepPlan) -> Callable[[], None]:
         b = self.buf
 
         def body() -> None:
-            u = b["u"].index_select(0, b["col"].reshape(1))[0]
+            with obs.part("inputs"):
+                u = b["u"].index_select(0, b["col"].reshape(1))[0]
             _step(state, b["data"], b["sink"], b["t"], b["col"], False, plan, False, True, True, False,
                   sample_u=u, inv_temp=b["inv_temp"])
-            self._advance()
+            with obs.part("byte_end"):
+                self._advance()
 
         return body
 

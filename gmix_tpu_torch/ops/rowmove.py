@@ -23,6 +23,7 @@ from typing import List, Sequence, Tuple
 
 import torch
 
+from .. import obs
 from ..utils.build import check_launch, load_kernels
 
 # the most arenas one grouped launch takes (csrc/rowmove.cu: kMaxArenas)
@@ -122,7 +123,7 @@ def gather_rows_many(pairs: Sequence[Tuple[torch.Tensor, torch.Tensor]]) -> List
     if all(tbl.device.type == "cpu" for tbl, _ in pairs):
         return gather_rows_many_plain(pairs)
     outs = _gather_launch("gather_rows_many", pairs)
-    gather_rows_many.launches += 1
+    obs.launched("gather_rows_many")
     return outs
 
 
@@ -132,7 +133,7 @@ def gather_rows(tbl: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     if tbl.device.type == "cpu":
         return gather_rows_plain(tbl, idx)
     out = _gather_launch("gather_rows", [(tbl, idx)])[0]
-    gather_rows.launches += 1
+    obs.launched("gather_rows")
     return out
 
 
@@ -148,7 +149,7 @@ def scatter_rows_many(triples: Sequence[Tuple[torch.Tensor, torch.Tensor, torch.
     if all(tbl.device.type == "cpu" for tbl, _, _ in triples):
         return scatter_rows_many_plain(triples)
     _launch("scatter_rows_many", "gmix_scatter_rows_many", triples)
-    scatter_rows_many.launches += 1
+    obs.launched("scatter_rows_many")
     return [tbl for tbl, _, _ in triples]
 
 
@@ -158,7 +159,7 @@ def scatter_rows(tbl: torch.Tensor, idx: torch.Tensor, upd: torch.Tensor) -> tor
     if tbl.device.type == "cpu":
         return scatter_rows_plain(tbl, idx, upd)
     _launch("scatter_rows", "gmix_scatter_rows_many", [(tbl, idx, upd)])
-    scatter_rows.launches += 1
+    obs.launched("scatter_rows")
     return tbl
 
 
@@ -179,10 +180,3 @@ def empty_launch(device) -> None:
         rc = lib.gmix_empty_launch(torch.cuda.current_stream(dev).cuda_stream)
     check_launch(lib, rc, "empty_launch")
 
-
-# kernel launch counters: one per launch of the CUDA kernel, none for the
-# plain CPU path
-gather_rows.launches = 0
-gather_rows_many.launches = 0
-scatter_rows.launches = 0
-scatter_rows_many.launches = 0

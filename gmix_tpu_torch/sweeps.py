@@ -152,7 +152,7 @@ def _timed(dev: torch.device, fn: Callable):
 def _graphs(pred: Predictor) -> Tuple[int, float]:
     """(CUDA graphs the predictor captured, their capture seconds)."""
     graphs = [g for fn in pred.plan.fn_cache.values() for g in fn.graphs.values()]
-    return len(graphs), sum(g.capture_s for g in graphs)
+    return len(graphs), sum(g.record.capture_s for g in graphs)
 
 
 def _archive(blob: bytes) -> dict:

@@ -32,6 +32,7 @@ from gmix_tpu.core import step as j_step
 from gmix_tpu.core.codec import Predictor as JPredictor
 from gmix_tpu.core.codec import _pad_streams, run_chunks as j_run_chunks
 import gmix_tpu_torch as gt
+from gmix_tpu_torch import obs
 from gmix_tpu_torch.core import step as t_step
 from gmix_tpu_torch.core.codec import Predictor, run_chunks
 from gmix_tpu_torch.parallel.mesh import make_mesh, shard_state, stream_sharding
@@ -75,15 +76,15 @@ class Recorded:
 
     made = []
 
-    def __init__(self, plan, body):
+    def __init__(self, plan, body, variant):
         self.body = body
-        self.launches = []
-        self.capture_s = 0.0
+        self.record = obs.GraphRecord(variant)
         Recorded.made.append(self)
 
     def replay(self):
         with NoHostRead():
             self.body()
+        self.record.replays += 1
 
 
 @pytest.fixture

@@ -12,17 +12,16 @@ import pytest
 import torch
 
 import gmix_tpu_torch as gt
+from gmix_tpu_torch import obs
 from gmix_tpu_torch.config import ApmStage
-from gmix_tpu_torch.core import codec, fused
+from gmix_tpu_torch.core import codec
 from gmix_tpu_torch.core import step as t_step
 from gmix_tpu_torch.core.meta import build_meta
-from gmix_tpu_torch.ops import rowmove
 from gmix_tpu_torch.parallel.mesh import make_mesh, stream_sharding
 from gmix_tpu_torch.utils.serialization import copy_state
 
 S = 2
-COUNTERS = (rowmove.gather_rows, rowmove.gather_rows_many, rowmove.scatter_rows, rowmove.scatter_rows_many,
-            fused.fused_substeps)
+KERNELS = ("gather_rows", "gather_rows_many", "scatter_rows", "scatter_rows_many", "fused_substeps")
 
 
 @pytest.fixture
@@ -55,7 +54,8 @@ def _corpus(n, offset=0):
 
 
 def _counts():
-    return [w.launches for w in COUNTERS]
+    n = obs.launches()
+    return [n.get(k, 0) for k in KERNELS]
 
 
 def _leaves(tree, prefix=""):
@@ -208,5 +208,5 @@ def test_a_capture_that_reads_the_device_raises(cuda):
     before = _counts()
     x = torch.ones((), device=cuda)
     with pytest.raises(RuntimeError):
-        t_step.CapturedStep(plan, lambda: float(x * 2))
+        t_step.CapturedStep(plan, lambda: float(x * 2), "encode/byte")
     assert _counts() == before

@@ -8,7 +8,14 @@ import numpy as np
 import pytest
 import torch
 
+from gmix_tpu_torch import obs
 from gmix_tpu_torch.ops import rowmove
+
+
+def _launches(kernel):
+    """The launches of a hand-written kernel so far (by its wrapper's name)."""
+    return obs.launches().get(kernel, 0)
+
 
 # (dtype, row width) of the five arenas the byte step moves rows of:
 # ind.st (u16 bits in int16), mix_w, mix_pos, apm, ppm_tbl (34 16-byte words)
@@ -90,9 +97,9 @@ def _case(dtype, W, dev, seed):
 @pytest.mark.parametrize("dtype,W", SHAPES)
 def test_gather_kernel_matches_plain(cuda, dtype, W):
     tbl, idx, _ = _case(dtype, W, cuda, W)
-    n0 = rowmove.gather_rows.launches
+    n0 = _launches("gather_rows")
     got = rowmove.gather_rows(tbl, idx)
-    assert rowmove.gather_rows.launches == n0 + 1
+    assert _launches("gather_rows") == n0 + 1
     assert torch.equal(got, rowmove.gather_rows_plain(tbl, idx))
 
 
@@ -101,9 +108,9 @@ def test_gather_kernel_matches_plain(cuda, dtype, W):
 def test_scatter_kernel_matches_plain(cuda, dtype, W):
     tbl, idx, upd = _case(dtype, W, cuda, W + 1)
     ref = tbl.clone()
-    n0 = rowmove.scatter_rows.launches
+    n0 = _launches("scatter_rows")
     assert rowmove.scatter_rows(tbl, idx, upd) is tbl
-    assert rowmove.scatter_rows.launches == n0 + 1
+    assert _launches("scatter_rows") == n0 + 1
     rowmove.scatter_rows_plain(ref, idx, upd)
     torch.cuda.synchronize()
     assert torch.equal(tbl, ref)
@@ -133,10 +140,10 @@ PPM_GROUP = GROUP_ARENAS[:4] + [(torch.int16, 272, 500, 9)]
 @pytest.mark.parametrize("n_arenas", [1, 4, 8])
 def test_grouped_gather_kernel_matches_plain(cuda, n_arenas):
     pairs = [_arena(dt, W, n, m, cuda, 100 + i) for i, (dt, W, n, m) in enumerate(GROUP_ARENAS[:n_arenas])]
-    n0 = rowmove.gather_rows_many.launches
+    n0 = _launches("gather_rows_many")
     got = rowmove.gather_rows_many(pairs)
     torch.cuda.synchronize()
-    assert rowmove.gather_rows_many.launches == n0 + 1  # one launch, whatever the number of arenas
+    assert _launches("gather_rows_many") == n0 + 1  # one launch, whatever the number of arenas
     want = rowmove.gather_rows_many_plain(pairs)
     assert len(got) == n_arenas
     for a, b in zip(want, got):
@@ -147,10 +154,10 @@ def test_grouped_gather_kernel_matches_plain(cuda, n_arenas):
 @pytest.mark.cuda
 def test_grouped_gather_kernel_takes_the_ppm_rows(cuda):
     pairs = [_arena(dt, W, n, m, cuda, 300 + i) for i, (dt, W, n, m) in enumerate(PPM_GROUP)]
-    n0 = rowmove.gather_rows_many.launches
+    n0 = _launches("gather_rows_many")
     got = rowmove.gather_rows_many(pairs)
     torch.cuda.synchronize()
-    assert rowmove.gather_rows_many.launches == n0 + 1
+    assert _launches("gather_rows_many") == n0 + 1
     for a, b in zip(rowmove.gather_rows_many_plain(pairs), got):
         assert (a.shape, a.dtype) == (b.shape, b.dtype) and torch.equal(a, b)
 
@@ -172,11 +179,11 @@ def test_grouped_scatter_kernel_matches_plain(cuda, group):
     arenas = PPM_GROUP if group == "ppm" else GROUP_ARENAS[: int(group)]
     triples = _scatter_group(arenas, cuda, 400)
     refs = [(tbl.clone(), idx, upd) for tbl, idx, upd in triples]
-    n0, n1 = rowmove.scatter_rows_many.launches, rowmove.scatter_rows.launches
+    n0, n1 = _launches("scatter_rows_many"), _launches("scatter_rows")
     got = rowmove.scatter_rows_many(triples)
     torch.cuda.synchronize()
-    assert rowmove.scatter_rows_many.launches == n0 + 1  # one launch, whatever the number of arenas
-    assert rowmove.scatter_rows.launches == n1
+    assert _launches("scatter_rows_many") == n0 + 1  # one launch, whatever the number of arenas
+    assert _launches("scatter_rows") == n1
     want = rowmove.scatter_rows_many_plain(refs)
     torch.cuda.synchronize()
     assert len(got) == len(arenas)
@@ -369,10 +376,10 @@ def test_fused_clocks_instantiation_computes_the_same(cuda, spec_name, decode):
 
     meta, consts, fin = _fused_case(spec_name, cuda, True, True, decode)
     want = fused.fused_substeps(meta, consts, fin, True, True)
-    n0 = fused.fused_substeps.launches
+    n0 = _launches("fused_substeps")
     got, clk = fused.fused_substeps_clocks(meta, consts, fin, True, True)
     torch.cuda.synchronize()
-    assert fused.fused_substeps.launches == n0
+    assert _launches("fused_substeps") == n0
     assert sorted(got) == sorted(want)
     for name in want:
         assert torch.equal(want[name].view(torch.uint8), got[name].view(torch.uint8)), name
@@ -403,10 +410,10 @@ def test_fused_kernel_matches_plain(cuda, spec_name, decode, learn, analysis):
     fin = {n: torch.as_tensor(inputs[n], device=cuda)
            for n, _, _, kind in fused.io_layout(meta, learn, analysis)[0] if kind == "s"}
     kept = {n: v.clone() for n, v in fin.items()}
-    n0 = fused.fused_substeps.launches
+    n0 = _launches("fused_substeps")
     got = fused.fused_substeps(meta, consts, fin, learn, analysis)
     torch.cuda.synchronize()
-    assert fused.fused_substeps.launches == n0 + 1
+    assert _launches("fused_substeps") == n0 + 1
     want = fused.fused_substeps_plain(meta, consts, fin, learn, analysis)
     assert sorted(got) == sorted(want) == sorted(n for n, _, _, _ in fused.io_layout(meta, learn, analysis)[1])
     for name in want:
@@ -439,10 +446,10 @@ def test_fused_kernel_sampling_matches_plain(cuda, spec_name, inv_temp, analysis
     assert sorted(fin) == sorted(n for n, _, _, kind in fused.io_layout(meta, False, analysis, True)[0]
                                  if kind == "s" or n in fused.CALL_INPUTS)
     kept = {n: v.clone() for n, v in fin.items()}
-    n0 = fused.fused_substeps.launches
+    n0 = _launches("fused_substeps")
     got = fused.fused_substeps(meta, consts, fin, False, analysis, sample=True)
     torch.cuda.synchronize()
-    assert fused.fused_substeps.launches == n0 + 1
+    assert _launches("fused_substeps") == n0 + 1
     want = fused.fused_substeps_plain(meta, consts, fin, False, analysis, sample=True)
     _assert_fused_equal(want, got)
     for n, v in fin.items():  # the kernel writes no input

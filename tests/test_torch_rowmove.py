@@ -11,6 +11,7 @@ import torch
 import jax.numpy as jnp
 
 from gmix_tpu.ops import rowmove as j_rm
+from gmix_tpu_torch import obs
 from gmix_tpu_torch.ops import rowmove as t_rm
 
 torch.set_num_threads(1)
@@ -133,12 +134,11 @@ def test_grouped_scatter_is_the_list_of_single_scatters(n_arenas):
 
 def test_cpu_tensors_never_launch_a_kernel():
     tbl, idx, upd = _case(np.float32, 128, 5)
-    counters = (t_rm.gather_rows, t_rm.gather_rows_many, t_rm.scatter_rows, t_rm.scatter_rows_many)
-    before = [w.launches for w in counters]
+    before = obs.launches()
     t_rm.scatter_rows(_t(tbl), torch.tensor(idx), t_rm.gather_rows(_t(tbl), torch.tensor(idx)))
     t_rm.gather_rows_many([(_t(tbl), torch.tensor(idx))] * 3)
     t_rm.scatter_rows_many([(_t(tbl), torch.tensor(idx), _t(upd)), (_t(tbl), torch.tensor(idx), _t(upd))])
-    assert [w.launches for w in counters] == before
+    assert obs.launches() == before
 
 
 def test_other_devices_raise_instead_of_falling_back():

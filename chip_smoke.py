@@ -8,6 +8,8 @@
     python3 chip_smoke.py --bench-only   # phases 0-1 and 7
     python3 chip_smoke.py --variants-only   # phases 0-1 and 8
     python3 chip_smoke.py --sweeps-only   # phases 0-1 and 9
+    python3 chip_smoke.py --ppm-only   # phases 0-1 and the PPM kernels' part
+                                       # of phase 2 (about a minute)
 
 Phases; any failure ends the run with a non-zero exit:
 
@@ -40,16 +42,22 @@ Phases; any failure ends the run with a non-zero exit:
      ref-ppm), each timed beside the single launches of the same rows, the
      torch indexing calls that compute the same, and an empty kernel
      launched the same way (`launch_floor_ms`);
+   - the PPM count update and prediction kernels (csrc/ppm.cu) bitwise
+     against their plain versions on the card and on the CPU, on seeded rows
+     at reference_spec() x 54 and best_spec() x 30 (the benchmark's cells)
+     and on hand-made edge streams (utils/ppm_inputs.py), each timed beside
+     its plain version, called and replayed as a CUDA graph, and its bound;
 3. the main path at full width, at ref-noppm, ref-ppm and ref-full:
    compress_bytes then decompress_bytes of the first 16 KB of
    data/corpus_1m.bin on the GPU (16 streams, 1 KB per stream), which replay
    CUDA graphs of the byte step (the compiled chunk, core/step.py); the
    output must equal the input, and per byte step and direction the fused
    kernel must have launched exactly once and each mover once (ref-noppm: 3
-   launches a byte step) or twice (ref-ppm: 5; the PPM count update moves its
-   own rows first); at ref-full the gather launches three times (6: the
-   prediction's `ppm_tbl` rows come before the LSTM's forward pass, the other
-   arenas after it) and the LSTM must have made its 10 backward passes per
+   launches a byte step) or twice (ref-ppm: 7; the PPM count update moves its
+   own rows first, and its update and prediction are a kernel each); at
+   ref-full the gather launches three times (8: the prediction's `ppm_tbl`
+   rows come before the LSTM's forward pass, the other arenas after it) and
+   the LSTM must have made its 10 backward passes per
    direction (chunk 1024: inside the byte that wraps the horizon window).
    A graph's launches are its replays times the launches its capture
    recorded (obs.launches). Each graph's
@@ -64,7 +72,7 @@ Phases; any failure ends the run with a non-zero exit:
    Then generate_bytes on the warm predictor: a 256-byte prompt (replayed
    with learning), 256 sampled bytes a stream at temperature 0.8 in one
    chunk of 256; a sampling byte step must launch the kernels of an encode
-   step less the byte-end scatter (ref-noppm 2, ref-ppm 4, ref-full 5).
+   step less the byte-end scatter (ref-noppm 2, ref-ppm 6, ref-full 7).
    Then 256 bytes more without a prompt, timed, after which every
    long-term-memory leaf must be as it was; the sampling step eager against
    graphs as above;
@@ -85,7 +93,7 @@ Phases; any failure ends the run with a non-zero exit:
    before a command and read just after):
    (a) `--profile best --streams 8 --chunk 512`: compress with `--analysis`
        4 KB of data/corpus_1m.bin that no other phase codes, then
-       decompress; the round trip exact, 6 launches a byte step each way,
+       decompress; the round trip exact, 8 launches a byte step each way,
        entropy.tsv's header `analysis_columns` and a finite row, memory.tsv's
        TOTAL equal to the state's size in gmix_tpu's layout (a u32 leaf at
        4 bytes an element) and to its rows' sum; bpb, model bpb, state and peak GB,
@@ -100,7 +108,7 @@ Phases; any failure ends the run with a non-zero exit:
        generated bytes must be the same files; entropy.tsv the same bits
        and its values within 1e-6 relative or one unit of the fifth decimal
        it prints; each device decodes the other's archive; a sampling step
-       launches 5 kernels;
+       launches 7 kernels;
    (c) wiki-encode -> dict-encode -> compress (scaled-12, 8 streams) of a
        small generated MediaWiki dump, and back: the same bytes.
 6. stream sharding (gmix_tpu_torch.parallel), after the rest:
@@ -108,11 +116,11 @@ Phases; any failure ends the run with a non-zero exit:
        card, in this process, beside the unsharded predictor: 2 KB of the
        corpus that no other phase codes, chunk 128. The archives must be the
        same bytes, each predictor must decode the other's, their checkpoints
-       must be the same file, and each shard must launch 6 kernels a byte
+       must be the same file, and each shard must launch 8 kernels a byte
        step; the wall times of both, a reading;
    (b) two processes over gloo on this card, 8 streams each, code phase 3's
        16 KB at ref-full with compress_bytes_multihost: each must return
-       phase 3's archive byte for byte and launch 6 kernels a byte step;
+       phase 3's archive byte for byte and launch 8 kernels a byte step;
        each prints its launches, encode bytes/s and peak memory, and the
        aggregate bytes/s is printed beside phase 3's one process (a reading);
    (c) a world of one rank over nccl: phase 4's ref-noppm run through
@@ -138,8 +146,9 @@ Phases; any failure ends the run with a non-zero exit:
    Each run must be exact in every pass with the same archive (the bench
    raises otherwise), its cross-entropy finite at every chunk, every byte
    step (warm start, graph capture, passes and traced window) must launch
-   the profile's kernels (gather, scatter, fused: 3 + 2 + 1 at ref-full and
-   best, 2 + 2 + 1 at ref-ppm, 1 + 1 + 1 at ref-noppm), and the state must
+   the profile's kernels (gather, scatter, fused, PPM update, PPM prediction:
+   3 + 2 + 1 + 1 + 1 at ref-full and best, 2 + 2 + 1 + 1 + 1 at ref-ppm,
+   1 + 1 + 1 + 0 + 0 at ref-noppm), and the state must
    be the bytes the bench estimated. The step's roofline of each run is
    logged (the bench's count of a byte step from the spec, its bound, and
    the shares of the card's peaks: `mfu`, `hbm_share`, `roofline_share`),
@@ -161,8 +170,8 @@ Phases; any failure ends the run with a non-zero exit:
    (b) compress_bytes then decompress_bytes of 1 KB a stream, 4 streams, at
        the published sizes: the input back, and each byte step and each
        graph replay launching what the code says (`launches_per_step`:
-       1 + 1 + 1 without PPM, 2 + 2 + 1 with PPM, 3 + 2 + 1 with PPM and the
-       LSTM);
+       1 + 1 + 1 without PPM, 2 + 2 + 1 + 1 + 1 with PPM, 3 + 2 + 1 + 1 + 1
+       with PPM and the LSTM);
    (c) at scale_tables(spec, 12, history_bits=16), 2 streams of 512 bytes:
        the GPU's archive equal to the CPU's byte for byte (the CPU's encode
        and decode run in a process a variant, started before phase 7), the
@@ -189,7 +198,7 @@ Phases; any failure ends the run with a non-zero exit:
    coding 512 000 bytes from each; the ring sweep on 256 KB of dump at a
    ring that wraps and one that does not; scaling at 1, 16 and 256
    streams; the wiki chain on 1 MB of dump, byte-identical. Every run must
-   exit 0, and every byte step it ran launch 3 + 2 + 1 kernels.
+   exit 0, and every byte step it ran launch 3 + 2 + 1 + 1 + 1 kernels.
 
 ref-full is gmix_tpu's reference wiring (`reference_spec()`: PPM, the LSTM
 byte model of 50 cells with a horizon of 100) at its published table sizes
@@ -239,7 +248,7 @@ import gmix_tpu_torch as gt
 from gmix_tpu_torch import bench, cli, obs, sweeps
 from gmix_tpu_torch.bench import padded_per, ref_noppm_spec, ref_ppm_spec, spec_for, trace_window
 from gmix_tpu_torch.config import best_spec, reference_spec, scale_tables
-from gmix_tpu_torch.core import fused
+from gmix_tpu_torch.core import fused, ppm
 from gmix_tpu_torch.core import step as step_mod
 from gmix_tpu_torch.core.codec import (Predictor, analysis_columns, compress_bytes, decompress_bytes, entropy_bits,
                                        generate_bytes, run_chunks)
@@ -247,9 +256,10 @@ from gmix_tpu_torch.core.meta import build_meta
 from gmix_tpu_torch.ops import rowmove
 from gmix_tpu_torch.parallel import distributed
 from gmix_tpu_torch.parallel.mesh import make_mesh, stream_sharding
-from gmix_tpu_torch.roofline import PEAK_BYTES_PER_S, SHARES, fused_bound, tensor_bytes
+from gmix_tpu_torch.roofline import PEAK_BYTES_PER_S, SHARES, TRANSCENDENTAL, bound, fused_bound, tensor_bytes
 from gmix_tpu_torch.state import init_state, numpy_layout, state_bytes
 from gmix_tpu_torch.utils.build import build
+from gmix_tpu_torch.utils import ppm_inputs
 from gmix_tpu_torch.utils.fused_inputs import random_inputs, with_sampling
 from gmix_tpu_torch.utils.serialization import copy_state
 
@@ -276,6 +286,7 @@ SOURCES = {
     "gather_rows": "gmix_tpu_torch/csrc/rowmove.cu",
     "scatter_rows": "gmix_tpu_torch/csrc/rowmove.cu",
     "fused_substeps": "gmix_tpu_torch/csrc/fused_kernel.cuh",
+    "ppm": "gmix_tpu_torch/csrc/ppm.cu",
 }
 REPLACES = {
     "gather_rows": "gmix_tpu/ops/rowmove.py:85",
@@ -289,7 +300,11 @@ ARENAS = (("ind.st", ("ltm", "ind", "st")), ("mix_w", ("ltm", "mix_w")), ("mix_p
           ("apm", ("ltm", "apm")), ("ppm_tbl", ("stm", "ppm_tbl")))
 # launches by kernel (obs.launches, by wrapper): each mover kernel has two
 # wrappers (one arena, a group of arenas)
-WRAPPERS = (("gather_rows", "gather_rows_many"), ("scatter_rows", "scatter_rows_many"), ("fused_substeps",))
+WRAPPERS = (("gather_rows", "gather_rows_many"), ("scatter_rows", "scatter_rows_many"), ("fused_substeps",),
+            ("ppm_update",), ("ppm_predict",))
+# what a tuple of launch counts holds, in WRAPPERS' order
+LAUNCHES = "(gather, scatter, fused, PPM update, PPM prediction)"
+NO_LAUNCHES = (0,) * len(WRAPPERS)
 _LAUNCHES_AT_RESET = {}
 # archive sizes that must not change: the codec is deterministic, and these
 # specs' archives have been these bytes since the port first produced them
@@ -394,14 +409,15 @@ def rows_per_byte(meta):
 
 
 def launches_per_step(spec):
-    """(gather, scatter, fused) launches of an encode or decode byte step,
-    from the code (core/step.py, core/ppm.py): one grouped gather and one
-    grouped scatter of the movers' arenas and one fused launch; with PPM its
-    count update's own gather and scatter of `ppm_tbl` rows; with PPM and
-    the LSTM also the prediction's `ppm_tbl` rows gathered alone before the
-    forward pass."""
+    """`LAUNCHES` of an encode or decode byte step, from the code
+    (core/step.py, core/ppm.py): one grouped gather and one grouped scatter
+    of the movers' arenas and one fused launch; with PPM its count update's
+    own gather and scatter of `ppm_tbl` rows and one launch each of the
+    count update's and the prediction's kernels; with PPM and the LSTM also
+    the prediction's `ppm_tbl` rows gathered alone before the forward
+    pass."""
     ppm, lstm = spec.ppm is not None, spec.lstm is not None
-    return (1 + int(ppm) + int(ppm and lstm), 1 + int(ppm), 1)
+    return (1 + int(ppm) + int(ppm and lstm), 1 + int(ppm), 1, int(ppm), int(ppm))
 
 
 def profile_launches(profile: str):
@@ -484,7 +500,7 @@ def reset_launches() -> None:
 
 
 def read_launches():
-    """(gather, scatter, fused) launches since the last reset."""
+    """`LAUNCHES` since the last reset."""
     now = obs.launches()
     return tuple(sum(now.get(w, 0) - _LAUNCHES_AT_RESET.get(w, 0) for w in group) for group in WRAPPERS)
 
@@ -871,6 +887,110 @@ def phase_grouped(direction, names, tables, counts, rng, gen, dev):
 
 
 # ---------------------------------------------------------------------------
+# phase 2c: the PPM kernels
+# ---------------------------------------------------------------------------
+
+# the streams of the benchmark's cells at each spec (h100_bench: ref-s54,
+# best-s30), at which the PPM kernels are timed
+PPM_STREAMS = {"ref": 54, "best": 30}
+PPM_SEEDS = 4
+
+
+def ppm_float_ops(spec, S: int, which: str) -> int:
+    """Float operations of one launch of the PPM kernel `which` ("update" or
+    "predict"), counted as roofline.step_work counts the ppm part: the
+    cascade (totals, the PPM-C prior, the SEE offset, logit and logistic),
+    then the SEE learn, or the escape chain, the terms, their sum and order
+    -1."""
+    NO, NB = len(spec.ppm.orders), spec.ppm.see_buckets
+    cascade = NO * ((256 - 1) + 3 + (2 * NB - 1) + 2 * TRANSCENDENTAL + 1)
+    tail = NO * (2 + 2 * NB) if which == "update" else NO * (4 + 3 * 256) + (256 - 1) + 1 + 256 + 2 * 256
+    return S * (cascade + tail)
+
+
+def graphed(fn):
+    """`fn` (a function of the repetition index) captured once as a CUDA
+    graph, as the byte step's graphs hold it: a function that replays it."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn(0)  # allocations made before the capture
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        fn(0)
+    return lambda i: g.replay()
+
+
+def compare_ppm(what: str, spec, inputs: dict, dev) -> None:
+    """Both kernels on `inputs` against the plain versions on the card and
+    on the CPU, bit for bit (rows, `ppm_see`, `ppm_probs`, top, bottom)."""
+    S = inputs["cv"].shape[0]
+    meta = build_meta(spec)
+    got = {}
+    for where, d in (("card", dev), ("cpu", torch.device("cpu"))):
+        plan = step_mod.StepPlan(meta, S, d)
+        t = {k: torch.as_tensor(v.view(np.int16) if v.dtype == np.uint16 else v, device=d) for k, v in inputs.items()}
+        out = {**dict(zip(("rows", "see"), ppm.ppm_update_rows(t["raw"], t["cv"], t["completed"], t["see"], plan))),
+               **dict(zip(("probs", "top", "bot"), ppm.ppm_predict_probs(t["raw"], t["cv"], t["see"], plan)))}
+        if where == "card":
+            got["kernels"] = out
+            got["card"] = {**dict(zip(("rows", "see"), ppm.ppm_update_plain(t["raw"], t["cv"], t["completed"],
+                                                                            t["see"], plan))),
+                           **dict(zip(("probs", "top", "bot"), ppm.ppm_predict_plain(t["raw"], t["cv"], t["see"], plan)))}
+        else:
+            got["cpu"] = out
+    torch.cuda.synchronize()
+    for where in ("card", "cpu"):
+        for k, want in got[where].items():
+            a, b = got["kernels"][k].cpu().contiguous(), want.cpu().contiguous()
+            if a.dtype == torch.float32:
+                a, b = a.view(torch.int32), b.view(torch.int32)
+            if not torch.equal(a, b):
+                raise RuntimeError(f"phase 2 {what}: the PPM kernels' {k} differs from the plain version on the {where}")
+
+
+def phase_ppm(dev) -> dict:
+    """The PPM count update and prediction kernels (csrc/ppm.cu) against
+    their plain versions, bitwise, on seeded rows (`ppm_inputs.random_inputs`,
+    PPM_SEEDS draws) at ref and best with the benchmark's stream counts and
+    on the edge streams (`edge_inputs`); then each kernel timed beside its
+    plain version, called (`plain_ms`) and replayed as a CUDA graph
+    (`plain_graph_ms`: what the byte step's graph spent there before the
+    kernels), and its bound."""
+    rows = {}
+    for name, spec in (("ref", reference_spec()), ("best", best_spec())):
+        S, sp = PPM_STREAMS[name], spec.ppm
+        NO, NB = len(sp.orders), sp.see_buckets
+        for k in range(PPM_SEEDS):
+            compare_ppm(f"{name} S={S} seed {k}", spec, ppm_inputs.random_inputs(NO, NB, S, SEED + k), dev)
+        cv = np.random.default_rng(SEED).integers(0, 2**32, (len(ppm_inputs.EDGE_STREAMS), NO), dtype=np.int64)
+        compare_ppm(f"{name} edges", spec, ppm_inputs.edge_inputs(cv, NB, sp.inc, sp.rescale_total), dev)
+        plan = step_mod.StepPlan(build_meta(spec), S, dev)
+        t = {k: torch.as_tensor(v.view(np.int16) if v.dtype == np.uint16 else v, device=dev)
+             for k, v in ppm_inputs.random_inputs(NO, NB, S, SEED).items()}
+        calls = {
+            "update": (lambda i: ppm.ppm_update_rows(t["raw"], t["cv"], t["completed"], t["see"], plan),
+                       lambda i: ppm.ppm_update_plain(t["raw"], t["cv"], t["completed"], t["see"], plan),
+                       [t["raw"], t["cv"], t["completed"], t["see"], t["raw"], t["see"]]),
+            "predict": (lambda i: ppm.ppm_predict_probs(t["raw"], t["cv"], t["see"], plan),
+                        lambda i: ppm.ppm_predict_plain(t["raw"], t["cv"], t["see"], plan),
+                        [t["raw"], t["cv"], t["see"], torch.empty((S, 256)), torch.empty((2 * S,), dtype=torch.int32)]),
+        }
+        row = {"spec": name, "streams": S, "orders": NO, "buckets": NB, "compared": PPM_SEEDS + 1}
+        for which, (kernel, plain, moved) in calls.items():
+            nbytes, ops = tensor_bytes(moved), ppm_float_ops(spec, S, which)
+            row[which] = {"ms": device_ms(kernel, reps=50), "call_ms": call_ms(kernel, reps=50),
+                          "plain_ms": call_ms(plain, reps=10), "plain_graph_ms": device_ms(graphed(plain), reps=50),
+                          "bytes_moved": nbytes, "float_ops": ops, **bound(nbytes, ops)}
+        rows[name] = row
+        log(f"phase 2: ppm kernels {json.dumps(row)}")
+        del plan, t, calls
+    torch.cuda.empty_cache()
+    return rows
+
+
+# ---------------------------------------------------------------------------
 # phase 3: the main path
 # ---------------------------------------------------------------------------
 
@@ -893,8 +1013,7 @@ def pool_bytes(plan):
 
 def graph_summary(fn) -> dict:
     """Each graph of a compiled chunk by variant: its capture seconds and the
-    (gather, scatter, fused) launches its capture recorded, which each
-    replay adds."""
+    launches (`LAUNCHES`) its capture recorded, which each replay adds."""
     out = {}
     for key, g in fn.graphs.items():
         per = g.record.launches
@@ -910,7 +1029,7 @@ def eager_against_graphs(name, pred, dev, expect, sample: bool = False):
     included), a second one timed, then TRACE_STEPS bytes under
     torch.profiler (a chunk of that length, whose graph is captured before
     the trace). Every state leaf must be equal after, and every byte step
-    must launch `expect` (gather, scatter, fused) both ways. Encode steps, or
+    must launch `expect` (`LAUNCHES`) both ways. Encode steps, or
     with `sample` sampling steps (seeded uniforms, temperature GEN_TEMP).
     With an LSTM also one backward pass op by op against its graph, three
     times each, the LSTM's leaves equal after. Returns the readings."""
@@ -1057,12 +1176,12 @@ def phase_main(name, spec, dev):
         raise RuntimeError("phase 3: decompress_bytes did not reproduce the input")
     if not np.isfinite(ent) or ent <= 0:
         raise RuntimeError(f"phase 3: cross-entropy {ent} is not a positive finite number")
-    gathers, scatters, _ = launches_per_step(spec)
-    expect = (gathers * per, scatters * per, per)
+    per_step = launches_per_step(spec)
+    expect = tuple(e * per for e in per_step)
     if enc_launches != expect or dec_launches != expect:
         raise RuntimeError(
-            f"phase 3 {name}: launches (gather, scatter, fused) encode {enc_launches}, decode "
-            f"{dec_launches}, expected {expect} each ({gathers} + {scatters} + 1 per byte step)"
+            f"phase 3 {name}: launches {LAUNCHES} encode {enc_launches}, decode "
+            f"{dec_launches}, expected {expect} each ({' + '.join(map(str, per_step))} per byte step)"
         )
     if spec.lstm is not None:
         # chunk 1024 is no multiple of the horizon: the backward pass runs
@@ -1075,7 +1194,7 @@ def phase_main(name, spec, dev):
     if known is not None and len(blob) != known:
         raise RuntimeError(f"phase 3 {name}: the archive is {len(blob)} bytes, it has always been {known}")
     out.update(
-        spec=name, launches_per_byte_step=gathers + scatters + 1,
+        spec=name, launches_per_byte_step=sum(per_step),
         bytes=len(data), archive_bytes=len(blob), bpb=8 * len(blob) / len(data),
         model_bpb=ent / len(data), encode_bytes_per_s=len(data) / out["encode_s"],
         decode_bytes_per_s=len(data) / out["decode_s"], byte_steps=per,
@@ -1083,10 +1202,10 @@ def phase_main(name, spec, dev):
     )
     log(f"phase 3: {json.dumps(out)}")
     out["archive"] = blob  # phase 6 (b) must reproduce it
-    out["steps"] = eager_against_graphs(name, pred, dev, (gathers, scatters, 1))
+    out["steps"] = eager_against_graphs(name, pred, dev, per_step)
     log(f"phase 3: {name} per encode byte step after {per} bytes per stream, eager against graphs: "
         f"{json.dumps(out['steps'])}")
-    out["generate"] = phase_generate(name, pred, dev, (gathers, scatters, 1))
+    out["generate"] = phase_generate(name, pred, dev, per_step)
     del pred
     torch.cuda.empty_cache()
     return out
@@ -1102,7 +1221,7 @@ def phase_generate(name, pred, dev, per_encode_step):
     design); then a profiler window of sampling steps."""
     S = pred.num_streams
     prompt = corpus(MAIN_BYTES + GEN_PROMPT)[MAIN_BYTES:]  # bytes the model has not seen
-    expect = (per_encode_step[0], per_encode_step[1] - 1, 1)
+    expect = (per_encode_step[0], per_encode_step[1] - 1, *per_encode_step[2:])
     reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1112,7 +1231,7 @@ def phase_generate(name, pred, dev, per_encode_step):
     launches = read_launches()
     want = tuple(GEN_PROMPT * e + GEN_BYTES * g for e, g in zip(per_encode_step, expect))
     if launches != want:
-        raise RuntimeError(f"phase 3 {name} generate: launches (gather, scatter, fused) {launches}, expected {want}: "
+        raise RuntimeError(f"phase 3 {name} generate: launches {LAUNCHES} {launches}, expected {want}: "
                            f"{per_encode_step} an encode step of the prompt, {expect} a sampling step")
     if len(outs) != S or any(len(o) != GEN_BYTES for o in outs):
         raise RuntimeError(f"phase 3 {name} generate: {[len(o) for o in outs]} bytes, expected {GEN_BYTES} a stream")
@@ -1282,10 +1401,11 @@ def flag(argv, name: str) -> int:
 
 
 def step_launches(steps: int, sampling: int = 0):
-    """(gather, scatter, fused) launches of `steps` encode or decode steps
-    and `sampling` sampling steps with PPM and the LSTM: 3 + 2 + 1 and
-    3 + 1 + 1 a step."""
-    return (3 * (steps + sampling), 2 * steps + sampling, steps + sampling)
+    """`LAUNCHES` of `steps` encode or decode steps and `sampling` sampling
+    steps with PPM and the LSTM: 3 + 2 + 1 + 1 + 1 and 3 + 1 + 1 + 1 + 1 a
+    step."""
+    n = steps + sampling
+    return (3 * n, 2 * steps + sampling, n, n, n)
 
 
 def cli_run(argv, what: str, launches=None):
@@ -1307,7 +1427,7 @@ def cli_run(argv, what: str, launches=None):
     if rc != 0:
         raise RuntimeError(f"phase 5 {what}: exit code {rc}")
     if launches is not None and got != tuple(launches):
-        raise RuntimeError(f"phase 5 {what}: launches (gather, scatter, fused) {got}, expected {tuple(launches)}")
+        raise RuntimeError(f"phase 5 {what}: launches {LAUNCHES} {got}, expected {tuple(launches)}")
     return out.getvalue(), wall, got
 
 
@@ -1398,7 +1518,7 @@ def wiki_dump(n_pages: int) -> bytes:
 
 def phase_cli_best(d: str, dev, ref_full_bpb: float, ref_full_inst: dict) -> dict:
     """(a) best_spec() at full width through the command line: compress
-    with analysis, decompress; the round trip exact, 6 launches a byte step
+    with analysis, decompress; the round trip exact, 8 launches a byte step
     each way, the analysis files whole."""
     spec = best_spec()
     data = corpus(CLI_BEST_OFFSET + CLI_BEST_BYTES)[CLI_BEST_OFFSET:]
@@ -1508,16 +1628,16 @@ def phase_cli_wiki(d: str) -> dict:
     dump = wiki_dump(CLI_WIKI_PAGES)
     write_bytes(f("dump.xml"), dump)
     walls, launches = {}, {}
-    cli_run(["wiki-encode", f("dump.xml"), f("dump.gwp")], "wiki-encode", (0, 0, 0))
-    cli_run(["dict-encode", f("dump.gwp"), f("dump.dict")], "dict-encode", (0, 0, 0))
+    cli_run(["wiki-encode", f("dump.xml"), f("dump.gwp")], "wiki-encode", NO_LAUNCHES)
+    cli_run(["dict-encode", f("dump.gwp"), f("dump.dict")], "dict-encode", NO_LAUNCHES)
     expect = step_launches(padded_per(os.path.getsize(f("dump.dict")), flag(CLI_WIKI_ARGS, "--streams"),
                                       flag(CLI_WIKI_ARGS, "--chunk")))
     _, walls["compress"], launches["compress"] = cli_run([*CLI_WIKI_ARGS, "compress", f("dump.dict"), f("dump.gxtc")],
                                                          "wiki chain compress", expect)
     _, walls["decompress"], launches["decompress"] = cli_run(
         [*CLI_WIKI_ARGS, "decompress", f("dump.gxtc"), f("back.dict")], "wiki chain decompress", expect)
-    cli_run(["dict-decode", f("back.dict"), f("back.gwp")], "dict-decode", (0, 0, 0))
-    cli_run(["wiki-decode", f("back.gwp"), f("back.xml")], "wiki-decode", (0, 0, 0))
+    cli_run(["dict-decode", f("back.dict"), f("back.gwp")], "dict-decode", NO_LAUNCHES)
+    cli_run(["wiki-decode", f("back.gwp"), f("back.xml")], "wiki-decode", NO_LAUNCHES)
     if read_bytes(f("back.xml")) != dump:
         raise RuntimeError("phase 5 wiki chain: the output is not the input")
     out = {"dump_bytes": len(dump), "wiki_bytes": os.path.getsize(f("dump.gwp")),
@@ -1534,9 +1654,9 @@ def phase_cli(root: str, cpu_proc, cpu_dir: str, dev, ref_full_bpb: float, ref_f
            "cross": phase_cli_cross(root, cpu_proc, cpu_dir)}
     runs = [out["best"]["launches_encode"], out["best"]["launches_decode"], *out["wiki"]["launches"].values(),
             *out["cross"]["launches"].values()]
-    out["launches"] = [sum(r[i] for r in runs) for i in range(3)]
+    out["launches"] = [sum(r[i] for r in runs) for i in range(len(WRAPPERS))]
     out["wall_s"] = time.perf_counter() - t0
-    log(f"phase 5: the command line in {out['wall_s']:.1f} s, launches (gather, scatter, fused) {out['launches']}")
+    log(f"phase 5: the command line in {out['wall_s']:.1f} s, launches {LAUNCHES} {out['launches']}")
     return out
 
 
@@ -1559,7 +1679,7 @@ def timed(fn):
 def phase_shards(spec, dev, d: str) -> dict:
     """(a) SHARDS shards of ref-full on the one card, in this process, beside
     the unsharded predictor: the same archive, each decodes the other's, the
-    same checkpoint file, and every shard launches an unsharded step's 6
+    same checkpoint file, and every shard launches an unsharded step's 8
     kernels at every byte step."""
     data = corpus(SHARD_OFFSET + SHARD_BYTES)[SHARD_OFFSET:]
     per = padded_per(SHARD_BYTES, STREAMS, SHARD_CHUNK)
@@ -1594,8 +1714,8 @@ def phase_shards(spec, dev, d: str) -> dict:
     for run, got in launches.items():
         n = SHARDS if run.startswith("sharded") else 1
         if got != step_launches(n * per):
-            raise RuntimeError(f"phase 6 shards: {run} launched (gather, scatter, fused) {got} in {per} byte steps of "
-                               f"{n} shard(s), expected {step_launches(n * per)}: 3 + 2 + 1 a shard and step")
+            raise RuntimeError(f"phase 6 shards: {run} launched {LAUNCHES} {got} in {per} byte steps of "
+                               f"{n} shard(s), expected {step_launches(n * per)}: 3 + 2 + 1 + 1 + 1 a shard and step")
     out = {"spec": "ref-full", "streams": STREAMS, "shards": SHARDS, "mesh": [str(x) for x in sharding.mesh.devices],
            "bytes": len(data), "chunk": SHARD_CHUNK, "byte_steps": per, "archive_bytes": len(blobs["sharded"]),
            "same_archive": True, "cross_decodes": True, "same_checkpoint": True,
@@ -1603,7 +1723,7 @@ def phase_shards(spec, dev, d: str) -> dict:
            "ms_per_byte_step": {k: 1e3 * v / per for k, v in walls.items()},
            "sharded_over_unsharded_encode_wall": walls["sharded encode"] / walls["unsharded encode"],
            "peak_gb": peak_gb, "launches": {k: list(v) for k, v in launches.items()},
-           "launches_per_shard_and_step": 6}
+           "launches_per_shard_and_step": sum(step_launches(1))}
     log(f"phase 6: two shards on one card {json.dumps(out)}")
     return out
 
@@ -1634,7 +1754,7 @@ def rank_main(rank: int, world: int, port: int, d: str) -> None:
 
 def phase_ranks(d: str, main_full: dict) -> dict:
     """(b) RANKS processes over gloo on the one card: each returns phase 3's
-    ref-full archive byte for byte and launches 6 kernels a byte step; the
+    ref-full archive byte for byte and launches 8 kernels a byte step; the
     aggregate encode bytes/s beside phase 3's one process (a reading)."""
     port = free_port()
     procs = [subprocess.Popen([sys.executable, "-c", f"import chip_smoke as cs; cs.rank_main({r}, {RANKS}, {port}, {d!r})"],
@@ -1666,7 +1786,7 @@ def phase_ranks(d: str, main_full: dict) -> dict:
            "chunk": CHUNK, "archive_bytes": len(main_full["archive"]), "same_archive_as_phase_3": True,
            "aggregate_encode_bytes_per_s": MAIN_BYTES / max(r["encode_s"] for r in rows),
            "one_process_encode_bytes_per_s": main_full["encode_bytes_per_s"], "processes_wall_s": wall,
-           "launches": [sum(r["launches"][i] for r in rows) for i in range(3)], "per_rank": rows}
+           "launches": [sum(r["launches"][i] for r in rows) for i in range(len(WRAPPERS))], "per_rank": rows}
     log(f"phase 6: {RANKS} ranks on one card {json.dumps(out)}")
     return out
 
@@ -1684,9 +1804,9 @@ def phase_nccl(d: str) -> dict:
         distributed.dist.destroy_process_group()
     if blob != read_bytes(os.path.join(d, f"{NCCL_SPEC}.gxtc")):
         raise RuntimeError(f"phase 6 nccl: the container is not phase 4's {NCCL_SPEC} GPU archive")
-    per = n_bytes // 2
-    if launches != (per, per, per):
-        raise RuntimeError(f"phase 6 nccl: launched {launches} in {per} byte steps, expected 1 + 1 + 1 a step")
+    per, per_step = n_bytes // 2, launches_per_step(spec12)
+    if launches != tuple(e * per for e in per_step):
+        raise RuntimeError(f"phase 6 nccl: launched {launches} in {per} byte steps, expected {per_step} a step")
     out = {"spec": f"{NCCL_SPEC} scaled-12", "ranks": 1, "backend": backend, "streams": 2, "bytes": n_bytes,
            "chunk": chunk, "archive_bytes": len(blob), "same_archive_as_phase_4": True, "wall_s": wall,
            "launches": list(launches)}
@@ -1709,7 +1829,7 @@ def bench_run(argv, what: str, per_step, phase: int = 7) -> dict:
     """`bench.main(argv)` in this process, so that the launch counters see
     its kernels (set to 0 just before, read just after), its printed rows
     logged; the byte steps each profile's run made (`bench_steps`) must have
-    launched `per_step` (gather, scatter, fused) kernels each, a tuple a
+    launched `per_step` (`LAUNCHES`) kernels each, a tuple a
     profile of `--profile` (one tuple: every profile). Returns the first
     run's config, result and trace rows, passes and roofline, with every
     run's in `runs`, the launches and the device bytes held before."""
@@ -1729,7 +1849,7 @@ def bench_run(argv, what: str, per_step, phase: int = 7) -> dict:
     per_step = [per_step] * (len(starts) - 1) if isinstance(per_step[0], int) else list(per_step)
     if len(per_step) != len(starts) - 1:
         raise RuntimeError(f"phase {phase} {what}: {len(starts) - 1} runs for {len(per_step)} launch counts")
-    runs, want = [], (0, 0, 0)
+    runs, want = [], NO_LAUNCHES
     for k, (a, b) in enumerate(zip(starts, starts[1:])):
         run = rows[a:b]
         config, result = run[0], run[-1]
@@ -1763,7 +1883,7 @@ def bench_run(argv, what: str, per_step, phase: int = 7) -> dict:
         runs.append({"config": config, "result": result, "trace": traces[0] if traces else None, "passes": passes,
                      "byte_steps": steps, "roofline": roof})
     if got != want:
-        raise RuntimeError(f"phase {phase} {what}: launches (gather, scatter, fused) {got} in "
+        raise RuntimeError(f"phase {phase} {what}: launches {LAUNCHES} {got} in "
                            f"{sum(r['byte_steps'] for r in runs)} byte steps, expected {want}: {per_step} a step")
     return {**runs[0], "runs": runs, "launches": list(got), "byte_steps": sum(r["byte_steps"] for r in runs),
             "held_before_gb": held_gb}
@@ -1830,7 +1950,7 @@ def phase_bench(dev) -> dict:
     runs = [a, a2, b, *profiles.values()]
     cfg, res = b["config"], b["result"]
     out = {"warm_lane": lane, "a": a, "a_read": a2, "checkpoint": checkpoint, "b": b, "profiles": profiles,
-           "launches": [sum(r["launches"][i] for r in runs) for i in range(3)],
+           "launches": [sum(r["launches"][i] for r in runs) for i in range(len(WRAPPERS))],
            "auto": {"streams": cfg["streams"], "state_estimate_gb": cfg["state_estimate_bytes"] / 1e9,
                     "headroom_gb": cfg["headroom_bytes"] / 1e9, "budget_gb": cfg["budget_bytes"] / 1e9,
                     "peak_gb": res["peak_gb"], "peak_reserved_gb": res["peak_reserved_gb"],
@@ -1971,7 +2091,7 @@ def phase_variants(dev, d: str, procs: dict) -> dict:
     GPU against CPU at scaled-12 (the CPU's processes `procs`, started
     before); then the bench with two variant profiles in one call, the
     first predictor's device memory given back before the second is built."""
-    out, launches = {}, [0, 0, 0]
+    out, launches = {}, list(NO_LAUNCHES)
     for name in VARIANTS:
         spec = variant_spec(name)
         row = {"fused": variant_fused(name, spec, dev), "roundtrip": variant_roundtrip(name, spec, dev),
@@ -2066,7 +2186,7 @@ def sweep_run(argv, what: str) -> dict:
     its kernels (set to 0 just before, read just after), its rows logged:
     exit code 0, and the byte steps its rows ran (`byte_steps`) each
     launching the spec's kernels (every sweep's spec has PPM and the LSTM:
-    3 + 2 + 1)."""
+    3 + 2 + 1 + 1 + 1)."""
     out = io.StringIO()
     torch.cuda.empty_cache()
     reset_launches()
@@ -2082,7 +2202,7 @@ def sweep_run(argv, what: str) -> dict:
     steps = sum(r["byte_steps"] for r in body)
     want = tuple(c * steps for c in launches_per_step(reference_spec()))
     if not steps or got != want:
-        raise RuntimeError(f"phase 9 {what}: launches (gather, scatter, fused) {got} in {steps} byte steps, "
+        raise RuntimeError(f"phase 9 {what}: launches {LAUNCHES} {got} in {steps} byte steps, "
                            f"expected {want}")
     return {"rows": body, "launches": list(got), "byte_steps": steps}
 
@@ -2122,7 +2242,7 @@ def phase_sweeps(dev) -> dict:
     kernels = {f"{name} S={S}": sweep_kernels(name, spec, S, dev)
                for name, spec, S in (("ref", reference_spec(), 1), ("best", best_spec(), 1),
                                      ("scaled-12", sweeps.scaling_spec(12), SWEEP_WIDE))}
-    runs, launches = {}, [0, 0, 0]
+    runs, launches = {}, list(NO_LAUNCHES)
     for what, argv in SWEEP_RUNS:
         t0 = time.perf_counter()
         run = sweep_run(argv, what)
@@ -2160,8 +2280,10 @@ def main() -> int:
     bench_only = sys.argv[1:] == ["--bench-only"]
     variants_only = sys.argv[1:] == ["--variants-only"]
     sweeps_only = sys.argv[1:] == ["--sweeps-only"]
-    if sys.argv[1:] and not (fused_only or bench_only or variants_only or sweeps_only):
-        print("usage: chip_smoke.py [--fused-only | --bench-only | --variants-only | --sweeps-only]", file=sys.stderr)
+    ppm_only = sys.argv[1:] == ["--ppm-only"]
+    if sys.argv[1:] and not (fused_only or bench_only or variants_only or sweeps_only or ppm_only):
+        print("usage: chip_smoke.py [--fused-only | --bench-only | --variants-only | --sweeps-only | --ppm-only]",
+              file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's GPU path cannot run here", file=sys.stderr)
@@ -2189,6 +2311,11 @@ def main() -> int:
         if "Compiling entry" in line or "registers" in line or "spill" in line or "smem" in line:
             log(f"  ptxas: {line.strip()}")
 
+    if ppm_only:
+        ppm_out = phase_ppm(dev)
+        print(smi, flush=True)
+        print(json.dumps({"ok": True, "partial": "the PPM kernels only", "ppm": ppm_out}), flush=True)
+        return 0
     if bench_only:
         bench_out = phase_bench(dev)
         elapsed("phase 7 done")
@@ -2234,6 +2361,7 @@ def main() -> int:
     fused_full_row = phase_fused_heads("ref-full", pred, dev)
     del pred
     torch.cuda.empty_cache()
+    ppm_out = phase_ppm(dev)
     elapsed("phase 2 done")
     main_out = {name: phase_main(name, spec, dev) for name, spec in specs.items()}
     elapsed("phase 3 done")
@@ -2378,6 +2506,24 @@ def main() -> int:
                                                  "max_abs_err", "instantiation")}
                    for k, v in sweeps_out["kernels"].items()},
     }]
+    for i, which in ((3, "update"), (4, "predict")):
+        by_path = launches(i)
+        ref = ppm_out["ref"][which]
+        kernels.append({
+            "name": f"ppm_{which}",
+            "route": "cuda",
+            "source": SOURCES["ppm"],
+            # gmix_tpu computes the PPM cascade in plain jnp, outside any kernel
+            "replaces": None,
+            "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
+            "launches_per_replay": per_replay(i),
+            "max_abs_err": 0.0,
+            **{k: ref[k] for k in ("ms", "call_ms", "plain_ms", "plain_graph_ms", "bound_ms", "bound_by",
+                                   "bytes_moved", "float_ops")},
+            "streams": ppm_out["ref"]["streams"],
+            "best": {k: ppm_out["best"][which][k] for k in ("ms", "plain_graph_ms", "bound_ms")},
+        })
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

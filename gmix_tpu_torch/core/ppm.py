@@ -3,9 +3,13 @@ exclusion cascade with learned escapes, the per-byte count update and the
 next-byte distribution.
 
 Port of `gmix_tpu.core.step._ppm_rows`, `_ppm_cascade`, `_ppm_update` and
-`_ppm_predict`, in eager torch as gmix_tpu computes them outside any kernel.
-The arena rows move through the kernels of `ops/rowmove.py`; the bit head
-that reads `ppm_probs` is inside `core/fused.py:fused_substeps`.
+`_ppm_predict`. The arena rows move through the kernels of `ops/rowmove.py`;
+between the movers, the count update and the prediction are one launch each
+of csrc/ppm.cu's kernels on a CUDA device (`ppm_update_kernel`,
+`ppm_predict_kernel`), and on the CPU the plain versions below, in eager
+torch as gmix_tpu computes them outside any kernel (`ppm_update_plain`,
+`ppm_predict_plain`), which the kernels equal bit for bit. The bit head that
+reads `ppm_probs` is inside `core/fused.py:fused_substeps`.
 
 Held bitwise against gmix_tpu run eagerly, so every float op is its own
 torch op in the reference's order (core/step.py's docstring). What the port
@@ -30,19 +34,23 @@ does differently changes no bit:
 """
 from __future__ import annotations
 
+import ctypes
 from typing import Dict, Tuple
 
+import numpy as np
 import torch
 
 from .. import obs
 from ..ops.rowmove import gather_rows, scatter_rows
 from ..ops.sigmoid import logistic, logit
+from ..utils.build import check_launch, load_kernels
 from .fused import _FLT_MIN, _tree_sum
 from .meta import PPM_ROW_W, PPM_TAG_LANE
 
 F32 = torch.float32
 I16 = torch.int16
 I32 = torch.int32
+I64 = torch.int64
 
 
 def _flush(x: torch.Tensor) -> torch.Tensor:
@@ -108,17 +116,16 @@ def _ppm_cascade(rows_f: torch.Tensor, see: torch.Tensor, sp, plan):
     return mrow, total, has, esc, oh, excl
 
 
-@obs.in_part("ppm")
-def _ppm_update(stm: Dict, completed: torch.Tensor, plan) -> None:
-    """Per-byte PPM learn against the contexts in `stm["ctx"]`: escape
-    correction, update exclusion, count increment and rescale. One gather and
-    one scatter of `ppm_tbl` rows; updates `stm` in place."""
+def ppm_update_plain(raw_rows: torch.Tensor, cv: torch.Tensor, completed: torch.Tensor, see: torch.Tensor,
+                     plan) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The count update between the gather and the scatter, op by op: escape
+    correction, update exclusion, count increment and rescale of the
+    gathered rows `raw_rows` (S, NO, PPM_ROW_W) of the contexts `cv` with the
+    completed bytes `completed` (S,). Returns (the rows to scatter, the new
+    `ppm_see`)."""
     sp = plan.meta.spec.ppm
-    cv, h = _ppm_index(stm["ctx"], plan)
     S, NO = cv.shape
-    raw_rows = gather_rows(stm["ppm_tbl"], h)
     rows, my_tag, old_tag, _ = _ppm_rows(raw_rows, cv)
-    see = stm["ppm_see"]
     mrow, _, has, esc, bucket_oh, _ = _ppm_cascade(rows.to(F32), see, sp, plan)
 
     # found: the byte was codable at the order under exclusion; the cascade
@@ -133,7 +140,7 @@ def _ppm_update(stm: Dict, completed: torch.Tensor, plan) -> None:
     exercised = has & ~higher_found
     target = (~found).to(F32)
     delta = torch.where(exercised, plan.ppm_see_lr * (target - esc), 0.0)
-    stm["ppm_see"] = _flush(_flush(see) + bucket_oh * delta[:, :, None])
+    new_see = _flush(_flush(see) + bucket_oh * delta[:, :, None])
 
     # count update: orders at and above the coded order only
     if sp.update_exclusion:
@@ -149,19 +156,19 @@ def _ppm_update(stm: Dict, completed: torch.Tensor, plan) -> None:
     counts_w = torch.where(inc_on[:, :, None], rows_i.to(I16), raw_rows[:, :, :256])
     tag_w = torch.where(inc_on, my_tag, old_tag).to(I16)
     pad = torch.zeros((S, NO, PPM_ROW_W - 257), dtype=I16, device=cv.device)
-    scatter_rows(stm["ppm_tbl"], h, torch.cat([counts_w, tag_w[:, :, None], pad], dim=2))
+    return torch.cat([counts_w, tag_w[:, :, None], pad], dim=2), new_see
 
 
-@obs.in_part("ppm")
-def _ppm_predict(stm: Dict, raw_rows: torch.Tensor, cv: torch.Tensor, plan) -> None:
-    """Next-byte distribution from the gathered rows of the current
-    contexts: highest order first with symbol exclusion and adaptive
+def ppm_predict_plain(raw_rows: torch.Tensor, cv: torch.Tensor, see: torch.Tensor,
+                      plan) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The next-byte distribution from the gathered rows of the contexts
+    `cv`, op by op: highest order first with symbol exclusion and adaptive
     escapes; the leftover mass goes uniformly to the symbols no order saw.
-    Sets `ppm_probs`, `ppm_top` and `ppm_bot` in `stm`."""
+    Returns (ppm_probs (S, 256), ppm_top, ppm_bot)."""
     sp = plan.meta.spec.ppm
     S, NO = cv.shape
     rows = _ppm_rows(raw_rows, cv)[0]
-    mrow, total, has, esc, _, excl = _ppm_cascade(rows.to(F32), stm["ppm_see"], sp, plan)
+    mrow, total, has, esc, _, excl = _ppm_cascade(rows.to(F32), see, sp, plan)
 
     keep = 1.0 - esc
     w = torch.ones((S,), dtype=F32, device=cv.device)
@@ -179,8 +186,125 @@ def _ppm_predict(stm: Dict, raw_rows: torch.Tensor, cv: torch.Tensor, plan) -> N
     nex = free.sum(dim=1)
     uni = torch.where((nex > 0)[:, None], free / torch.clamp(nex, min=1.0)[:, None], plan.ppm_uniform)
     p = p + w[:, None] * uni
-    stm.update(
-        ppm_probs=p,
-        ppm_top=torch.full((S,), 255, dtype=I32, device=cv.device),
-        ppm_bot=torch.zeros((S,), dtype=I32, device=cv.device),
-    )
+    return (p, torch.full((S,), 255, dtype=I32, device=cv.device),
+            torch.zeros((S,), dtype=I32, device=cv.device))
+
+
+# ---------------------------------------------------------------------------
+# the two kernels (csrc/ppm.cu): the same functions on CUDA tensors
+# ---------------------------------------------------------------------------
+
+# the most orders and escape buckets the kernels take (csrc/ppm.cu:
+# kMaxOrders, kMaxBuckets)
+MAX_ORDERS, MAX_BUCKETS = 16, 64
+_PTRS = ("raw", "cv", "completed", "see", "rows_out", "see_out", "probs", "top", "bot")
+_INTS = ("S", "NO", "NB", "inc", "rescale_total", "exclusion", "update_exclusion")
+
+
+class _PpmArgs(ctypes.Structure):
+    """GmixPpmArgs of csrc/ppm.cu."""
+
+    _fields_ = [(n, ctypes.c_void_p) for n in _PTRS] + [(n, ctypes.c_int64) for n in _INTS] + [("see_lr", ctypes.c_float)]
+
+
+def _launch(what: str, entry: str, plan, tensors: Dict[str, Tuple[torch.Tensor, tuple, torch.dtype]]) -> None:
+    """One launch of the kernel `entry` (its C function) on the CUDA tensors
+    `tensors` (name: (tensor, shape, dtype)), checked first."""
+    sp = plan.meta.spec.ppm
+    dev = tensors["raw"][0].device
+    if dev.type != "cuda":
+        raise ValueError(f"{what}: rows on {dev}, expected a CUDA or CPU tensor")
+    if not (1 <= len(sp.orders) <= MAX_ORDERS and 1 <= sp.see_buckets <= MAX_BUCKETS):
+        raise ValueError(f"{what}: the kernel takes 1 to {MAX_ORDERS} orders and 1 to {MAX_BUCKETS} escape buckets, "
+                         f"got {len(sp.orders)} and {sp.see_buckets}")
+    args = _PpmArgs(S=tensors["raw"][0].shape[0], NO=len(sp.orders), NB=sp.see_buckets, inc=sp.inc,
+                    rescale_total=sp.rescale_total, exclusion=int(sp.exclusion),
+                    update_exclusion=int(sp.update_exclusion), see_lr=float(np.float32(sp.see_lr)))
+    for name, (t, shape, dtype) in tensors.items():
+        if t.device != dev or t.dtype != dtype or tuple(t.shape) != shape or not t.is_contiguous():
+            raise ValueError(f"{what}: {name} is {tuple(t.shape)} {t.dtype} on {t.device} (contiguous: "
+                             f"{t.is_contiguous()}), expected {shape} {dtype} on {dev}, contiguous")
+        setattr(args, name, t.data_ptr())
+    lib = load_kernels()
+    with torch.cuda.device(dev):
+        rc = getattr(lib, entry)(ctypes.byref(args), torch.cuda.current_stream(dev).cuda_stream)
+    check_launch(lib, rc, what)
+
+
+def ppm_update_kernel(raw_rows: torch.Tensor, cv: torch.Tensor, completed: torch.Tensor, see: torch.Tensor,
+                      plan) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`ppm_update_plain` as one launch of csrc/ppm.cu's update kernel, on
+    CUDA tensors."""
+    S, NO = cv.shape
+    rows_out, see_out = torch.empty_like(raw_rows), torch.empty_like(see)
+    _launch("ppm_update", "gmix_ppm_update", plan, {
+        "raw": (raw_rows, (S, NO, PPM_ROW_W), I16), "cv": (cv, (S, NO), I64), "completed": (completed, (S,), I64),
+        "see": (see, (S, NO, plan.meta.spec.ppm.see_buckets), F32), "rows_out": (rows_out, (S, NO, PPM_ROW_W), I16),
+        "see_out": (see_out, tuple(see.shape), F32)})
+    return rows_out, see_out
+
+
+def ppm_predict_kernel(raw_rows: torch.Tensor, cv: torch.Tensor, see: torch.Tensor,
+                       plan) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """`ppm_predict_plain` as one launch of csrc/ppm.cu's prediction kernel,
+    on CUDA tensors."""
+    S, NO = cv.shape
+    dev = raw_rows.device
+    p = torch.empty((S, 256), dtype=F32, device=dev)
+    top, bot = torch.empty((S,), dtype=I32, device=dev), torch.empty((S,), dtype=I32, device=dev)
+    _launch("ppm_predict", "gmix_ppm_predict", plan, {
+        "raw": (raw_rows, (S, NO, PPM_ROW_W), I16), "cv": (cv, (S, NO), I64),
+        "see": (see, (S, NO, plan.meta.spec.ppm.see_buckets), F32), "probs": (p, (S, 256), F32),
+        "top": (top, (S,), I32), "bot": (bot, (S,), I32)})
+    return p, top, bot
+
+
+def prepare(device) -> None:
+    """Load both kernels on `device` (a CUDA device), as their first launch
+    would, before a CUDA graph capture records a launch."""
+    lib = load_kernels()
+    with torch.cuda.device(torch.device(device)):
+        check_launch(lib, lib.gmix_ppm_prepare(), "ppm prepare")
+
+
+def ppm_update_rows(raw_rows: torch.Tensor, cv: torch.Tensor, completed: torch.Tensor, see: torch.Tensor,
+                    plan) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The count update between the gather and the scatter: (the rows to
+    scatter, the new `ppm_see`). The kernel on CUDA tensors, the plain
+    version on CPU tensors."""
+    if raw_rows.device.type == "cpu":
+        return ppm_update_plain(raw_rows, cv, completed, see, plan)
+    out = ppm_update_kernel(raw_rows, cv, completed, see, plan)
+    obs.launched("ppm_update")
+    return out
+
+
+def ppm_predict_probs(raw_rows: torch.Tensor, cv: torch.Tensor, see: torch.Tensor,
+                      plan) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The next-byte distribution from the gathered rows: (ppm_probs,
+    ppm_top, ppm_bot). The kernel on CUDA tensors, the plain version on CPU
+    tensors."""
+    if raw_rows.device.type == "cpu":
+        return ppm_predict_plain(raw_rows, cv, see, plan)
+    out = ppm_predict_kernel(raw_rows, cv, see, plan)
+    obs.launched("ppm_predict")
+    return out
+
+
+@obs.in_part("ppm")
+def _ppm_update(stm: Dict, completed: torch.Tensor, plan) -> None:
+    """Per-byte PPM learn against the contexts in `stm["ctx"]`: one gather of
+    `ppm_tbl` rows, the count update (`ppm_update_rows`) and one scatter;
+    updates `stm` in place."""
+    cv, h = _ppm_index(stm["ctx"], plan)
+    rows_w, stm["ppm_see"] = ppm_update_rows(gather_rows(stm["ppm_tbl"], h), cv, completed, stm["ppm_see"], plan)
+    scatter_rows(stm["ppm_tbl"], h, rows_w)
+
+
+@obs.in_part("ppm")
+def _ppm_predict(stm: Dict, raw_rows: torch.Tensor, cv: torch.Tensor, plan) -> None:
+    """Next-byte distribution from the gathered rows of the current
+    contexts (`ppm_predict_probs`). Sets `ppm_probs`, `ppm_top` and
+    `ppm_bot` in `stm`."""
+    p, top, bot = ppm_predict_probs(raw_rows, cv, stm["ppm_see"], plan)
+    stm.update(ppm_probs=p, ppm_top=top, ppm_bot=bot)

@@ -9,13 +9,14 @@ The PPM byte model's boundary work is `core/ppm.py`, the LSTM byte model is
 `core/lstm.py`. This module keeps what surrounds them, in eager torch, with
 the arena rows moved by the kernels of `ops/rowmove.py`. On a GPU a byte
 step is therefore 3 hand-written launches (one gather of every arena, the
-sub-steps, one scatter of every arena), and 5 with PPM, whose count update
-gathers and scatters its own rows first; plus the eager boundary, packing
-and byte-end ops. With PPM and an LSTM it is 6: the LSTM's forward pass reads
+sub-steps, one scatter of every arena), and 7 with PPM, whose count update
+gathers and scatters its own rows first, with its update kernel between
+them, and whose prediction is a kernel too; plus the eager boundary, packing
+and byte-end ops. With PPM and an LSTM it is 8: the LSTM's forward pass reads
 the PPM prediction and sets the `lstm_ctx` context, which an indirect model
 may be keyed on, so the rows of `ppm_tbl` are gathered on their own before
 the prediction, and the other arenas after the forward pass. A sampling step
-(generation: learn off) makes no byte-end scatter: 2, 4 and 5 launches.
+(generation: learn off) makes no byte-end scatter: 2, 6 and 7 launches.
 
 The JAX function is the reference; the port keeps its expression order op
 for op, because the decoder must replay the encoder's float updates bit for
@@ -71,6 +72,7 @@ from .fused import (  # noqa: F401  (_tri_solve: held against gmix_tpu's by the 
 )
 from .lstm import LstmPlan, _lstm_bptt, _lstm_forward, _lstm_perceive
 from .meta import ROLL_BASE, Meta
+from . import ppm as _ppm
 from .ppm import _ppm_index, _ppm_predict, _ppm_update
 
 I32 = torch.int32
@@ -635,6 +637,8 @@ class CapturedStep:
 
     def __init__(self, plan: StepPlan, body: Callable[[], None], variant: str):
         _rowmove.prepare(plan.device)
+        if plan.meta.spec.ppm is not None:
+            _ppm.prepare(plan.device)
         pool, stream = plan.graph_pool()
         self.graph = torch.cuda.CUDAGraph()
         t0 = time.perf_counter()

@@ -166,6 +166,13 @@ def load_kernels() -> ctypes.CDLL:
         # current device, before a CUDA graph capture
         lib.gmix_fused_substeps_prepare.argtypes = [ptr]
         lib.gmix_fused_substeps_prepare.restype = ctypes.c_int
+        # (GmixPpmArgs*, stream); core/ppm.py declares the structure
+        for name in ("gmix_ppm_update", "gmix_ppm_predict"):
+            fn = getattr(lib, name)
+            fn.argtypes = [ptr, ptr]
+            fn.restype = ctypes.c_int
+        lib.gmix_ppm_prepare.argtypes = []
+        lib.gmix_ppm_prepare.restype = ctypes.c_int
         lib.gmix_cuda_error_string.argtypes = [ctypes.c_int]
         lib.gmix_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib

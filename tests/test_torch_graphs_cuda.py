@@ -21,7 +21,8 @@ from gmix_tpu_torch.parallel.mesh import make_mesh, stream_sharding
 from gmix_tpu_torch.utils.serialization import copy_state
 
 S = 2
-KERNELS = ("gather_rows", "gather_rows_many", "scatter_rows", "scatter_rows_many", "fused_substeps")
+KERNELS = ("gather_rows", "gather_rows_many", "scatter_rows", "scatter_rows_many", "fused_substeps", "ppm_update",
+           "ppm_predict")
 
 
 @pytest.fixture
@@ -133,6 +134,43 @@ def test_graphs_equal_the_eager_loop(cuda, name):
     want = {("encode", "byte")} | ({("encode", "wrap")} if spec.lstm is not None else set())
     assert set(fn.graphs) == want
     assert set(t_step.get_gen_chunk_fn(p.plan, 16).graphs) == {("sample",)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["tiny-lstm", "tiny-ppm"])
+def test_ppm_kernels_in_the_graphs_give_the_cpu_archive(cuda, name):
+    """The PPM count update and prediction as csrc/ppm.cu's kernels inside
+    the captured graphs (the prediction's rows gathered alone before the
+    LSTM, or in the grouped gather without it): encode and decode of 300
+    bytes on the card give the archive and the state of the eager CPU path,
+    which runs the plain versions, and every byte step launches each kernel
+    once."""
+    spec = gt.tiny_spec(True)
+    if name == "tiny-ppm":
+        spec = dataclasses.replace(spec, lstm=None)
+    data, chunk = _corpus(300, 8192), 50
+    per = len(data) // S
+
+    def launched(before):
+        now = obs.launches()
+        return [now.get(k, 0) - before.get(k, 0) for k in ("ppm_update", "ppm_predict")]
+
+    p = codec.Predictor(spec, S, device=cuda)
+    c0 = obs.launches()
+    archive = gt.compress_bytes(data, spec, S, chunk, pred=p)
+    assert launched(c0) == [per, per]
+    host = codec.Predictor(spec, S, device="cpu")
+    assert archive == gt.compress_bytes(data, spec, S, chunk, pred=host)
+    # the analysis leaves go through log2f on the card and torch.log2 on the
+    # CPU, which need not agree to the bit; every other leaf is bitwise
+    card, cpu = _host_state(p.state), _host_state(host.state)
+    analysis = {"metrics.ent", "metrics.ema"}
+    for k in analysis & set(card):
+        torch.testing.assert_close(card.pop(k), cpu.pop(k), rtol=1e-6, atol=0)
+    _assert_same(card, cpu)
+    c0 = obs.launches()
+    assert gt.decompress_bytes(archive, spec, chunk, pred=codec.Predictor(spec, S, device=cuda)) == data
+    assert launched(c0) == [per, per]
 
 
 @pytest.mark.cuda

@@ -479,3 +479,116 @@ def test_fused_wrapper_rejects_what_the_kernel_does_not_take(cuda):
         fused.fused_substeps(meta, consts, {**fin, "mt_pred": fin["mt_pred"].cpu()}, True, True)
     with pytest.raises(ValueError, match="contiguous"):
         fused.fused_substeps(meta, consts, {**fin, "sc": fin["sc"].T.contiguous().T}, True, True)
+
+
+# ---------------------------------------------------------------------------
+# the PPM kernels (csrc/ppm.cu): count update and prediction
+# ---------------------------------------------------------------------------
+
+PPM_SPECS = ("gmix-ref", "gmix-best", "no-exclusion", "no-update-exclusion")
+
+
+def _ppm_spec(name):
+    import dataclasses
+
+    import gmix_tpu_torch as gt
+
+    spec = gt.best_spec() if name == "gmix-best" else gt.reference_spec()
+    change = {"no-exclusion": {"exclusion": False}, "no-update-exclusion": {"update_exclusion": False}}.get(name, {})
+    return dataclasses.replace(spec, ppm=dataclasses.replace(spec.ppm, **change))
+
+
+def _ppm_plans(name, streams, dev):
+    """The spec's step plans on the CPU and on `dev`: the kernels read only
+    the PPM fields, the plain versions the plan's PPM constants."""
+    from gmix_tpu_torch.core.meta import build_meta
+    from gmix_tpu_torch.core.step import StepPlan
+
+    meta = build_meta(_ppm_spec(name))
+    return StepPlan(meta, streams, "cpu"), StepPlan(meta, streams, dev)
+
+
+def _ppm_tensors(inputs, dev):
+    return {k: torch.as_tensor(v.view(np.int16) if v.dtype == np.uint16 else v, device=dev) for k, v in inputs.items()}
+
+
+def _bits_equal(a, b):
+    a, b = a.cpu().contiguous(), b.cpu().contiguous()
+    assert (a.shape, a.dtype) == (b.shape, b.dtype)
+    return torch.equal(a.view(torch.int32) if a.dtype == torch.float32 else a,
+                       b.view(torch.int32) if b.dtype == torch.float32 else b)
+
+
+def _check_ppm_kernels(name, inputs, dev):
+    """Both kernels on `inputs` against the plain versions on the CPU and on
+    the card, bit for bit: the rows to scatter, `ppm_see`, `ppm_probs`, top
+    and bottom; one launch each, counted; no input written."""
+    from gmix_tpu_torch.core import ppm
+
+    S = inputs["cv"].shape[0]
+    cpu_plan, plan = _ppm_plans(name, S, dev)
+    host, t = _ppm_tensors(inputs, "cpu"), _ppm_tensors(inputs, dev)
+    kept = {k: v.clone() for k, v in t.items()}
+    n0 = (_launches("ppm_update"), _launches("ppm_predict"))
+    got = {}
+    got["rows"], got["see"] = ppm.ppm_update_rows(t["raw"], t["cv"], t["completed"], t["see"], plan)
+    got["probs"], got["top"], got["bot"] = ppm.ppm_predict_probs(t["raw"], t["cv"], t["see"], plan)
+    torch.cuda.synchronize()
+    assert (_launches("ppm_update"), _launches("ppm_predict")) == (n0[0] + 1, n0[1] + 1)
+    for k, v in t.items():
+        assert torch.equal(v, kept[k]), k
+    for where, tt, pl in (("cpu", host, cpu_plan), ("card", t, plan)):
+        want = dict(zip(("rows", "see"), ppm.ppm_update_plain(tt["raw"], tt["cv"], tt["completed"], tt["see"], pl)))
+        want.update(zip(("probs", "top", "bot"), ppm.ppm_predict_plain(tt["raw"], tt["cv"], tt["see"], pl)))
+        for k in want:
+            assert _bits_equal(got[k], want[k]), f"{k} differs from the plain version on the {where}"
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("streams", [1, 54])
+@pytest.mark.parametrize("name", PPM_SPECS)
+def test_ppm_kernels_match_plain(cuda, name, streams):
+    """Rows as the codec leaves them (sparse counts, a few large, tags of
+    other contexts, padding lanes not zero, totals on both sides of the
+    rescale), escape offsets with denormals and signed zeros; at the specs'
+    own PPM settings."""
+    from gmix_tpu_torch.utils.ppm_inputs import random_inputs
+
+    sp = _ppm_spec(name).ppm
+    for seed in range(3):
+        _check_ppm_kernels(name, random_inputs(len(sp.orders), sp.see_buckets, streams, 100 * streams + seed), cuda)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", PPM_SPECS)
+def test_ppm_kernels_at_the_edges(cuda, name):
+    """One stream per corner (`utils/ppm_inputs.py` `edge_inputs`): totals at
+    rescale_total and one above after the increment, lanes at 65535, tags of
+    other contexts, every symbol excluded (the 1/256 fallback), denormal and
+    signed-zero offsets, empty rows, rows of 65535."""
+    from gmix_tpu_torch.utils.ppm_inputs import EDGE_STREAMS, edge_inputs
+
+    sp = _ppm_spec(name).ppm
+    cv = np.random.default_rng(4).integers(0, 2**32, (len(EDGE_STREAMS), len(sp.orders)), dtype=np.int64)
+    got = _check_ppm_kernels(name, edge_inputs(cv, sp.see_buckets, sp.inc, sp.rescale_total), cuda)
+    s = EDGE_STREAMS.index("all-empty")
+    assert (got["probs"][s] == 1 / 256).all()
+    assert (got["top"] == 255).all() and (got["bot"] == 0).all()
+
+
+@pytest.mark.cuda
+def test_ppm_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    from gmix_tpu_torch.core import ppm
+    from gmix_tpu_torch.utils.ppm_inputs import random_inputs
+
+    _, plan = _ppm_plans("gmix-ref", 2, cuda)
+    t = _ppm_tensors(random_inputs(9, 16, 2, 1), cuda)
+    with pytest.raises(ValueError, match="cv is"):
+        ppm.ppm_update_kernel(t["raw"], t["cv"].to(torch.int32), t["completed"], t["see"], plan)
+    with pytest.raises(ValueError, match="see is"):
+        ppm.ppm_predict_kernel(t["raw"], t["cv"], t["see"][:, :, :8].contiguous(), plan)
+    with pytest.raises(ValueError, match="raw is"):
+        ppm.ppm_predict_kernel(t["raw"].transpose(0, 1).contiguous().transpose(0, 1), t["cv"], t["see"], plan)
+    with pytest.raises(ValueError, match="completed is"):
+        ppm.ppm_update_kernel(t["raw"], t["cv"], t["completed"].cpu(), t["see"], plan)

@@ -3,7 +3,9 @@ context update against gmix_tpu's, run eagerly, bitwise, on seeded numpy
 states built to hit the corners: u16 counts of 32768 and more (a row that
 rescales, a row that does not), a tag mismatch, an empty order, every symbol
 excluded by the top order, and a `ppm_see` holding a denormal and a -0.0 in
-the bucket the cascade selects."""
+the bucket the cascade selects; and at the corners that the kernels of
+csrc/ppm.cu are held to on the card (`utils/ppm_inputs.py` `edge_inputs`),
+with the integer sums the kernels take in place of the float tree."""
 import dataclasses
 
 import numpy as np
@@ -19,9 +21,11 @@ from gmix_tpu.core.meta import build_meta as j_build_meta
 import gmix_tpu_torch as gt
 from gmix_tpu_torch.core import ppm as t_ppm
 from gmix_tpu_torch.core import step as t_step
+from gmix_tpu_torch.core.fused import _tree_sum
 from gmix_tpu_torch.core.meta import PPM_ROW_W, PPM_TAG_LANE, build_meta
 from gmix_tpu_torch.ops.rowmove import gather_rows
 from gmix_tpu_torch.state import init_state, state_from_numpy, state_to_numpy
+from gmix_tpu_torch.utils.ppm_inputs import EDGE_STREAMS, U16_MAX, edge_inputs
 
 torch.set_num_threads(1)
 
@@ -97,9 +101,9 @@ def _state(seed):
     return meta, stm, completed
 
 
-def _port(stm_np, **ppm_changes):
+def _port(stm_np, streams=S, **ppm_changes):
     meta = build_meta(_spec(gt, **ppm_changes))
-    plan = t_step.StepPlan(meta, S, "cpu")
+    plan = t_step.StepPlan(meta, streams, "cpu")
     return plan, state_from_numpy(stm_np)
 
 
@@ -229,3 +233,136 @@ def test_ppm_state_leaves_cross_both_ways():
     back = state_to_numpy(port)
     for k, v in seeded.items():
         _same(back[k], v, k)
+
+
+# ---------------------------------------------------------------------------
+# the corners the kernels (csrc/ppm.cu) are held to, here on the plain version
+# ---------------------------------------------------------------------------
+
+EDGE = {name: s for s, name in enumerate(EDGE_STREAMS)}
+EXCLUSIONS = {"both": {}, "no-exclusion": {"exclusion": False}, "no-update-exclusion": {"update_exclusion": False}}
+
+
+def _edge_state(**ppm_changes):
+    """gmix_tpu's meta and short-term state of the tiny PPM spec whose rows
+    at the contexts' indices are `edge_inputs`' corners, one stream each, as
+    numpy arrays; and the completed bytes."""
+    meta = j_build_meta(_spec(g, **ppm_changes))
+    sp = meta.spec.ppm
+    n = len(EDGE_STREAMS)
+    ctx = np.random.default_rng(8).integers(0, 2**32, (n, meta.n_ctx), dtype=np.uint64).astype(np.uint32)
+    cv = ctx[:, meta.ppm_slots].astype(np.int64)
+    edge = edge_inputs(cv, sp.see_buckets, sp.inc, sp.rescale_total)
+    h = (cv & meta.ppm_masks[None, :].astype(np.int64)) + meta.ppm_row_offsets[None, :]
+    tbl = np.zeros((n, meta.ppm_total_rows, PPM_ROW_W), np.uint16)
+    for s in range(n):
+        tbl[s, h[s]] = edge["raw"][s]
+    stm = {"bits_seen": np.zeros((n,), np.uint32), "ctx": ctx, "ppm_tbl": tbl, "ppm_see": edge["see"]}
+    return meta, stm, edge["completed"].astype(np.uint32), h
+
+
+@pytest.mark.parametrize("variant", list(EXCLUSIONS))
+def test_ppm_update_at_the_kernel_edges_matches_eager_gmix_tpu(variant):
+    """The count update at each corner, bitwise: the top order's total after
+    the increment at rescale_total (kept) and one above (halved), a count of
+    65535 that gains the increment, rows of other contexts reclaimed, every
+    symbol excluded, denormal and signed-zero escape offsets, empty rows,
+    rows of 65535 in every lane."""
+    changes = EXCLUSIONS[variant]
+    meta, stm_np, completed, h = _edge_state(**changes)
+    sp = meta.spec.ppm
+    with jax.disable_jit():
+        want = j_step._ppm_update(_j(stm_np), jnp.asarray(completed), meta)
+    plan, stm = _port(stm_np, streams=len(EDGE_STREAMS), **changes)
+    t_ppm._ppm_update(stm, torch.tensor(completed.astype(np.int64)), plan)
+    got = state_to_numpy({"ppm_tbl": stm["ppm_tbl"], "ppm_see": stm["ppm_see"]})
+    _same(got["ppm_tbl"], want["ppm_tbl"], "ppm_tbl")
+    _same(got["ppm_see"], want["ppm_see"], "ppm_see")
+
+    def row(name, i):
+        return got["ppm_tbl"][EDGE[name], h[EDGE[name], i]]
+
+    assert int(row("total-at-rescale", -1)[:256].sum()) == sp.rescale_total
+    assert int(row("total-past-rescale", -1)[:256].sum()) < sp.rescale_total // 2 + 256
+    assert list(row("lane-at-u16-max", -1)[[40, 41]]) == [(U16_MAX + sp.inc + 1) // 2, (U16_MAX + 1) // 2]
+    s = EDGE["tags-reclaimed"]
+    assert int(row("tags-reclaimed", -1)[PPM_TAG_LANE]) == int(stm_np["ctx"][s, meta.ppm_slots[-1]]) >> 24
+    assert (row("all-at-u16-max", -1)[:256] >= (U16_MAX + 1) // 2).all()
+    # the learned offsets never hold a denormal
+    assert not ((got["ppm_see"] != 0) & (np.abs(got["ppm_see"]) < np.finfo(np.float32).tiny)).any()
+
+
+@pytest.mark.parametrize("exclusion", [True, False])
+def test_ppm_predict_at_the_kernel_edges_matches_eager_gmix_tpu(exclusion):
+    """The prediction at each corner, bitwise: with every symbol excluded,
+    order -1 falls back to 1/256 for all; with every row empty, the whole
+    mass is order -1's."""
+    meta, stm_np, _, _ = _edge_state(exclusion=exclusion)
+    with jax.disable_jit():
+        want = j_step._ppm_predict(_j(stm_np), meta)
+    plan, stm = _port(stm_np, streams=len(EDGE_STREAMS), exclusion=exclusion)
+    cv, h = t_ppm._ppm_index(stm["ctx"], plan)
+    t_ppm._ppm_predict(stm, gather_rows(stm["ppm_tbl"], h), cv, plan)
+    for k in ("ppm_probs", "ppm_top", "ppm_bot"):
+        _same(stm[k].numpy(), want[k], k)
+    p = stm["ppm_probs"].numpy()
+    assert (p[EDGE["all-empty"]] == np.float32(1 / 256)).all()
+    assert (p[EDGE["all-excluded"]] > 0).all()
+    np.testing.assert_allclose(p.sum(axis=1), 1.0, rtol=1e-5)
+
+
+@pytest.mark.parametrize("rows", ["all-at-u16-max", "random", "sparse"])
+def test_integer_row_sums_equal_the_float_tree(rows):
+    """The kernels take a row's total as an integer sum converted to float,
+    where the plain version sums a fixed float tree (`_tree_sum`). Counts are
+    u16 and a row has 256 lanes, so a total reaches 256 x 65535 = 16 776 960
+    and no more, below 2^24: every partial sum is an exact float and the two
+    agree bit for bit, as does total + distinct."""
+    rng = np.random.default_rng(3)
+    x = {"all-at-u16-max": np.full((2, 9, 256), U16_MAX),
+         "random": rng.integers(0, U16_MAX + 1, (64, 9, 256)),
+         "sparse": rng.integers(0, U16_MAX + 1, (64, 9, 256)) * (rng.random((64, 9, 256)) < 0.05)}[rows]
+    ints = torch.tensor(x, dtype=torch.int64).sum(dim=2)
+    tree = _tree_sum(torch.tensor(x, dtype=torch.float32))
+    assert int(ints.max()) <= 256 * U16_MAX < 2**24
+    assert torch.equal(ints.to(torch.float32), tree)
+    distinct = torch.tensor((x > 0).sum(axis=2), dtype=torch.float32)
+    assert torch.equal((ints + distinct.to(torch.int64)).to(torch.float32), tree + distinct)
+    if rows == "all-at-u16-max":
+        assert int(ints.max()) == 16_776_960
+
+
+def test_ppm_kernel_arguments_are_the_c_struct():
+    """`_PpmArgs` declares csrc/ppm.cu's GmixPpmArgs field for field: the
+    names, in order, pointers first, then the int64 sizes and switches,
+    then the float."""
+    import ctypes
+    import re
+    from pathlib import Path
+
+    src = (Path(t_ppm.__file__).parents[1] / "csrc" / "ppm.cu").read_text()
+    body = re.search(r"struct GmixPpmArgs \{(.*?)\};", src, re.S).group(1)
+    c_fields = []
+    for line in body.splitlines():
+        decl = line.split("//")[0].strip().rstrip(";")
+        if decl:
+            ctype, names = re.match(r"((?:const )?\w+\*?)\s+(.*)", decl).groups()
+            c_fields += [(n.strip(), ctype) for n in names.split(",")]
+    kinds = {ctypes.c_void_p: "*", ctypes.c_int64: "int64_t", ctypes.c_float: "float"}
+    py = [(n, kinds[t]) for n, t in t_ppm._PpmArgs._fields_]
+    assert [n for n, _ in c_fields] == [n for n, _ in py]
+    for (_, ctype), (name, kind) in zip(c_fields, py):
+        assert ctype.endswith("*") if kind == "*" else ctype == kind, name
+
+
+def test_ppm_kernels_refuse_cpu_tensors():
+    """The kernels' wrappers take CUDA tensors only; the byte step sends CPU
+    tensors to the plain versions."""
+    meta, stm_np, completed = _state(9)
+    plan, stm = _port(stm_np)
+    cv, h = t_ppm._ppm_index(stm["ctx"], plan)
+    raw = gather_rows(stm["ppm_tbl"], h)
+    with pytest.raises(ValueError, match="expected a CUDA or CPU tensor"):
+        t_ppm.ppm_update_kernel(raw, cv, torch.tensor(completed.astype(np.int64)), stm["ppm_see"], plan)
+    with pytest.raises(ValueError, match="expected a CUDA or CPU tensor"):
+        t_ppm.ppm_predict_kernel(raw, cv, stm["ppm_see"], plan)

@@ -13,12 +13,19 @@ config's frozen numbers to these functions.
   movers (`tensor_bytes` of the int32 row indices, and the rows twice: read
   and written), for every arena row the step moves.
 
+A configuration names the program's function that builds its spec
+(`spec_builder`, read by `spec_builder`), so a configuration joins the
+benchmark by its files alone.
+
     python -m h100_bench.counts <config>   # prints the counts of configs/<config>.json's spec
 """
 from __future__ import annotations
 
+import ast
+import importlib
 import json
 import math
+import re
 import sys
 
 from .reference.config import spec_from_dict
@@ -30,6 +37,41 @@ def port_spec(spec_dict: dict):
     from gmix_tpu_torch import config as port_config
 
     return spec_from_dict(spec_dict, port_config)
+
+
+PROGRAM = "gmix_tpu_torch"
+BUILDER = re.compile(r"(?P<path>[A-Za-z_]\w*(?:\.[A-Za-z_]\w*)+)\((?P<args>[^()]*)\)", re.ASCII)
+
+
+def spec_builder(text: str):
+    """The program's EnsembleSpec that a configuration's `spec_builder`
+    names: `gmix_tpu_torch.<module path>.<function>(<int literals,
+    comma-separated, or none>)`. The leading name is compared whole (the
+    JAX package `gmix_tpu` and anything outside the port are refused), the
+    arguments are read with `ast.literal_eval`: no text runs as code.
+    Anything else raises ValueError, naming the string."""
+    from gmix_tpu_torch.config import EnsembleSpec
+
+    m = BUILDER.fullmatch(text)
+    if m is None or m["path"].split(".")[0] != PROGRAM:
+        raise ValueError(f"spec_builder {text!r}: not {PROGRAM}.<module path>.<function>(<int literals>)")
+    try:
+        args = ast.literal_eval(f"({m['args']},)") if m["args"].strip() else ()
+    except (ValueError, SyntaxError):
+        args = None
+    if args is None or not all(type(a) is int for a in args):
+        raise ValueError(f"spec_builder {text!r}: the arguments must be int literals")
+    module, name = m["path"].rsplit(".", 1)
+    try:
+        build = getattr(importlib.import_module(module), name, None)
+    except ImportError:
+        build = None
+    if not callable(build):
+        raise ValueError(f"spec_builder {text!r}: {module} has no function {name}")
+    spec = build(*args)
+    if not isinstance(spec, EnsembleSpec):
+        raise ValueError(f"spec_builder {text!r}: gives {type(spec).__name__}, not an EnsembleSpec")
+    return spec
 
 
 def _rows_moved(meta, spec) -> list:

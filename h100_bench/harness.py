@@ -27,7 +27,7 @@ from __future__ import annotations
 
 import gc
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Callable, List, Optional
 
 import torch
@@ -62,6 +62,7 @@ class Run:
     jobs: List[Job]
     peaks: Optional[dict] = None
     trace: Optional[object] = None  # trace.Trace
+    notes: List[str] = field(default_factory=list)  # what the readers say of what they read (standard error)
 
     def encode_step_s(self) -> float:
         """The wall of an encode byte step: the window's compress time over

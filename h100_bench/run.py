@@ -99,6 +99,8 @@ def main(argv=None) -> int:
             value = registry.metric_reader(name)(run)
             if value is not None:
                 metrics[name] = metric(value, m["unit"])
+        for note in run.notes:
+            log(note)
     else:
         values = {
             "encode_Bps": run.file_bytes * len(jobs) / sum(j.encode_s for j in jobs),

@@ -1,6 +1,6 @@
 """Each configuration's frozen counts are the program's counting functions
 (gmix_tpu_torch/roofline.py) at each of its cells' stream counts, on the
-"meta" device, and its spec is the builder's it names."""
+"meta" device, and its spec is the one its `spec_builder` names."""
 import dataclasses
 import json
 import math
@@ -8,23 +8,20 @@ import math
 import pytest
 import torch
 
-from gmix_tpu_torch import config as port_config
 from gmix_tpu_torch.core import fused
 from gmix_tpu_torch.core.meta import build_meta
 from gmix_tpu_torch.roofline import fused_bound, fused_float_ops, step_work
 from h100_bench import registry
-from h100_bench.counts import per_stream_counts, port_spec
+from h100_bench.counts import per_stream_counts, port_spec, spec_builder
 
 BENCH = registry.benchmark(registry.HERE.parent)
 CELLS = [(w["config"], registry.traffic(w["traffic"])["streams"]) for w in BENCH["workloads"]]
-BUILDERS = {"gmix_tpu_torch.config.reference_spec()": port_config.reference_spec,
-            "gmix_tpu_torch.config.best_spec()": port_config.best_spec}
 
 
 @pytest.mark.parametrize("name", [c["name"] for c in BENCH["configs"]])
 def test_spec_is_the_builders(name):
     cfg = registry.config(name)
-    want = BUILDERS[cfg["spec_builder"]]()
+    want = spec_builder(cfg["spec_builder"])
     assert cfg["spec"] == json.loads(json.dumps(dataclasses.asdict(want)))
     assert port_spec(cfg["spec"]).stable_hash() == want.stable_hash()
     assert cfg["counts_per_stream"] == per_stream_counts(want)

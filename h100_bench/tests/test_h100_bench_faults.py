@@ -7,7 +7,9 @@ chips does not exist in a one-chip cell. The LSTM's Adam step leaving its
 moments or its step count unwritten shows only from the second backward
 pass on (the first starts from zero moments and step 0 alike): the mix
 checks 35 bytes of a horizon of 10, three backward passes, as the cells'
-mixes check 300 bytes of a horizon of 100. A sound run reads correct."""
+mixes check 300 bytes of a horizon of 100. A sound run reads correct. The
+same at the shape of gmix-ref-noppm (no LSTM, no PPM), for the faults it
+can have."""
 import dataclasses
 import json
 import time
@@ -28,14 +30,18 @@ MIX = {"corpus": "corpus_1m.bin", "streams": 2, "bytes_per_stream": 40, "chunk":
 SEED = 3_000_000_019
 
 
-def tiny_config():
-    spec = tiny_spec(True)
+def tiny_config(spec=None):
+    spec = tiny_spec(True) if spec is None else spec
     return {"spec": json.loads(json.dumps(dataclasses.asdict(spec))), "stream_bytes": 40,
             "counts_per_stream": None, "kernels": {"fused": ["fused_substeps_kernel"], "movers": []}}
 
 
-def verdict():
-    out = run_cell(tiny_config(), MIX, SEED, 0.0, False, "cpu", time.perf_counter(), settle_s=0.0)
+def tiny_noppm_config():
+    return tiny_config(dataclasses.replace(tiny_spec(True), lstm=None, ppm=None, roll_ctxs=()))
+
+
+def verdict(config=None):
+    out = run_cell(tiny_config() if config is None else config, MIX, SEED, 0.0, False, "cpu", time.perf_counter(), settle_s=0.0)
     return correct(out["verdict"]["numbers"], out["failed"]), out
 
 
@@ -116,4 +122,17 @@ def _decoded_byte_altered(monkeypatch):
 def test_a_broken_path_is_not_correct(monkeypatch, fault):
     fault(monkeypatch)
     ok, out = verdict()
+    assert not ok, out["verdict"]
+
+
+def test_a_sound_run_without_lstm_and_ppm_is_correct():
+    ok, out = verdict(tiny_noppm_config())
+    assert ok, out["verdict"]
+
+
+@pytest.mark.parametrize("fault", [_unchanged_state, _half_the_streams, _code_byte_altered, _decoded_byte_altered],
+                         ids=lambda f: f.__name__.strip("_"))
+def test_a_broken_path_without_lstm_and_ppm_is_not_correct(monkeypatch, fault):
+    fault(monkeypatch)
+    ok, out = verdict(tiny_noppm_config())
     assert not ok, out["verdict"]

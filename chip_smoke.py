@@ -10,6 +10,8 @@
     python3 chip_smoke.py --sweeps-only   # phases 0-1 and 9
     python3 chip_smoke.py --ppm-only   # phases 0-1 and the PPM kernels' part
                                        # of phase 2 (about a minute)
+    python3 chip_smoke.py --contexts-only   # phases 0-1 and the contexts
+                                            # kernels' part of phase 2
 
 Phases; any failure ends the run with a non-zero exit:
 
@@ -47,15 +49,24 @@ Phases; any failure ends the run with a non-zero exit:
      at reference_spec() x 54 and best_spec() x 30 (the benchmark's cells)
      and on hand-made edge streams (utils/ppm_inputs.py), each timed beside
      its plain version, called and replayed as a CUDA graph, and its bound;
+   - the boundary contexts and match pointer kernels (csrc/contexts.cu)
+     bitwise against their plain versions on the card (every stream, the
+     tables at full size) and on the CPU (three streams' rows), on seeded
+     states at reference_spec() x 54, best_spec() x 30 and ref-noppm x 63
+     (the benchmark's cells) and on hand-made edge streams
+     (utils/contexts_inputs.py), at a stream's first byte and after it; each
+     timed beside its plain version, called and replayed as a CUDA graph,
+     and its bound;
 3. the main path at full width, at ref-noppm, ref-ppm and ref-full:
    compress_bytes then decompress_bytes of the first 16 KB of
    data/corpus_1m.bin on the GPU (16 streams, 1 KB per stream), which replay
    CUDA graphs of the byte step (the compiled chunk, core/step.py); the
    output must equal the input, and per byte step and direction the fused
-   kernel must have launched exactly once and each mover once (ref-noppm: 3
-   launches a byte step) or twice (ref-ppm: 7; the PPM count update moves its
-   own rows first, and its update and prediction are a kernel each); at
-   ref-full the gather launches three times (8: the prediction's `ppm_tbl`
+   kernel, the boundary contexts' and the match pointers' must have launched
+   exactly once and each mover once (ref-noppm: 5 launches a byte step) or
+   twice (ref-ppm: 9; the PPM count update moves its own rows first, and its
+   update and prediction are a kernel each); at ref-full the gather launches
+   three times (10: the prediction's `ppm_tbl`
    rows come before the LSTM's forward pass, the other arenas after it) and
    the LSTM must have made its 10 backward passes per
    direction (chunk 1024: inside the byte that wraps the horizon window).
@@ -72,7 +83,7 @@ Phases; any failure ends the run with a non-zero exit:
    Then generate_bytes on the warm predictor: a 256-byte prompt (replayed
    with learning), 256 sampled bytes a stream at temperature 0.8 in one
    chunk of 256; a sampling byte step must launch the kernels of an encode
-   step less the byte-end scatter (ref-noppm 2, ref-ppm 6, ref-full 7).
+   step less the byte-end scatter (ref-noppm 4, ref-ppm 8, ref-full 9).
    Then 256 bytes more without a prompt, timed, after which every
    long-term-memory leaf must be as it was; the sampling step eager against
    graphs as above;
@@ -93,7 +104,7 @@ Phases; any failure ends the run with a non-zero exit:
    before a command and read just after):
    (a) `--profile best --streams 8 --chunk 512`: compress with `--analysis`
        4 KB of data/corpus_1m.bin that no other phase codes, then
-       decompress; the round trip exact, 8 launches a byte step each way,
+       decompress; the round trip exact, 10 launches a byte step each way,
        entropy.tsv's header `analysis_columns` and a finite row, memory.tsv's
        TOTAL equal to the state's size in gmix_tpu's layout (a u32 leaf at
        4 bytes an element) and to its rows' sum; bpb, model bpb, state and peak GB,
@@ -108,7 +119,7 @@ Phases; any failure ends the run with a non-zero exit:
        generated bytes must be the same files; entropy.tsv the same bits
        and its values within 1e-6 relative or one unit of the fifth decimal
        it prints; each device decodes the other's archive; a sampling step
-       launches 7 kernels;
+       launches 9 kernels;
    (c) wiki-encode -> dict-encode -> compress (scaled-12, 8 streams) of a
        small generated MediaWiki dump, and back: the same bytes.
 6. stream sharding (gmix_tpu_torch.parallel), after the rest:
@@ -116,11 +127,11 @@ Phases; any failure ends the run with a non-zero exit:
        card, in this process, beside the unsharded predictor: 2 KB of the
        corpus that no other phase codes, chunk 128. The archives must be the
        same bytes, each predictor must decode the other's, their checkpoints
-       must be the same file, and each shard must launch 8 kernels a byte
+       must be the same file, and each shard must launch 10 kernels a byte
        step; the wall times of both, a reading;
    (b) two processes over gloo on this card, 8 streams each, code phase 3's
        16 KB at ref-full with compress_bytes_multihost: each must return
-       phase 3's archive byte for byte and launch 8 kernels a byte step;
+       phase 3's archive byte for byte and launch 10 kernels a byte step;
        each prints its launches, encode bytes/s and peak memory, and the
        aggregate bytes/s is printed beside phase 3's one process (a reading);
    (c) a world of one rank over nccl: phase 4's ref-noppm run through
@@ -146,9 +157,10 @@ Phases; any failure ends the run with a non-zero exit:
    Each run must be exact in every pass with the same archive (the bench
    raises otherwise), its cross-entropy finite at every chunk, every byte
    step (warm start, graph capture, passes and traced window) must launch
-   the profile's kernels (gather, scatter, fused, PPM update, PPM prediction:
-   3 + 2 + 1 + 1 + 1 at ref-full and best, 2 + 2 + 1 + 1 + 1 at ref-ppm,
-   1 + 1 + 1 + 0 + 0 at ref-noppm), and the state must
+   the profile's kernels (gather, scatter, fused, PPM update, PPM prediction,
+   contexts boundary, match pointers: 3 + 2 + 1 + 1 + 1 + 1 + 1 at ref-full
+   and best, 2 + 2 + 1 + 1 + 1 + 1 + 1 at ref-ppm, 1 + 1 + 1 + 0 + 0 + 1 + 1
+   at ref-noppm), and the state must
    be the bytes the bench estimated. The step's roofline of each run is
    logged (the bench's count of a byte step from the spec, its bound, and
    the shares of the card's peaks: `mfu`, `hbm_share`, `roofline_share`),
@@ -171,7 +183,8 @@ Phases; any failure ends the run with a non-zero exit:
        the published sizes: the input back, and each byte step and each
        graph replay launching what the code says (`launches_per_step`:
        1 + 1 + 1 without PPM, 2 + 2 + 1 + 1 + 1 with PPM, 3 + 2 + 1 + 1 + 1
-       with PPM and the LSTM);
+       with PPM and the LSTM, then the boundary contexts' 1 and the match
+       pointers' 1, 0 without a match model);
    (c) at scale_tables(spec, 12, history_bits=16), 2 streams of 512 bytes:
        the GPU's archive equal to the CPU's byte for byte (the CPU's encode
        and decode run in a process a variant, started before phase 7), the
@@ -198,7 +211,7 @@ Phases; any failure ends the run with a non-zero exit:
    coding 512 000 bytes from each; the ring sweep on 256 KB of dump at a
    ring that wraps and one that does not; scaling at 1, 16 and 256
    streams; the wiki chain on 1 MB of dump, byte-identical. Every run must
-   exit 0, and every byte step it ran launch 3 + 2 + 1 + 1 + 1 kernels.
+   exit 0, and every byte step it ran launch 3 + 2 + 1 + 1 + 1 + 1 + 1 kernels.
 
 ref-full is gmix_tpu's reference wiring (`reference_spec()`: PPM, the LSTM
 byte model of 50 cells with a horizon of 100) at its published table sizes
@@ -248,7 +261,7 @@ import gmix_tpu_torch as gt
 from gmix_tpu_torch import bench, cli, obs, sweeps
 from gmix_tpu_torch.bench import padded_per, ref_noppm_spec, ref_ppm_spec, spec_for, trace_window
 from gmix_tpu_torch.config import best_spec, reference_spec, scale_tables
-from gmix_tpu_torch.core import fused, ppm
+from gmix_tpu_torch.core import contexts, fused, ppm
 from gmix_tpu_torch.core import step as step_mod
 from gmix_tpu_torch.core.codec import (Predictor, analysis_columns, compress_bytes, decompress_bytes, entropy_bits,
                                        generate_bytes, run_chunks)
@@ -259,7 +272,7 @@ from gmix_tpu_torch.parallel.mesh import make_mesh, stream_sharding
 from gmix_tpu_torch.roofline import PEAK_BYTES_PER_S, SHARES, TRANSCENDENTAL, bound, fused_bound, tensor_bytes
 from gmix_tpu_torch.state import init_state, numpy_layout, state_bytes
 from gmix_tpu_torch.utils.build import build
-from gmix_tpu_torch.utils import ppm_inputs
+from gmix_tpu_torch.utils import contexts_inputs, ppm_inputs
 from gmix_tpu_torch.utils.fused_inputs import random_inputs, with_sampling
 from gmix_tpu_torch.utils.serialization import copy_state
 
@@ -287,6 +300,7 @@ SOURCES = {
     "scatter_rows": "gmix_tpu_torch/csrc/rowmove.cu",
     "fused_substeps": "gmix_tpu_torch/csrc/fused_kernel.cuh",
     "ppm": "gmix_tpu_torch/csrc/ppm.cu",
+    "contexts": "gmix_tpu_torch/csrc/contexts.cu",
 }
 REPLACES = {
     "gather_rows": "gmix_tpu/ops/rowmove.py:85",
@@ -301,9 +315,9 @@ ARENAS = (("ind.st", ("ltm", "ind", "st")), ("mix_w", ("ltm", "mix_w")), ("mix_p
 # launches by kernel (obs.launches, by wrapper): each mover kernel has two
 # wrappers (one arena, a group of arenas)
 WRAPPERS = (("gather_rows", "gather_rows_many"), ("scatter_rows", "scatter_rows_many"), ("fused_substeps",),
-            ("ppm_update",), ("ppm_predict",))
+            ("ppm_update",), ("ppm_predict",), ("contexts_boundary",), ("match_pointer",))
 # what a tuple of launch counts holds, in WRAPPERS' order
-LAUNCHES = "(gather, scatter, fused, PPM update, PPM prediction)"
+LAUNCHES = "(gather, scatter, fused, PPM update, PPM prediction, contexts boundary, match pointers)"
 NO_LAUNCHES = (0,) * len(WRAPPERS)
 _LAUNCHES_AT_RESET = {}
 # archive sizes that must not change: the codec is deterministic, and these
@@ -410,14 +424,15 @@ def rows_per_byte(meta):
 
 def launches_per_step(spec):
     """`LAUNCHES` of an encode or decode byte step, from the code
-    (core/step.py, core/ppm.py): one grouped gather and one grouped scatter
-    of the movers' arenas and one fused launch; with PPM its count update's
-    own gather and scatter of `ppm_tbl` rows and one launch each of the
-    count update's and the prediction's kernels; with PPM and the LSTM also
-    the prediction's `ppm_tbl` rows gathered alone before the forward
-    pass."""
+    (core/step.py, core/ppm.py, core/contexts.py): one grouped gather and
+    one grouped scatter of the movers' arenas and one fused launch; with PPM
+    its count update's own gather and scatter of `ppm_tbl` rows and one
+    launch each of the count update's and the prediction's kernels; with
+    PPM and the LSTM also the prediction's `ppm_tbl` rows gathered alone
+    before the forward pass; one launch of the boundary contexts' kernel,
+    and one of the match pointers' with match models."""
     ppm, lstm = spec.ppm is not None, spec.lstm is not None
-    return (1 + int(ppm) + int(ppm and lstm), 1 + int(ppm), 1, int(ppm), int(ppm))
+    return (1 + int(ppm) + int(ppm and lstm), 1 + int(ppm), 1, int(ppm), int(ppm), 1, int(bool(spec.matches)))
 
 
 def profile_launches(profile: str):
@@ -991,6 +1006,112 @@ def phase_ppm(dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 2d: the boundary contexts and match pointer kernels
+# ---------------------------------------------------------------------------
+
+# the benchmark's stream counts by spec, and the seeded states drawn at each
+CONTEXT_STREAMS = {"ref": 54, "best": 30, "ref-noppm": 63}
+CONTEXT_SEEDS = 2
+
+
+def contexts_bytes(meta, S: int, which: str) -> int:
+    """Bytes one launch of the contexts kernel `which` ("boundary" or
+    "match") reads and writes, each once: per stream, the boundary's byte
+    leaves and ring both ways, the context slots it writes (an interval
+    slot read too), the rolling hashes and the indirect-hash registers both
+    ways and three `ih_tbl` words; the match kernel's bit, history length,
+    and per model a context, pointer, byte and length both ways, a
+    `match_tbl` word, a history byte and `match_ix`; and the table entries
+    each reads."""
+    spec = meta.spec
+    if which == "match":
+        NM = len(spec.matches)
+        return S * (2 * 8 + NM * (8 + 2 * 8 + 2 * 8 + 2 * 4 + 4 + 1 + 8)) + 8 * 3 * NM
+    NI, NSK, NR, NIH = len(spec.interval_ctxs), len(spec.skip_ctxs), len(spec.roll_ctxs), len(spec.ihash_ctxs)
+    slots = contexts.BYTE_COLS + 2 * NI + NSK + NR + NIH
+    per = 8 * (2 * 2 + 2 * meta.recent_size + slots + 2 * NR + 4 * NIH) + 4 * 3 * NIH
+    return S * per + 8 * (contexts.BYTE_COLS + 4 * NI + contexts.PER_SKIP * NSK + 3 * NR + 5 * NIH)
+
+
+def contexts_parts(meta):
+    """(name, kernel, plain) of each contexts kernel the spec launches:
+    `kernel(stm, ltm, plan, t)` and `plain(...)` update the state and return
+    its other outputs by name."""
+    parts = [("boundary", lambda st, lt, pl, at: contexts.boundary_contexts(st, at, pl) or {},
+              lambda st, lt, pl, at: contexts.boundary_plain(st, at, pl) or {})]
+    if meta.spec.matches:
+        parts.append(("match", lambda st, lt, pl, at: {"match_ix": contexts.match_pointers(st, lt, pl)},
+                      lambda st, lt, pl, at: {"match_ix": contexts.match_plain(st, lt, pl)}))
+    return parts
+
+
+def compare_contexts(what: str, meta, sample: dict, dev, t: int) -> None:
+    """Each contexts kernel on a state of `sample` (`contexts_inputs`, the
+    tables at full size) against its plain version on the card, every
+    stream, and on the CPU, three streams' rows, bit for bit. Each kernel
+    runs on a fresh state."""
+    S = len(sample["stm"]["acc"])
+    streams = sorted({0, S // 2, S - 1})
+    plan, cpu_plan = step_mod.StepPlan(meta, S, dev), step_mod.StepPlan(meta, len(streams), "cpu")
+    t_dev = torch.full((), t, dtype=torch.int64, device=dev)
+    for part, kernel, plain in contexts_parts(meta):
+        stm, ltm = contexts_inputs.to_state(meta, sample, dev)
+        got = {**kernel(stm, ltm, plan, t_dev), **stm, **ltm}
+        for where in ("card", "cpu"):
+            if where == "card":
+                st, lt = contexts_inputs.to_state(meta, sample, dev)
+                want = {**plain(st, lt, plan, t_dev), **st, **lt}
+            else:
+                st, lt = contexts_inputs.to_state(meta, sample, "cpu", streams)
+                want = {**plain(st, lt, cpu_plan, t_dev.cpu()), **st, **lt}
+            for k, w in want.items():
+                g = got[k] if where == "card" else got[k][streams]
+                if not torch.equal(g.cpu(), w.cpu()):
+                    raise RuntimeError(f"phase 2 {what}: the {part} kernel's {k} differs from the plain version on "
+                                       f"the {where}")
+            del st, lt, want
+        del stm, ltm, got
+    torch.cuda.empty_cache()
+
+
+def phase_contexts(dev) -> dict:
+    """The boundary contexts and match pointer kernels (csrc/contexts.cu)
+    against their plain versions, bitwise, on seeded states
+    (`contexts_inputs.random_state`, CONTEXT_SEEDS draws) at ref, best and
+    ref-noppm with the benchmark's stream counts and on the edge streams
+    (`edge_state`), at a stream's first byte and after it; then each kernel
+    timed beside its plain version, called (`plain_ms`) and replayed as a
+    CUDA graph (`plain_graph_ms`: what the byte step's graph spent there
+    before the kernels), and its bound (integer work: bytes alone)."""
+    rows = {}
+    for name, spec in (("ref", reference_spec()), ("best", best_spec()), ("ref-noppm", ref_noppm_spec())):
+        meta, S = build_meta(spec), CONTEXT_STREAMS[name]
+        for t in (0, 5):
+            for k in range(CONTEXT_SEEDS):
+                compare_contexts(f"{name} S={S} t={t} seed {k}", meta,
+                                 contexts_inputs.random_state(meta, S, SEED + k), dev, t)
+            compare_contexts(f"{name} edges t={t}", meta, contexts_inputs.edge_state(meta, SEED), dev, t)
+        plan = step_mod.StepPlan(meta, S, dev)
+        t_dev = torch.full((), 5, dtype=torch.int64, device=dev)
+        sample = contexts_inputs.random_state(meta, S, SEED)
+        row = {"spec": name, "streams": S, "compared": 2 * (CONTEXT_SEEDS + 1)}
+        for part, kernel, plain in contexts_parts(meta):
+            stm, ltm = contexts_inputs.to_state(meta, sample, dev)
+            nbytes = contexts_bytes(meta, S, part)
+            row[part] = {"ms": device_ms(lambda i: kernel(stm, ltm, plan, t_dev), reps=50),
+                         "call_ms": call_ms(lambda i: kernel(stm, ltm, plan, t_dev), reps=50),
+                         "plain_ms": call_ms(lambda i: plain(stm, ltm, plan, t_dev), reps=10),
+                         "plain_graph_ms": device_ms(graphed(lambda i: plain(stm, ltm, plan, t_dev)), reps=50),
+                         "bytes_moved": nbytes, "float_ops": 0, **bound(nbytes, 0)}
+            del stm, ltm
+        rows[name] = row
+        log(f"phase 2: contexts kernels {json.dumps(row)}")
+        del plan
+        torch.cuda.empty_cache()
+    return rows
+
+
+# ---------------------------------------------------------------------------
 # phase 3: the main path
 # ---------------------------------------------------------------------------
 
@@ -1402,10 +1523,10 @@ def flag(argv, name: str) -> int:
 
 def step_launches(steps: int, sampling: int = 0):
     """`LAUNCHES` of `steps` encode or decode steps and `sampling` sampling
-    steps with PPM and the LSTM: 3 + 2 + 1 + 1 + 1 and 3 + 1 + 1 + 1 + 1 a
-    step."""
+    steps with PPM, the LSTM and match models: 3 + 2 + 1 + 1 + 1 + 1 + 1 and
+    3 + 1 + 1 + 1 + 1 + 1 + 1 a step."""
     n = steps + sampling
-    return (3 * n, 2 * steps + sampling, n, n, n)
+    return (3 * n, 2 * steps + sampling, n, n, n, n, n)
 
 
 def cli_run(argv, what: str, launches=None):
@@ -1518,7 +1639,7 @@ def wiki_dump(n_pages: int) -> bytes:
 
 def phase_cli_best(d: str, dev, ref_full_bpb: float, ref_full_inst: dict) -> dict:
     """(a) best_spec() at full width through the command line: compress
-    with analysis, decompress; the round trip exact, 8 launches a byte step
+    with analysis, decompress; the round trip exact, 10 launches a byte step
     each way, the analysis files whole."""
     spec = best_spec()
     data = corpus(CLI_BEST_OFFSET + CLI_BEST_BYTES)[CLI_BEST_OFFSET:]
@@ -1715,7 +1836,7 @@ def phase_shards(spec, dev, d: str) -> dict:
         n = SHARDS if run.startswith("sharded") else 1
         if got != step_launches(n * per):
             raise RuntimeError(f"phase 6 shards: {run} launched {LAUNCHES} {got} in {per} byte steps of "
-                               f"{n} shard(s), expected {step_launches(n * per)}: 3 + 2 + 1 + 1 + 1 a shard and step")
+                               f"{n} shard(s), expected {step_launches(n * per)}: 3 + 2 + 1 + 1 + 1 + 1 + 1 a shard and step")
     out = {"spec": "ref-full", "streams": STREAMS, "shards": SHARDS, "mesh": [str(x) for x in sharding.mesh.devices],
            "bytes": len(data), "chunk": SHARD_CHUNK, "byte_steps": per, "archive_bytes": len(blobs["sharded"]),
            "same_archive": True, "cross_decodes": True, "same_checkpoint": True,
@@ -1754,7 +1875,7 @@ def rank_main(rank: int, world: int, port: int, d: str) -> None:
 
 def phase_ranks(d: str, main_full: dict) -> dict:
     """(b) RANKS processes over gloo on the one card: each returns phase 3's
-    ref-full archive byte for byte and launches 8 kernels a byte step; the
+    ref-full archive byte for byte and launches 10 kernels a byte step; the
     aggregate encode bytes/s beside phase 3's one process (a reading)."""
     port = free_port()
     procs = [subprocess.Popen([sys.executable, "-c", f"import chip_smoke as cs; cs.rank_main({r}, {RANKS}, {port}, {d!r})"],
@@ -2186,7 +2307,7 @@ def sweep_run(argv, what: str) -> dict:
     its kernels (set to 0 just before, read just after), its rows logged:
     exit code 0, and the byte steps its rows ran (`byte_steps`) each
     launching the spec's kernels (every sweep's spec has PPM and the LSTM:
-    3 + 2 + 1 + 1 + 1)."""
+    3 + 2 + 1 + 1 + 1 + 1 + 1)."""
     out = io.StringIO()
     torch.cuda.empty_cache()
     reset_launches()
@@ -2281,9 +2402,10 @@ def main() -> int:
     variants_only = sys.argv[1:] == ["--variants-only"]
     sweeps_only = sys.argv[1:] == ["--sweeps-only"]
     ppm_only = sys.argv[1:] == ["--ppm-only"]
-    if sys.argv[1:] and not (fused_only or bench_only or variants_only or sweeps_only or ppm_only):
-        print("usage: chip_smoke.py [--fused-only | --bench-only | --variants-only | --sweeps-only | --ppm-only]",
-              file=sys.stderr)
+    contexts_only = sys.argv[1:] == ["--contexts-only"]
+    if sys.argv[1:] and not (fused_only or bench_only or variants_only or sweeps_only or ppm_only or contexts_only):
+        print("usage: chip_smoke.py [--fused-only | --bench-only | --variants-only | --sweeps-only | --ppm-only | "
+              "--contexts-only]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's GPU path cannot run here", file=sys.stderr)
@@ -2315,6 +2437,12 @@ def main() -> int:
         ppm_out = phase_ppm(dev)
         print(smi, flush=True)
         print(json.dumps({"ok": True, "partial": "the PPM kernels only", "ppm": ppm_out}), flush=True)
+        return 0
+    if contexts_only:
+        contexts_out = phase_contexts(dev)
+        elapsed("phase 2d done")
+        print(smi, flush=True)
+        print(json.dumps({"ok": True, "partial": "the contexts kernels only", "contexts": contexts_out}), flush=True)
         return 0
     if bench_only:
         bench_out = phase_bench(dev)
@@ -2362,6 +2490,7 @@ def main() -> int:
     del pred
     torch.cuda.empty_cache()
     ppm_out = phase_ppm(dev)
+    contexts_out = phase_contexts(dev)
     elapsed("phase 2 done")
     main_out = {name: phase_main(name, spec, dev) for name, spec in specs.items()}
     elapsed("phase 3 done")
@@ -2523,6 +2652,26 @@ def main() -> int:
                                    "bytes_moved", "float_ops")},
             "streams": ppm_out["ref"]["streams"],
             "best": {k: ppm_out["best"][which][k] for k in ("ms", "plain_graph_ms", "bound_ms")},
+        })
+    for i, which in ((5, "boundary"), (6, "match")):
+        by_path = launches(i)
+        ref = contexts_out["ref"][which]
+        kernels.append({
+            "name": "contexts_boundary" if which == "boundary" else "match_pointer",
+            "route": "cuda",
+            "source": SOURCES["contexts"],
+            # gmix_tpu computes the contexts and the match pointers in plain
+            # jnp, outside any kernel
+            "replaces": None,
+            "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
+            "launches_per_replay": per_replay(i),
+            "max_abs_err": 0.0,
+            **{k: ref[k] for k in ("ms", "call_ms", "plain_ms", "plain_graph_ms", "bound_ms", "bound_by",
+                                   "bytes_moved")},
+            "streams": contexts_out["ref"]["streams"],
+            **{other: {k: contexts_out[other][which][k] for k in ("ms", "plain_graph_ms", "bound_ms")}
+               for other in ("best", "ref-noppm")},
         })
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -453,16 +453,17 @@ def release_device(device) -> None:
 
 def _launch_counts() -> Tuple[int, ...]:
     """The hand-written kernels' launches so far (obs.launches): (gather,
-    scatter, fused, PPM update, PPM prediction)."""
+    scatter, fused, PPM update, PPM prediction, contexts boundary, match
+    pointers)."""
     n = obs.launches()
     return (n.get("gather_rows", 0) + n.get("gather_rows_many", 0),
             n.get("scatter_rows", 0) + n.get("scatter_rows_many", 0), n.get("fused_substeps", 0),
-            n.get("ppm_update", 0), n.get("ppm_predict", 0))
+            n.get("ppm_update", 0), n.get("ppm_predict", 0), n.get("contexts_boundary", 0), n.get("match_pointer", 0))
 
 
 # the hand-written kernels, by a part of their name in a trace
 OWN_KERNELS = ("fused_substeps_kernel", "gather_rows_many_kernel", "scatter_rows_many_kernel", "ppm_update_kernel",
-               "ppm_predict_kernel")
+               "ppm_predict_kernel", "contexts_boundary_kernel", "match_pointer_kernel")
 TOP_KERNELS, KERNEL_NAME_CHARS = 10, 120
 
 
@@ -514,6 +515,7 @@ def trace_window(run: Callable[[], None], n: int, device) -> dict:
     else:
         out["part_us_per_step"] = {p: ns / 1e3 / n for p, ns in sorted(parts["parts"].items(), key=str)}
         out["replays_busy_us_per_step"] = parts["busy_ns"] / 1e3 / n
+        out["replays_aligned"] = f"{parts['aligned']} of {parts['replays']}"
     return out
 
 

@@ -58,7 +58,7 @@ import torch
 
 from .. import obs
 from ..ops import rowmove as _rowmove
-from ..ops.murmur import MASK32, mul32, murmur3_u32, murmur3_u64
+from ..ops.murmur import MASK32
 from ..ops.rowmove import gather_rows, gather_rows_many, scatter_rows_many
 from . import fused as _fused
 from .fused import (  # noqa: F401  (_tri_solve: held against gmix_tpu's by the step tests)
@@ -71,7 +71,9 @@ from .fused import (  # noqa: F401  (_tri_solve: held against gmix_tpu's by the 
     unpack_outputs,
 )
 from .lstm import LstmPlan, _lstm_bptt, _lstm_forward, _lstm_perceive
-from .meta import ROLL_BASE, Meta
+from .contexts import boundary_contexts, boundary_table, match_pointers, match_table
+from .meta import Meta
+from . import contexts as _contexts
 from . import ppm as _ppm
 from .ppm import _ppm_index, _ppm_predict, _ppm_update
 
@@ -127,6 +129,9 @@ class StepPlan:
         self.match_ctx_slots = t(meta.match_ctx_slots)
         self.match_masks = t(meta.match_masks)[None, :]
         self.match_offsets = t(meta.match_offsets)[None, :]
+        # the contexts kernels' constant tables (core/contexts.py)
+        self.boundary_consts = t(boundary_table(meta))
+        self.match_consts = t(match_table(meta))
         # mixers
         self.mix_st_slots = t(meta.mix_st_slots)
         self.mix_st_masks = t(meta.mix_st_masks)[None, :]
@@ -225,62 +230,13 @@ def _boundary(stm: Dict, t, plan: StepPlan) -> None:
     """Byte-boundary contexts (gmix_tpu.core.step._boundary up to the PPM
     prediction and the LSTM's forward pass, which follow in `_byte_inputs`);
     updates stm in place. `t`, the byte index, is a 0-d device tensor (or a
-    host integer): the stream's first byte selects with it, as gmix_tpu's
-    `not_first = t > 0` does, so one program serves every byte."""
-    meta = plan.meta
-    spec = meta.spec
-    s_ix = plan.s_ix
-    not_first = _as_index(t, plan.device) > 0
-    completed = stm["acc"]
+    host integer): the stream's first byte selects with it
+    (core/contexts.py)."""
     # PPM count update with the completed byte, against the PRE-update
     # contexts, at every byte (the stream's first included)
-    if spec.ppm is not None:
-        _ppm_update(stm, completed, plan)
-    last_byte = torch.where(not_first, completed, stm["last_byte"])
-    recent = torch.where(not_first, torch.cat([completed[:, None], stm["recent"][:, :-1]], dim=1), stm["recent"])
-    ctx = stm["ctx"].clone()
-    ctx[:, plan.byte_ctx_cols] = torch.cat([last_byte[:, None], recent[:, 1:10]], dim=1)
-
-    # interval contexts (interval-context.cpp:17-23)
-    if spec.interval_ctxs:
-        vals = plan.interval_maps[:, last_byte].T  # (S, NI)
-        old = ctx[:, plan.interval_slots]
-        ctx[:, plan.interval_slots] = plan.interval_masks & ((old << plan.interval_shifts) + vals)
-
-    # skip hashes (skip-context.cpp:9-19): bytes packed big-endian into a u64
-    if spec.skip_ctxs:
-        bg = recent[:, plan.skip_gather]  # (S, NSK, MAX_SKIP)
-        lo = torch.where(plan.skip_lo_on, bg << plan.skip_lo_sh, 0).sum(dim=2) & MASK32
-        hi = torch.where(plan.skip_hi_on, bg << plan.skip_hi_sh, 0).sum(dim=2) & MASK32
-        ctx[:, plan.skip_slots] = murmur3_u64(lo, hi)
-
-    # rolling-hash contexts (deep PPM orders): h' = (h - leaving * B^(n-1)) * B
-    # + completed over the pre-shift recent ring, published murmur-finalised.
-    # The difference is masked to 32 bits before the multiply: it can be
-    # negative, and an unmasked product overflows int64.
-    if spec.roll_ctxs:
-        h_old = stm["roll_h"]
-        old_b = stm["recent"][:, plan.roll_old_ix]
-        h_rolled = (mul32((h_old - old_b * plan.roll_pows) & MASK32, ROLL_BASE) + completed[:, None]) & MASK32
-        h_new = torch.where(not_first, h_rolled, h_old)
-        ctx[:, plan.roll_slots] = murmur3_u32(h_new)
-        stm["roll_h"] = h_new
-
-    # indirect-hash contexts (indirect-hash.cpp:16-31), one flat arena of
-    # u32 values stored as int32 bits
-    if spec.ihash_ctxs:
-        f = stm["ih_tbl"]
-        old_idx = (stm["ih_outer_hash"] & plan.ih_masks) + plan.ih_offsets
-        inner = f[s_ix, old_idx].to(I64) & MASK32
-        inner_new = ((inner & plan.ih_imask) << 8) + last_byte[:, None]
-        f[s_ix, old_idx] = inner_new.to(I32)
-        outer_new = ((stm["ih_outer_ctx"] & plan.ih_omask) << 8) + last_byte[:, None]
-        new_hash = murmur3_u64(outer_new, torch.zeros_like(outer_new))
-        new_idx = (new_hash & plan.ih_masks) + plan.ih_offsets
-        ctx[:, plan.ih_out_slots] = murmur3_u32(f[s_ix, new_idx].to(I64) & MASK32)
-        stm["ih_outer_ctx"], stm["ih_outer_hash"] = outer_new, new_hash
-
-    stm.update(last_byte=last_byte, recent=recent, acc=torch.zeros_like(completed), ctx=ctx)
+    if plan.meta.spec.ppm is not None:
+        _ppm_update(stm, stm["acc"], plan)
+    boundary_contexts(stm, _as_index(t, plan.device), plan)
 
 
 def _byte_inputs(state: Dict, data_buf: torch.Tensor, code_buf: torch.Tensor, t,
@@ -300,7 +256,6 @@ def _byte_inputs(state: Dict, data_buf: torch.Tensor, code_buf: torch.Tensor, t,
     meta = plan.meta
     spec = meta.spec
     stm, ltm = state["stm"], state["ltm"]
-    s_ix = plan.s_ix
     NM = len(spec.matches)
 
     # ---- byte boundary: contexts ----
@@ -328,16 +283,7 @@ def _byte_inputs(state: Dict, data_buf: torch.Tensor, code_buf: torch.Tensor, t,
     # ---- match byte-boundary pointer logic (match.cpp:38-58) ----
     if NM:
         with obs.part("contexts"):
-            hit = stm["new_bit"][:, None] == ((stm["match_byte"] & 1) != 0).to(I64)
-            mlen = torch.where(hit, torch.clamp(stm["match_len"] + 1, max=255), 0)
-            mlen = torch.where(stm["match_ptr"] == ((stm["hist_n"] - 1) & MASK32)[:, None], 0, mlen)
-            mcv = stm["ctx"][:, plan.match_ctx_slots]
-            match_ix = (mcv & plan.match_masks) + plan.match_offsets
-            tbl_ptr = ltm["match_tbl"][s_ix, match_ix].to(I64) & MASK32
-            mptr = torch.where(mlen < 8, tbl_ptr, (stm["match_ptr"] + 1) & MASK32)
-            hb = ltm["hist"][s_ix, mptr & (meta.history_size - 1)]
-            mbyte = torch.where((stm["hist_n"] > 0)[:, None], hb.to(I64), stm["match_byte"])
-            stm.update(match_ptr=mptr, match_byte=mbyte, match_len=mlen)
+            match_ix = match_pointers(stm, ltm, plan)
 
     fin, ix = _gathered_inputs(state, work, data_byte, code_buf, t, decode, plan, analysis, sample_u, inv_temp,
                                ppm_grouped)
@@ -637,6 +583,7 @@ class CapturedStep:
 
     def __init__(self, plan: StepPlan, body: Callable[[], None], variant: str):
         _rowmove.prepare(plan.device)
+        _contexts.prepare(plan.device)
         if plan.meta.spec.ppm is not None:
             _ppm.prepare(plan.device)
         pool, stream = plan.graph_pool()

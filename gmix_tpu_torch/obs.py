@@ -65,6 +65,9 @@ SAMPLE_EVERY = 64
 # CUgraphNodeType -> one letter of a layout's `types`
 NODE_TYPES = {0: "K", 1: "C", 2: "S"}
 TRACED = "KCS"  # the node types that a device trace shows, one operation each
+# the least share of a traced window's replays that must align for its parts
+# to read (`replay_parts`; h100_bench/parts.py MIN_SHARE)
+MIN_SHARE = 0.9
 
 _NULL = contextlib.nullcontext()
 
@@ -420,10 +423,10 @@ def samples() -> List[dict]:
 # a profiler's trace against the layouts
 # ---------------------------------------------------------------------------
 
-# The alignment below is `h100_bench/parts.py`'s `align`, rule for rule (the
-# port does not import the benchmark, which is frozen with its metrics): a
-# change to one rule is made in both, and tests/test_torch_obs.py holds the
-# two to the same answers.
+# The alignment below is `h100_bench/parts.py`'s `replays` and
+# `window_parts`, rule for rule (the port does not import the benchmark,
+# which is frozen with its metrics): a change to one rule is made in both,
+# and tests/test_torch_obs.py holds the two to the same answers.
 REPLAY = "gmix.replay."
 DEVICE_OPS = {"kernel": "K", "gpu_memcpy": "C", "gpu_memset": "S"}  # activity type -> node type
 
@@ -477,6 +480,67 @@ def union_ns(intervals) -> int:
     return total
 
 
+def _replay_rows(ops: List[Op], host: List[Event], lays: Dict[str, dict],
+                 fused: Tuple[str, ...]) -> Optional[List[tuple]]:
+    """The window's replays in order, each aligned on its own: [(variant,
+    {part: device ns} or None where it does not align, [(start, end) of its
+    operations]), ...], or None where the window gives nothing to align
+    (`replay_parts`)."""
+    seq = [n[len(REPLAY):] for n, s, _ in sorted(host, key=lambda h: h[1]) if n.startswith(REPLAY)]
+    if not seq:
+        return None
+    graphs = {}
+    for v in sorted(set(seq)):
+        lay = lays.get(v)
+        if lay is None or lay.get("chain") is not True:
+            return None
+        owners = [p for p, n in lay["runs"] for _ in range(n)]
+        if len(owners) != lay["nodes"] or len(lay["types"]) != lay["nodes"]:
+            return None
+        nodes = [(p, t) for p, t in zip(owners, lay["types"]) if t in TRACED]
+        at = [i for i, (p, _) in enumerate(nodes) if p == "fused"]
+        graphs[v] = (nodes, at[0] if len(at) == 1 else None)
+    anchors = [i for i, (k, n, _, _) in enumerate(ops) if k == "kernel" and any(f in n for f in fused)]
+    if graphs[seq[0]][1] is None or sum(graphs[v][1] is not None for v in seq) != len(anchors):
+        return None
+    start, it = [], iter(anchors)
+    for v in seq:
+        start.append(None if graphs[v][1] is None else next(it) - graphs[v][1])
+    gaps = Counter(start[r + 1] - start[r] - len(graphs[seq[r]][0]) for r in range(len(seq) - 1)
+                   if start[r] is not None and start[r + 1] is not None)
+    x = gaps.most_common(1)[0][0] if gaps else 0
+    if x < 0:
+        return None
+    bad, last = [False] * len(seq), 0
+    for r in range(1, len(seq)):
+        after = start[r - 1] + len(graphs[seq[r - 1]][0]) + x
+        if start[r] is None:
+            start[r] = after
+        elif start[r] != after:
+            # out of step with the replay before it: every replay back to
+            # the last anchored one
+            for q in range(last, r + 1):
+                bad[q] = True
+        if graphs[seq[r]][1] is not None:
+            last = r
+    rows = []
+    for v, s0, b in zip(seq, start, bad):
+        nodes = graphs[v][0]
+        mine = [] if b else ops[s0 : s0 + len(nodes)]
+        if not b and (s0 < 0 or len(mine) < len(nodes)):
+            b, mine = True, []
+        elif any(DEVICE_OPS.get(kind) != t and not (kind == "kernel" and t != "K")
+                 for (_, t), (kind, _, _, _) in zip(nodes, mine)):
+            b, mine = True, []
+        parts = None
+        if not b:
+            parts = Counter()
+            for (p, _), (_, _, s, e) in zip(nodes, mine):
+                parts[p] += e - s
+        rows.append((v, parts, [(s, e) for _, _, s, e in mine]))
+    return rows
+
+
 def replay_parts(ops: List[Op], host: List[Event], lays: Dict[str, dict], fused: Tuple[str, ...]) -> Optional[dict]:
     """Each part's device ns over the graph replays of a traced window:
     `ops` the device's operations by start, `host` the host's events (the
@@ -486,52 +550,41 @@ def replay_parts(ops: List[Op], host: List[Event], lays: Dict[str, dict], fused:
     layout's index for it; a graph without it (the backward pass) follows
     the replay before it. Between two replays the host may launch the same
     number of operations outside any graph (the profiler shows torch's
-    per-replay fills, where it makes them). None unless every replay
-    aligns: each graph a chain, every operation of the type of its node (a
-    copy or fill node may show as a kernel: CUDA runs some copies as
-    `memcpy32_post`).
-    Returns {"parts": {part: ns}, "replays": n, "busy_ns": the replays'
-    device busy time}."""
-    seq = [n[len(REPLAY):] for n, s, _ in sorted(host, key=lambda h: h[1]) if n.startswith(REPLAY)]
-    plans = {}
-    for v in set(seq):
-        lay = lays.get(v)
-        if lay is None or not lay.get("chain"):
-            return None
-        owners = [p for p, n in lay["runs"] for _ in range(n)]
-        nodes = [(p, t) for p, t in zip(owners, lay["types"]) if t in TRACED]
-        at = [i for i, (p, _) in enumerate(nodes) if p == "fused"]
-        plans[v] = (nodes, at[0] if len(at) == 1 else None)
-    anchors = [i for i, (k, n, _, _) in enumerate(ops) if k == "kernel" and any(f in n for f in fused)]
-    if not seq or sum(plans[v][1] is not None for v in seq) != len(anchors):
+    per-replay fills, where it makes them): the count most pairs of
+    anchored neighbours show. Each replay aligns on its own: placed where
+    the replay before it ends, every operation of its node's type (a copy
+    or fill node may show as a kernel: CUDA runs some copies as
+    `memcpy32_post`), all of its nodes inside the window; a replay out of
+    step with the one before it (a record the profiler lost or added) fails
+    with every replay back to the last anchored one. Each graph's aligned
+    replays stand for all of its replays (their mean times its count; the
+    exact sum where all align). None where a graph in the window has no
+    layout or is not a chain, where the fused launches do not match the
+    replays that hold one, where fewer than MIN_SHARE of the replays align,
+    or none of some graph.
+    Returns {"parts": {part: ns}, "replays": n, "aligned": the replays that
+    align, "busy_ns": the replays' device busy time}."""
+    rows = _replay_rows(ops, host, lays, fused)
+    if rows is None:
         return None
-    pos, it = [], iter(anchors)
-    for v in seq:
-        pos.append(None if plans[v][1] is None else next(it) - plans[v][1])
-    between = {pos[r + 1] - pos[r] - len(plans[seq[r]][0]) for r in range(len(seq) - 1)
-               if pos[r] is not None and pos[r + 1] is not None}
-    if len(between) != 1 or min(between) < 0:
+    ok = [r for r in rows if r[1] is not None]
+    if len(ok) < MIN_SHARE * len(rows):
         return None
-    x = between.pop()
-    for r, v in enumerate(seq):
-        if pos[r] is None:
-            if r == 0:
-                return None
-            pos[r] = pos[r - 1] + len(plans[seq[r - 1]][0]) + x
     parts: Counter = Counter()
-    spans = []
-    for r, v in enumerate(seq):
-        nodes, start = plans[v][0], pos[r]
-        if start < 0 or start + len(nodes) > len(ops):
+    busy = 0
+    for v in sorted({r[0] for r in rows}):
+        n = sum(r[0] == v for r in rows)
+        mine = [r for r in ok if r[0] == v]
+        if not mine:
             return None
-        if r and start != pos[r - 1] + len(plans[seq[r - 1]][0]) + x:
-            return None
-        for (p, t), (kind, _, s, e) in zip(nodes, ops[start : start + len(nodes)]):
-            if DEVICE_OPS[kind] != t and not (kind == "kernel" and t != "K"):
-                return None
-            parts[p] += e - s
-            spans.append((s, e))
-    return {"parts": dict(parts), "replays": len(seq), "busy_ns": union_ns(spans)}
+        total: Counter = Counter()
+        for m in mine:
+            total.update(m[1])
+        for p, ns in total.items():
+            parts[p] += ns if len(mine) == n else ns / len(mine) * n
+        b = sum(union_ns(r[2]) for r in mine)
+        busy += b if len(mine) == n else b / len(mine) * n
+    return {"parts": dict(parts), "replays": len(rows), "aligned": len(ok), "busy_ns": busy}
 
 
 # ---------------------------------------------------------------------------

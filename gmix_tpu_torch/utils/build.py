@@ -173,6 +173,14 @@ def load_kernels() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         lib.gmix_ppm_prepare.argtypes = []
         lib.gmix_ppm_prepare.restype = ctypes.c_int
+        # (GmixContextsArgs* / GmixMatchArgs*, stream); core/contexts.py
+        # declares the structures
+        for name in ("gmix_contexts_boundary", "gmix_match_pointer"):
+            fn = getattr(lib, name)
+            fn.argtypes = [ptr, ptr]
+            fn.restype = ctypes.c_int
+        lib.gmix_contexts_prepare.argtypes = []
+        lib.gmix_contexts_prepare.restype = ctypes.c_int
         lib.gmix_cuda_error_string.argtypes = [ctypes.c_int]
         lib.gmix_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib

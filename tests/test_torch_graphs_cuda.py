@@ -22,7 +22,7 @@ from gmix_tpu_torch.utils.serialization import copy_state
 
 S = 2
 KERNELS = ("gather_rows", "gather_rows_many", "scatter_rows", "scatter_rows_many", "fused_substeps", "ppm_update",
-           "ppm_predict")
+           "ppm_predict", "contexts_boundary", "match_pointer")
 
 
 @pytest.fixture
@@ -171,6 +171,41 @@ def test_ppm_kernels_in_the_graphs_give_the_cpu_archive(cuda, name):
     c0 = obs.launches()
     assert gt.decompress_bytes(archive, spec, chunk, pred=codec.Predictor(spec, S, device=cuda)) == data
     assert launched(c0) == [per, per]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["tiny-lstm", "tiny"])
+def test_contexts_kernels_in_the_graphs_give_the_cpu_archive(cuda, name):
+    """The boundary contexts and the match pointers as csrc/contexts.cu's
+    kernels inside the captured graphs, with PPM and the LSTM (tiny-lstm)
+    and without either (tiny): encode and decode of 300 bytes on the card
+    give the archive and the state of the eager CPU path, which runs the
+    plain versions, every byte step launches each kernel once, and every
+    generated byte too."""
+    spec = _spec(name)
+    data, chunk = _corpus(300, 12288), 50
+    per = len(data) // S
+
+    def launched(before):
+        now = obs.launches()
+        return [now.get(k, 0) - before.get(k, 0) for k in ("contexts_boundary", "match_pointer")]
+
+    p = codec.Predictor(spec, S, device=cuda)
+    c0 = obs.launches()
+    archive = gt.compress_bytes(data, spec, S, chunk, pred=p)
+    assert launched(c0) == [per, per]
+    host = codec.Predictor(spec, S, device="cpu")
+    assert archive == gt.compress_bytes(data, spec, S, chunk, pred=host)
+    card, cpu = _host_state(p.state), _host_state(host.state)
+    for k in {"metrics.ent", "metrics.ema"} & set(card):  # log2f against torch.log2
+        torch.testing.assert_close(card.pop(k), cpu.pop(k), rtol=1e-6, atol=0)
+    _assert_same(card, cpu)
+    c0 = obs.launches()
+    assert gt.decompress_bytes(archive, spec, chunk, pred=codec.Predictor(spec, S, device=cuda)) == data
+    assert launched(c0) == [per, per]
+    c0 = obs.launches()
+    gt.generate_bytes(p, b"", 16, chunk=16, seed=3)
+    assert launched(c0) == [16, 16]
 
 
 @pytest.mark.cuda

@@ -592,3 +592,124 @@ def test_ppm_wrappers_reject_what_the_kernels_do_not_take(cuda):
         ppm.ppm_predict_kernel(t["raw"].transpose(0, 1).contiguous().transpose(0, 1), t["cv"], t["see"], plan)
     with pytest.raises(ValueError, match="completed is"):
         ppm.ppm_update_kernel(t["raw"], t["cv"], t["completed"].cpu(), t["see"], plan)
+
+
+# ---------------------------------------------------------------------------
+# the contexts kernels (csrc/contexts.cu): boundary contexts and match pointers
+# ---------------------------------------------------------------------------
+
+# the benchmark's configurations and their cells' stream counts
+CONTEXT_CELLS = {"gmix-ref": 54, "gmix-best": 30, "ref-noppm": 63}
+
+
+def _contexts_meta(name):
+    import gmix_tpu_torch as gt
+    from gmix_tpu_torch import bench
+    from gmix_tpu_torch.core.meta import build_meta
+
+    return build_meta({"gmix-ref": gt.reference_spec, "gmix-best": gt.best_spec,
+                       "ref-noppm": bench.ref_noppm_spec}[name]())
+
+
+def _assert_leaves_equal(got, want, where, streams=None):
+    assert sorted(got) == sorted(want)
+    for k in want:
+        a = got[k] if streams is None else got[k][streams]
+        assert _bits_equal(a, want[k]), f"{k} differs from the plain version on the {where}"
+
+
+def _check_contexts_kernels(meta, sample, dev, t):
+    """Each kernel on a state of `sample` (the tables at full size on the
+    card) against its plain version on the card, every stream, and on the
+    CPU, on three streams' rows, bit for bit; one launch each, counted, and
+    every leaf written in place. The match pointers run on a fresh state, so
+    that they read the drawn table entries of its contexts."""
+    from gmix_tpu_torch.core import contexts
+    from gmix_tpu_torch.core.step import StepPlan
+    from gmix_tpu_torch.utils.contexts_inputs import to_state
+
+    S = len(sample["stm"]["acc"])
+    plan = StepPlan(meta, S, dev)
+    streams = sorted({0, S // 2, S - 1})
+    cpu_plan = StepPlan(meta, len(streams), "cpu")
+    t_dev = torch.full((), t, dtype=torch.int64, device=dev)
+    NM = len(meta.spec.matches)
+
+    def run(kernel, plain, launches):
+        """`kernel(stm, ltm, plan, t)` and `plain(...)` update the state and
+        return its other outputs by name; `launches`: (boundary, match)."""
+        stm, ltm = to_state(meta, sample, dev)
+        ptrs = {k: v.data_ptr() for k, v in {**stm, **ltm}.items()}
+        n0 = (_launches("contexts_boundary"), _launches("match_pointer"))
+        got = kernel(stm, ltm, plan, t_dev)
+        torch.cuda.synchronize()
+        assert (_launches("contexts_boundary") - n0[0], _launches("match_pointer") - n0[1]) == launches
+        assert {k: v.data_ptr() for k, v in {**stm, **ltm}.items()} == ptrs
+        got.update(stm, **ltm)
+        p_stm, p_ltm = to_state(meta, sample, dev)
+        want = plain(p_stm, p_ltm, plan, t_dev)
+        _assert_leaves_equal(got, {**want, **p_stm, **p_ltm}, "card")
+        del p_stm, p_ltm
+        c_stm, c_ltm = to_state(meta, sample, "cpu", streams)
+        want = plain(c_stm, c_ltm, cpu_plan, t_dev.cpu())
+        _assert_leaves_equal(got, {**want, **c_stm, **c_ltm}, "cpu", streams)
+
+    run(lambda stm, ltm, pl, at: contexts.boundary_contexts(stm, at, pl) or {},
+        lambda stm, ltm, pl, at: contexts.boundary_plain(stm, at, pl) or {}, (1, 0))
+    if NM:
+        run(lambda stm, ltm, pl, at: {"match_ix": contexts.match_pointers(stm, ltm, pl)},
+            lambda stm, ltm, pl, at: {"match_ix": contexts.match_plain(stm, ltm, pl)}, (0, 1))
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [0, 5])
+@pytest.mark.parametrize("streams", ["one", "cell"])
+@pytest.mark.parametrize("name", list(CONTEXT_CELLS))
+def test_contexts_kernels_match_plain(cuda, name, streams, t):
+    """States as the codec leaves them (bytes in the byte leaves, u32
+    hashes, short and long matches, empty histories), at one stream and at
+    the benchmark cell's, at a stream's first byte and after it."""
+    from gmix_tpu_torch.utils.contexts_inputs import random_state
+
+    meta = _contexts_meta(name)
+    S = 1 if streams == "one" else CONTEXT_CELLS[name]
+    _check_contexts_kernels(meta, random_state(meta, S, 31 * S + t), cuda, t)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [0, 5])
+@pytest.mark.parametrize("name", list(CONTEXT_CELLS))
+def test_contexts_kernels_at_the_edges(cuda, name, t):
+    """One stream per corner (`utils/contexts_inputs.py` `edge_state`): an
+    indirect-hash context whose new index is its old one, match lengths at
+    255, the pointer at the history's end, an empty history, a pointer that
+    wraps, a negative rolling-hash difference, bytes 0 and 255."""
+    from gmix_tpu_torch.utils.contexts_inputs import edge_state
+
+    meta = _contexts_meta(name)
+    _check_contexts_kernels(meta, edge_state(meta, 3 + t), cuda, t)
+
+
+@pytest.mark.cuda
+def test_contexts_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    import gmix_tpu_torch as gt
+    from gmix_tpu_torch.core import contexts
+    from gmix_tpu_torch.core.meta import build_meta
+    from gmix_tpu_torch.core.step import StepPlan
+    from gmix_tpu_torch.utils.contexts_inputs import random_state, to_state
+
+    meta = build_meta(gt.tiny_spec(True))
+    plan = StepPlan(meta, 2, cuda)
+    stm, ltm = to_state(meta, random_state(meta, 2, 1), cuda)
+    t = torch.ones((), dtype=torch.int64, device=cuda)
+    with pytest.raises(ValueError, match="ctx is"):
+        contexts.boundary_kernel({**stm, "ctx": stm["ctx"].to(torch.int32)}, t, plan)
+    with pytest.raises(ValueError, match="recent is"):
+        contexts.boundary_kernel({**stm, "recent": stm["recent"].T.contiguous().T}, t, plan)
+    with pytest.raises(ValueError, match="t is"):
+        contexts.boundary_kernel(stm, t.cpu(), plan)
+    with pytest.raises(ValueError, match="match_len is"):
+        contexts.match_kernel({**stm, "match_len": stm["match_len"].to(torch.int64)}, ltm, plan)
+    with pytest.raises(ValueError, match="hist is"):
+        contexts.match_kernel(stm, {**ltm, "hist": ltm["hist"][:, :8].contiguous()}, plan)

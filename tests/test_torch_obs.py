@@ -346,6 +346,31 @@ def test_a_window_that_does_not_align_reads_nothing(which, fault):
     assert _align(which, trace, lays) is None
 
 
+@pytest.mark.parametrize("dropped", ["byte_end_op", "lstm_op", "fill"])
+def test_a_dropped_record_reads_as_the_benchmark_reads_it(dropped):
+    """One record lost from the middle of a window of 42 replays: the
+    replays out of step fail, the others align, and each graph's aligned
+    replays stand for all of its replays; the port's reader gives the
+    benchmark's answer (h100_bench/parts.py `replays`, `window_parts`)."""
+    seq = SEQ * 6
+    trace = _window(seq)
+    at = [i for i, o in enumerate(trace.ops) if o[1] == dropped]
+    del trace.ops[at[len(at) // 2]]
+    rows, why = parts.replays(trace, LAYOUTS, FUSED)
+    want, note = parts.window_parts(rows)
+    assert want is not None, (why, note)
+    lo, hi = trace.window
+    got = obs.replay_parts([o for o in trace.ops if lo <= o[2] < hi], trace.host, LAYOUTS, tuple(FUSED))
+    assert got is not None and got["parts"] == want
+    aligned = sum(r[1] is not None for r in rows)
+    assert got["replays"] == len(seq) and got["aligned"] == aligned and aligned < len(seq)
+    # every part within the replays' spread of its exact value
+    exact = _want(seq)
+    assert sorted(got["parts"]) == sorted(exact)
+    for p, ns in exact.items():
+        assert got["parts"][p] == pytest.approx(ns, rel=0.02)
+
+
 def test_the_part_readers_read_the_run(monkeypatch):
     trace = _window(SEQ)
     monkeypatch.setattr(parts, "layouts", lambda: LAYOUTS)

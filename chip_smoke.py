@@ -12,6 +12,8 @@
                                        # of phase 2 (about a minute)
     python3 chip_smoke.py --contexts-only   # phases 0-1 and the contexts
                                             # kernels' part of phase 2
+    python3 chip_smoke.py --lstm-only   # phases 0-1 and the LSTM kernels'
+                                        # part of phase 2
 
 Phases; any failure ends the run with a non-zero exit:
 
@@ -57,6 +59,16 @@ Phases; any failure ends the run with a non-zero exit:
      (utils/contexts_inputs.py), at a stream's first byte and after it; each
      timed beside its plain version, called and replayed as a CUDA graph,
      and its bound;
+   - the LSTM's forward pass and output-layer SGD kernels (csrc/lstm.cu)
+     bitwise against their plain versions on the card (every stream) and on
+     the CPU (three streams), on seeded states at reference_spec() x 54,
+     best_spec() x 30, reference_spec() x 1 and the tiny spec's LSTM x 3, at
+     epoch 0, mid-window and the last epoch (the byte that wraps the
+     window), on hand-made edge streams (utils/lstm_inputs.py) and at every
+     cluster size of the forward kernel; each timed beside its plain
+     version, called and replayed as a CUDA graph, and its bound, and the
+     forward kernel at each cluster size (1, 2, 4, 8 blocks a stream, where
+     its shared memory fits);
 3. the main path at full width, at ref-noppm, ref-ppm and ref-full:
    compress_bytes then decompress_bytes of the first 16 KB of
    data/corpus_1m.bin on the GPU (16 streams, 1 KB per stream), which replay
@@ -66,8 +78,9 @@ Phases; any failure ends the run with a non-zero exit:
    exactly once and each mover once (ref-noppm: 5 launches a byte step) or
    twice (ref-ppm: 9; the PPM count update moves its own rows first, and its
    update and prediction are a kernel each); at ref-full the gather launches
-   three times (10: the prediction's `ppm_tbl`
-   rows come before the LSTM's forward pass, the other arenas after it) and
+   three times (12: the prediction's `ppm_tbl`
+   rows come before the LSTM's forward pass, the other arenas after it; the
+   forward pass and the output layer's SGD are a kernel each) and
    the LSTM must have made its 10 backward passes per
    direction (chunk 1024: inside the byte that wraps the horizon window).
    A graph's launches are its replays times the launches its capture
@@ -83,7 +96,8 @@ Phases; any failure ends the run with a non-zero exit:
    Then generate_bytes on the warm predictor: a 256-byte prompt (replayed
    with learning), 256 sampled bytes a stream at temperature 0.8 in one
    chunk of 256; a sampling byte step must launch the kernels of an encode
-   step less the byte-end scatter (ref-noppm 4, ref-ppm 8, ref-full 9).
+   step less the byte-end scatter and the LSTM's SGD (ref-noppm 4, ref-ppm
+   8, ref-full 10).
    Then 256 bytes more without a prompt, timed, after which every
    long-term-memory leaf must be as it was; the sampling step eager against
    graphs as above;
@@ -104,7 +118,7 @@ Phases; any failure ends the run with a non-zero exit:
    before a command and read just after):
    (a) `--profile best --streams 8 --chunk 512`: compress with `--analysis`
        4 KB of data/corpus_1m.bin that no other phase codes, then
-       decompress; the round trip exact, 10 launches a byte step each way,
+       decompress; the round trip exact, 12 launches a byte step each way,
        entropy.tsv's header `analysis_columns` and a finite row, memory.tsv's
        TOTAL equal to the state's size in gmix_tpu's layout (a u32 leaf at
        4 bytes an element) and to its rows' sum; bpb, model bpb, state and peak GB,
@@ -119,7 +133,7 @@ Phases; any failure ends the run with a non-zero exit:
        generated bytes must be the same files; entropy.tsv the same bits
        and its values within 1e-6 relative or one unit of the fifth decimal
        it prints; each device decodes the other's archive; a sampling step
-       launches 9 kernels;
+       launches 10 kernels;
    (c) wiki-encode -> dict-encode -> compress (scaled-12, 8 streams) of a
        small generated MediaWiki dump, and back: the same bytes.
 6. stream sharding (gmix_tpu_torch.parallel), after the rest:
@@ -127,11 +141,11 @@ Phases; any failure ends the run with a non-zero exit:
        card, in this process, beside the unsharded predictor: 2 KB of the
        corpus that no other phase codes, chunk 128. The archives must be the
        same bytes, each predictor must decode the other's, their checkpoints
-       must be the same file, and each shard must launch 10 kernels a byte
+       must be the same file, and each shard must launch 12 kernels a byte
        step; the wall times of both, a reading;
    (b) two processes over gloo on this card, 8 streams each, code phase 3's
        16 KB at ref-full with compress_bytes_multihost: each must return
-       phase 3's archive byte for byte and launch 10 kernels a byte step;
+       phase 3's archive byte for byte and launch 12 kernels a byte step;
        each prints its launches, encode bytes/s and peak memory, and the
        aggregate bytes/s is printed beside phase 3's one process (a reading);
    (c) a world of one rank over nccl: phase 4's ref-noppm run through
@@ -158,9 +172,10 @@ Phases; any failure ends the run with a non-zero exit:
    raises otherwise), its cross-entropy finite at every chunk, every byte
    step (warm start, graph capture, passes and traced window) must launch
    the profile's kernels (gather, scatter, fused, PPM update, PPM prediction,
-   contexts boundary, match pointers: 3 + 2 + 1 + 1 + 1 + 1 + 1 at ref-full
-   and best, 2 + 2 + 1 + 1 + 1 + 1 + 1 at ref-ppm, 1 + 1 + 1 + 0 + 0 + 1 + 1
-   at ref-noppm), and the state must
+   contexts boundary, match pointers, LSTM forward, LSTM perceive: 3 + 2 +
+   1 + 1 + 1 + 1 + 1 + 1 + 1 at ref-full and best, 2 + 2 + 1 + 1 + 1 + 1 +
+   1 + 0 + 0 at ref-ppm, 1 + 1 + 1 + 0 + 0 + 1 + 1 + 0 + 0 at ref-noppm),
+   and the state must
    be the bytes the bench estimated. The step's roofline of each run is
    logged (the bench's count of a byte step from the spec, its bound, and
    the shares of the card's peaks: `mfu`, `hbm_share`, `roofline_share`),
@@ -184,7 +199,8 @@ Phases; any failure ends the run with a non-zero exit:
        graph replay launching what the code says (`launches_per_step`:
        1 + 1 + 1 without PPM, 2 + 2 + 1 + 1 + 1 with PPM, 3 + 2 + 1 + 1 + 1
        with PPM and the LSTM, then the boundary contexts' 1 and the match
-       pointers' 1, 0 without a match model);
+       pointers' 1, 0 without a match model, then the LSTM's forward pass
+       and SGD, 1 + 1 with the LSTM);
    (c) at scale_tables(spec, 12, history_bits=16), 2 streams of 512 bytes:
        the GPU's archive equal to the CPU's byte for byte (the CPU's encode
        and decode run in a process a variant, started before phase 7), the
@@ -211,7 +227,8 @@ Phases; any failure ends the run with a non-zero exit:
    coding 512 000 bytes from each; the ring sweep on 256 KB of dump at a
    ring that wraps and one that does not; scaling at 1, 16 and 256
    streams; the wiki chain on 1 MB of dump, byte-identical. Every run must
-   exit 0, and every byte step it ran launch 3 + 2 + 1 + 1 + 1 + 1 + 1 kernels.
+   exit 0, and every byte step it ran launch 3 + 2 + 1 + 1 + 1 + 1 + 1 + 1 + 1
+   kernels.
 
 ref-full is gmix_tpu's reference wiring (`reference_spec()`: PPM, the LSTM
 byte model of 50 cells with a horizon of 100) at its published table sizes
@@ -261,7 +278,7 @@ import gmix_tpu_torch as gt
 from gmix_tpu_torch import bench, cli, obs, sweeps
 from gmix_tpu_torch.bench import padded_per, ref_noppm_spec, ref_ppm_spec, spec_for, trace_window
 from gmix_tpu_torch.config import best_spec, reference_spec, scale_tables
-from gmix_tpu_torch.core import contexts, fused, ppm
+from gmix_tpu_torch.core import contexts, fused, lstm, ppm
 from gmix_tpu_torch.core import step as step_mod
 from gmix_tpu_torch.core.codec import (Predictor, analysis_columns, compress_bytes, decompress_bytes, entropy_bits,
                                        generate_bytes, run_chunks)
@@ -272,7 +289,7 @@ from gmix_tpu_torch.parallel.mesh import make_mesh, stream_sharding
 from gmix_tpu_torch.roofline import PEAK_BYTES_PER_S, SHARES, TRANSCENDENTAL, bound, fused_bound, tensor_bytes
 from gmix_tpu_torch.state import init_state, numpy_layout, state_bytes
 from gmix_tpu_torch.utils.build import build
-from gmix_tpu_torch.utils import contexts_inputs, ppm_inputs
+from gmix_tpu_torch.utils import contexts_inputs, lstm_inputs, ppm_inputs
 from gmix_tpu_torch.utils.fused_inputs import random_inputs, with_sampling
 from gmix_tpu_torch.utils.serialization import copy_state
 
@@ -301,6 +318,7 @@ SOURCES = {
     "fused_substeps": "gmix_tpu_torch/csrc/fused_kernel.cuh",
     "ppm": "gmix_tpu_torch/csrc/ppm.cu",
     "contexts": "gmix_tpu_torch/csrc/contexts.cu",
+    "lstm": "gmix_tpu_torch/csrc/lstm.cu",
 }
 REPLACES = {
     "gather_rows": "gmix_tpu/ops/rowmove.py:85",
@@ -315,9 +333,11 @@ ARENAS = (("ind.st", ("ltm", "ind", "st")), ("mix_w", ("ltm", "mix_w")), ("mix_p
 # launches by kernel (obs.launches, by wrapper): each mover kernel has two
 # wrappers (one arena, a group of arenas)
 WRAPPERS = (("gather_rows", "gather_rows_many"), ("scatter_rows", "scatter_rows_many"), ("fused_substeps",),
-            ("ppm_update",), ("ppm_predict",), ("contexts_boundary",), ("match_pointer",))
+            ("ppm_update",), ("ppm_predict",), ("contexts_boundary",), ("match_pointer",), ("lstm_forward",),
+            ("lstm_perceive",))
 # what a tuple of launch counts holds, in WRAPPERS' order
-LAUNCHES = "(gather, scatter, fused, PPM update, PPM prediction, contexts boundary, match pointers)"
+LAUNCHES = ("(gather, scatter, fused, PPM update, PPM prediction, contexts boundary, match pointers, LSTM forward, "
+            "LSTM perceive)")
 NO_LAUNCHES = (0,) * len(WRAPPERS)
 _LAUNCHES_AT_RESET = {}
 # archive sizes that must not change: the codec is deterministic, and these
@@ -430,9 +450,11 @@ def launches_per_step(spec):
     launch each of the count update's and the prediction's kernels; with
     PPM and the LSTM also the prediction's `ppm_tbl` rows gathered alone
     before the forward pass; one launch of the boundary contexts' kernel,
-    and one of the match pointers' with match models."""
-    ppm, lstm = spec.ppm is not None, spec.lstm is not None
-    return (1 + int(ppm) + int(ppm and lstm), 1 + int(ppm), 1, int(ppm), int(ppm), 1, int(bool(spec.matches)))
+    and one of the match pointers' with match models; with the LSTM one
+    launch of its forward pass and one of its output layer's SGD."""
+    has_ppm, has_lstm = spec.ppm is not None, spec.lstm is not None
+    return (1 + int(has_ppm) + int(has_ppm and has_lstm), 1 + int(has_ppm), 1, int(has_ppm), int(has_ppm), 1,
+            int(bool(spec.matches)), int(has_lstm), int(has_lstm))
 
 
 def profile_launches(profile: str):
@@ -1112,6 +1134,141 @@ def phase_contexts(dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 2e: the LSTM's forward pass and output-layer SGD kernels
+# ---------------------------------------------------------------------------
+
+# (name, spec, streams): the benchmark's LSTM cells, one stream of ref, and
+# the tiny spec's LSTM (16 cells, horizon 10)
+LSTM_SHAPES = (("ref", reference_spec, 54), ("best", best_spec, 30), ("ref-x1", reference_spec, 1),
+               ("tiny", lambda: gt.tiny_spec(True), 3))
+LSTM_SEEDS = 2
+LSTM_CLUSTERS = (1, 2, 4, 8)
+
+
+def lstm_work(ls, S: int, which: str):
+    """(bytes, float ops) of one launch of the LSTM kernel `which`
+    ("forward" or "perceive"), each input read once and each output written
+    once, counted as roofline.step_work counts the lstm_forward part: the
+    forward pass reads the gate rows, gains, the symbol column, the epoch's
+    out_w slice, the aux input and the state, and writes the state and the
+    epoch's records; the SGD reads the last epoch's slice and writes the
+    next one's."""
+    C, IN, OUT = ls.num_cells, ls.input_size, ls.output_size
+    LI, T = IN + C + 1, TRANSCENDENTAL
+    if which == "perceive":
+        floats = 2 * (C + 1) * OUT + OUT + (C + 1) + 1
+        return S * 4 * floats, S * (OUT + (C + 1) + 2 * (C + 1) * OUT)
+    floats = (3 * C * (LI + 1 + 2) + (C + 1) * OUT + IN + 2 * (C + 1) + 2 * C  # reads
+              + LI + 3 * C + 3 + 3 * C + 3 * C + 2 * OUT + 4 + 1)  # the epoch's records, probs, registers, context
+    ops = (3 * C * 2 * LI + 3 * (2 * C + 2 + T) + 3 * C * 3 + 3 * C * T + C * (5 + T) + 2 * (C + 1) * OUT
+           + OUT + OUT * (1 + T) + (OUT - 1) + OUT)
+    return S * 4 * floats, S * ops
+
+
+def compare_lstm(what: str, meta, sample: dict, dev, cluster=None) -> None:
+    """The forward kernel and then the perceive kernel on a state of
+    `sample` (`lstm_inputs`) against the plain versions on the card, every
+    stream, and on the CPU, three streams, bit for bit: every LSTM leaf
+    after each, the head's registers and the `lstm_ctx` context. The byte
+    that wraps the window records its symbol op by op and launches the SGD
+    alone (the backward pass is left to the caller, as the deferred order
+    does)."""
+    ls = meta.spec.lstm
+    slot = int(meta.slots["lstm_ctx"])
+    S = len(sample["stm"]["acc"])
+    streams = sorted({0, S // 2, S - 1})
+    wrap = int(sample["stm"]["lstm"]["epoch"]) == ls.horizon - 1
+
+    def step(stm, ltm, lp, kernel):
+        regs = (lstm.lstm_forward_kernel(stm, ltm, lp, slot, cluster) if kernel else
+                lstm.lstm_forward_plain(stm, ltm, lp, slot))
+        out = {"regs": regs, "ctx": stm["ctx"].clone(),
+               **{f"forward {k}": v.clone() for k, v in {**stm["lstm"], **ltm["lstm"]}.items()}}
+        if kernel:
+            lstm._lstm_perceive(stm, ltm, stm["acc"], lp, wrap, False)
+        else:
+            lstm.lstm_perceive_plain(stm, ltm, stm["acc"], lp, wrap, False)
+        return {**out, **{f"perceive {k}": v for k, v in {**stm["lstm"], **ltm["lstm"]}.items()}}
+
+    stm, ltm = lstm_inputs.to_state(sample, dev)
+    got = step(stm, ltm, lstm.LstmPlan(ls, S, dev), True)
+    del stm, ltm
+    for where in ("card", "cpu"):
+        if where == "card":
+            st, lt = lstm_inputs.to_state(sample, dev)
+            want = step(st, lt, lstm.LstmPlan(ls, S, dev), False)
+        else:
+            st, lt = lstm_inputs.to_state(sample, "cpu", streams)
+            want = step(st, lt, lstm.LstmPlan(ls, len(streams), "cpu"), False)
+        for k, w in want.items():
+            g = got[k] if where == "card" or got[k].dim() == 0 else got[k][streams]
+            g, w = g.cpu().contiguous(), w.cpu().contiguous()
+            if g.dtype == torch.float32:
+                g, w = g.view(torch.int32), w.view(torch.int32)
+            if not torch.equal(g, w):
+                raise RuntimeError(f"phase 2 {what}: the LSTM kernels' {k} differs from the plain version on the "
+                                   f"{where}")
+        del st, lt, want
+    del got
+    torch.cuda.empty_cache()
+
+
+def phase_lstm(dev) -> dict:
+    """The LSTM's forward pass and output-layer SGD kernels (csrc/lstm.cu)
+    against their plain versions, bitwise, on seeded states
+    (`lstm_inputs.random_state`, LSTM_SEEDS draws) at LSTM_SHAPES, at epoch
+    0, mid-window and the last epoch (whose byte wraps the window), on the
+    edge streams (`edge_state`) at epoch 0 and the last, and at every
+    cluster size of the forward kernel; then each kernel timed beside its
+    plain version, called (`plain_ms`) and replayed as a CUDA graph
+    (`plain_graph_ms`: what the byte step's graph spent there before the
+    kernels), and its bound; the forward kernel at each cluster size
+    (`forward.cluster_ms`, at the sizes whose shared memory fits; `cluster`
+    is the one the wrapper takes)."""
+    rows = {}
+    for name, make, S in LSTM_SHAPES:
+        meta = build_meta(make())
+        ls, slot = meta.spec.lstm, int(meta.slots["lstm_ctx"])
+        Hz = ls.horizon
+        for e in (0, Hz // 2, Hz - 1):
+            for k in range(LSTM_SEEDS):
+                compare_lstm(f"lstm {name} S={S} epoch {e} seed {k}", meta,
+                             lstm_inputs.random_state(meta, S, SEED + 10 * e + k, e), dev)
+        for e in (0, Hz - 1):
+            compare_lstm(f"lstm {name} edges epoch {e}", meta, lstm_inputs.edge_state(meta, SEED, e), dev)
+        clusters = [K for K in LSTM_CLUSTERS if lstm.forward_smem(ls, K) <= lstm.MAX_DYNAMIC_SMEM]
+        for K in clusters:
+            compare_lstm(f"lstm {name} S={S} cluster {K}", meta, lstm_inputs.random_state(meta, S, SEED + K, 3), dev,
+                         cluster=K)
+        sample = lstm_inputs.random_state(meta, S, SEED, Hz // 2)
+        stm, ltm = lstm_inputs.to_state(sample, dev)
+        lp = lstm.LstmPlan(ls, S, dev)
+        p_stm, p_ltm = lstm_inputs.to_state(sample, dev)
+        chosen = lstm.forward_cluster(S, ls, torch.cuda.get_device_properties(dev).multi_processor_count)
+        calls = {
+            "forward": (lambda i: lstm.lstm_forward_kernel(stm, ltm, lp, slot),
+                        lambda i: lstm.lstm_forward_plain(p_stm, p_ltm, lp, slot)),
+            "perceive": (lambda i: lstm.lstm_perceive_kernel(stm, ltm, stm["acc"], lp, True),
+                         lambda i: lstm.lstm_perceive_plain(p_stm, p_ltm, p_stm["acc"], lp, False, False)),
+        }
+        row = {"spec": name, "streams": S, "cells": ls.num_cells, "horizon": Hz, "cluster": chosen,
+               "compared": 3 * LSTM_SEEDS + 2 + len(clusters)}
+        for which, (kernel, plain) in calls.items():
+            nbytes, ops = lstm_work(ls, S, which)
+            row[which] = {"ms": device_ms(kernel, reps=50), "call_ms": call_ms(kernel, reps=50),
+                          "plain_ms": call_ms(plain, reps=10), "plain_graph_ms": device_ms(graphed(plain), reps=50),
+                          "bytes_moved": nbytes, "float_ops": ops, **bound(nbytes, ops)}
+        row["forward"]["cluster_ms"] = {
+            K: device_ms(lambda i, K=K: lstm.lstm_forward_kernel(stm, ltm, lp, slot, K), reps=50)
+            for K in clusters}
+        rows[name] = row
+        log(f"phase 2: lstm kernels {json.dumps(row)}")
+        del stm, ltm, p_stm, p_ltm, calls
+        torch.cuda.empty_cache()
+    return rows
+
+
+# ---------------------------------------------------------------------------
 # phase 3: the main path
 # ---------------------------------------------------------------------------
 
@@ -1336,13 +1493,14 @@ def phase_generate(name, pred, dev, per_encode_step):
     """generate_bytes on the warm predictor, as a user calls it: the prompt
     replayed with learning (encode steps), then GEN_BYTES sampled bytes a
     stream; each byte step must launch what the code says (a sampling step
-    an encode step's kernels less the byte-end scatter). Then sampling alone
+    an encode step's kernels less the byte-end scatter and the LSTM's SGD).
+    Then sampling alone
     from where that left off (no prompt), timed, after which every
     long-term-memory leaf must be as it was (the prompt's replay learns by
     design); then a profiler window of sampling steps."""
     S = pred.num_streams
     prompt = corpus(MAIN_BYTES + GEN_PROMPT)[MAIN_BYTES:]  # bytes the model has not seen
-    expect = (per_encode_step[0], per_encode_step[1] - 1, *per_encode_step[2:])
+    expect = (per_encode_step[0], per_encode_step[1] - 1, *per_encode_step[2:-1], 0)
     reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1523,10 +1681,10 @@ def flag(argv, name: str) -> int:
 
 def step_launches(steps: int, sampling: int = 0):
     """`LAUNCHES` of `steps` encode or decode steps and `sampling` sampling
-    steps with PPM, the LSTM and match models: 3 + 2 + 1 + 1 + 1 + 1 + 1 and
-    3 + 1 + 1 + 1 + 1 + 1 + 1 a step."""
+    steps with PPM, the LSTM and match models: 3 + 2 + 1 + 1 + 1 + 1 + 1 +
+    1 + 1 and 3 + 1 + 1 + 1 + 1 + 1 + 1 + 1 + 0 a step."""
     n = steps + sampling
-    return (3 * n, 2 * steps + sampling, n, n, n, n, n)
+    return (3 * n, 2 * steps + sampling, n, n, n, n, n, n, steps)
 
 
 def cli_run(argv, what: str, launches=None):
@@ -1836,7 +1994,8 @@ def phase_shards(spec, dev, d: str) -> dict:
         n = SHARDS if run.startswith("sharded") else 1
         if got != step_launches(n * per):
             raise RuntimeError(f"phase 6 shards: {run} launched {LAUNCHES} {got} in {per} byte steps of "
-                               f"{n} shard(s), expected {step_launches(n * per)}: 3 + 2 + 1 + 1 + 1 + 1 + 1 a shard and step")
+                               f"{n} shard(s), expected {step_launches(n * per)}: 3 + 2 + 1 + 1 + 1 + 1 + 1 + 1 + 1 a "
+                               "shard and step")
     out = {"spec": "ref-full", "streams": STREAMS, "shards": SHARDS, "mesh": [str(x) for x in sharding.mesh.devices],
            "bytes": len(data), "chunk": SHARD_CHUNK, "byte_steps": per, "archive_bytes": len(blobs["sharded"]),
            "same_archive": True, "cross_decodes": True, "same_checkpoint": True,
@@ -2307,7 +2466,7 @@ def sweep_run(argv, what: str) -> dict:
     its kernels (set to 0 just before, read just after), its rows logged:
     exit code 0, and the byte steps its rows ran (`byte_steps`) each
     launching the spec's kernels (every sweep's spec has PPM and the LSTM:
-    3 + 2 + 1 + 1 + 1 + 1 + 1)."""
+    3 + 2 + 1 + 1 + 1 + 1 + 1 + 1 + 1)."""
     out = io.StringIO()
     torch.cuda.empty_cache()
     reset_launches()
@@ -2403,7 +2562,9 @@ def main() -> int:
     sweeps_only = sys.argv[1:] == ["--sweeps-only"]
     ppm_only = sys.argv[1:] == ["--ppm-only"]
     contexts_only = sys.argv[1:] == ["--contexts-only"]
-    if sys.argv[1:] and not (fused_only or bench_only or variants_only or sweeps_only or ppm_only or contexts_only):
+    lstm_only = sys.argv[1:] == ["--lstm-only"]
+    if sys.argv[1:] and not (fused_only or bench_only or variants_only or sweeps_only or ppm_only or contexts_only
+                             or lstm_only):
         print("usage: chip_smoke.py [--fused-only | --bench-only | --variants-only | --sweeps-only | --ppm-only | "
               "--contexts-only]", file=sys.stderr)
         return 2
@@ -2443,6 +2604,12 @@ def main() -> int:
         elapsed("phase 2d done")
         print(smi, flush=True)
         print(json.dumps({"ok": True, "partial": "the contexts kernels only", "contexts": contexts_out}), flush=True)
+        return 0
+    if lstm_only:
+        lstm_out = phase_lstm(dev)
+        elapsed("phase 2e done")
+        print(smi, flush=True)
+        print(json.dumps({"ok": True, "partial": "the LSTM kernels only", "lstm": lstm_out}), flush=True)
         return 0
     if bench_only:
         bench_out = phase_bench(dev)
@@ -2491,6 +2658,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     ppm_out = phase_ppm(dev)
     contexts_out = phase_contexts(dev)
+    lstm_out = phase_lstm(dev)
     elapsed("phase 2 done")
     main_out = {name: phase_main(name, spec, dev) for name, spec in specs.items()}
     elapsed("phase 3 done")
@@ -2672,6 +2840,27 @@ def main() -> int:
             "streams": contexts_out["ref"]["streams"],
             **{other: {k: contexts_out[other][which][k] for k in ("ms", "plain_graph_ms", "bound_ms")}
                for other in ("best", "ref-noppm")},
+        })
+    for i, which in ((7, "forward"), (8, "perceive")):
+        by_path = launches(i)
+        ref = lstm_out["ref"][which]
+        kernels.append({
+            "name": f"lstm_{which}",
+            "route": "cuda",
+            "source": SOURCES["lstm"],
+            # gmix_tpu computes the LSTM's forward pass and SGD in plain jnp,
+            # outside any kernel
+            "replaces": None,
+            "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
+            "launches_per_replay": per_replay(i),
+            "max_abs_err": 0.0,
+            **{k: ref[k] for k in ("ms", "call_ms", "plain_ms", "plain_graph_ms", "bound_ms", "bound_by",
+                                   "bytes_moved", "float_ops")},
+            "streams": lstm_out["ref"]["streams"],
+            **({"cluster": lstm_out["ref"]["cluster"], "cluster_ms": ref["cluster_ms"]} if which == "forward" else {}),
+            **{other: {k: lstm_out[other][which][k] for k in ("ms", "plain_graph_ms", "bound_ms")}
+               for other in ("best", "ref-x1", "tiny")},
         })
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

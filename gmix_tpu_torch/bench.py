@@ -454,16 +454,18 @@ def release_device(device) -> None:
 def _launch_counts() -> Tuple[int, ...]:
     """The hand-written kernels' launches so far (obs.launches): (gather,
     scatter, fused, PPM update, PPM prediction, contexts boundary, match
-    pointers)."""
+    pointers, LSTM forward pass, LSTM perceive)."""
     n = obs.launches()
     return (n.get("gather_rows", 0) + n.get("gather_rows_many", 0),
             n.get("scatter_rows", 0) + n.get("scatter_rows_many", 0), n.get("fused_substeps", 0),
-            n.get("ppm_update", 0), n.get("ppm_predict", 0), n.get("contexts_boundary", 0), n.get("match_pointer", 0))
+            n.get("ppm_update", 0), n.get("ppm_predict", 0), n.get("contexts_boundary", 0), n.get("match_pointer", 0),
+            n.get("lstm_forward", 0), n.get("lstm_perceive", 0))
 
 
 # the hand-written kernels, by a part of their name in a trace
 OWN_KERNELS = ("fused_substeps_kernel", "gather_rows_many_kernel", "scatter_rows_many_kernel", "ppm_update_kernel",
-               "ppm_predict_kernel", "contexts_boundary_kernel", "match_pointer_kernel")
+               "ppm_predict_kernel", "contexts_boundary_kernel", "match_pointer_kernel", "lstm_forward_kernel",
+               "lstm_perceive_kernel")
 TOP_KERNELS, KERNEL_NAME_CHARS = 10, 120
 
 

@@ -8,15 +8,18 @@ hand-written CUDA kernel on a CUDA device, the eager torch loop on the CPU.
 The PPM byte model's boundary work is `core/ppm.py`, the LSTM byte model is
 `core/lstm.py`. This module keeps what surrounds them, in eager torch, with
 the arena rows moved by the kernels of `ops/rowmove.py`. On a GPU a byte
-step is therefore 3 hand-written launches (one gather of every arena, the
-sub-steps, one scatter of every arena), and 7 with PPM, whose count update
+step is therefore 5 hand-written launches (the boundary contexts and the
+match pointers of `core/contexts.py`, one gather of every arena, the
+sub-steps, one scatter of every arena), and 9 with PPM, whose count update
 gathers and scatters its own rows first, with its update kernel between
-them, and whose prediction is a kernel too; plus the eager boundary, packing
-and byte-end ops. With PPM and an LSTM it is 8: the LSTM's forward pass reads
-the PPM prediction and sets the `lstm_ctx` context, which an indirect model
-may be keyed on, so the rows of `ppm_tbl` are gathered on their own before
-the prediction, and the other arenas after the forward pass. A sampling step
-(generation: learn off) makes no byte-end scatter: 2, 6 and 7 launches.
+them, and whose prediction is a kernel too; plus the eager packing and
+byte-end ops. With PPM and an LSTM it is 12: the LSTM's forward pass (one
+kernel) reads the PPM prediction and sets the `lstm_ctx` context, which an
+indirect model may be keyed on, so the rows of `ppm_tbl` are gathered on
+their own before the prediction, and the other arenas after the forward
+pass; the byte end's SGD of its output layer is one kernel more. A sampling
+step (generation: learn off) makes no byte-end scatter and no SGD: 4, 8 and
+10 launches.
 
 The JAX function is the reference; the port keeps its expression order op
 for op, because the decoder must replay the encoder's float updates bit for
@@ -74,6 +77,7 @@ from .lstm import LstmPlan, _lstm_bptt, _lstm_forward, _lstm_perceive
 from .contexts import boundary_contexts, boundary_table, match_pointers, match_table
 from .meta import Meta
 from . import contexts as _contexts
+from . import lstm as _lstm
 from . import ppm as _ppm
 from .ppm import _ppm_index, _ppm_predict, _ppm_update
 
@@ -275,10 +279,8 @@ def _byte_inputs(state: Dict, data_buf: torch.Tensor, code_buf: torch.Tensor, t,
                 with obs.part("ppm"):
                     ppm_cv, ppm_ix = _ppm_index(stm["ctx"], plan)
                     _ppm_predict(stm, gather_rows(stm["ppm_tbl"], ppm_ix), ppm_cv, plan)
-            _lstm_forward(stm, ltm, plan.lstm, plan.lstm_ctx_slot)
-            lst = stm["lstm"]
-            work["lstm_probs"] = lst["probs"]
-            work["lstm_regs"] = torch.stack([lst["top"], lst["bot"], lst["mid"], torch.zeros_like(lst["top"])], dim=1)
+            work["lstm_regs"] = _lstm_forward(stm, ltm, plan.lstm, plan.lstm_ctx_slot)
+            work["lstm_probs"] = stm["lstm"]["probs"]
 
     # ---- match byte-boundary pointer logic (match.cpp:38-58) ----
     if NM:
@@ -586,6 +588,8 @@ class CapturedStep:
         _contexts.prepare(plan.device)
         if plan.meta.spec.ppm is not None:
             _ppm.prepare(plan.device)
+        if plan.meta.spec.lstm is not None:
+            _lstm.prepare(plan.device)
         pool, stream = plan.graph_pool()
         self.graph = torch.cuda.CUDAGraph()
         t0 = time.perf_counter()

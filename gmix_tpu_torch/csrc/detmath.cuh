@@ -88,6 +88,16 @@ __device__ __forceinline__ float pow_det(float x, float a) { return exp2_det(fmu
 
 __device__ __forceinline__ float logistic(float x) { return fdiv(1.0f, fadd(1.0f, exp_det(-x))); }
 
+// tanh(x) as 1 - 2/(e**2x + 1)
+__device__ __forceinline__ float tanh_det(float x) {
+  return fsub(1.0f, fdiv(2.0f, fadd(exp_det(fadd(x, x)), 1.0f)));
+}
+
+// the correctly rounded float32 square root: the float64 root rounded once
+__device__ __forceinline__ float sqrt_det(float x) {
+  return __double2float_rn(__dsqrt_rn(static_cast<double>(x)));
+}
+
 __device__ __forceinline__ float clamp_prob(float p) { return clampf(p, kLogitEps, kLogitHi); }
 
 __device__ __forceinline__ float logit(float p) {

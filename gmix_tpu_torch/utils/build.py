@@ -181,6 +181,14 @@ def load_kernels() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         lib.gmix_contexts_prepare.argtypes = []
         lib.gmix_contexts_prepare.restype = ctypes.c_int
+        # (GmixLstmForwardArgs* / GmixLstmPerceiveArgs*, stream);
+        # core/lstm.py declares the structures
+        for name in ("gmix_lstm_forward", "gmix_lstm_perceive"):
+            fn = getattr(lib, name)
+            fn.argtypes = [ptr, ptr]
+            fn.restype = ctypes.c_int
+        lib.gmix_lstm_prepare.argtypes = []
+        lib.gmix_lstm_prepare.restype = ctypes.c_int
         lib.gmix_cuda_error_string.argtypes = [ctypes.c_int]
         lib.gmix_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib

@@ -22,7 +22,7 @@ from gmix_tpu_torch.utils.serialization import copy_state
 
 S = 2
 KERNELS = ("gather_rows", "gather_rows_many", "scatter_rows", "scatter_rows_many", "fused_substeps", "ppm_update",
-           "ppm_predict", "contexts_boundary", "match_pointer")
+           "ppm_predict", "contexts_boundary", "match_pointer", "lstm_forward", "lstm_perceive")
 
 
 @pytest.fixture
@@ -206,6 +206,42 @@ def test_contexts_kernels_in_the_graphs_give_the_cpu_archive(cuda, name):
     c0 = obs.launches()
     gt.generate_bytes(p, b"", 16, chunk=16, seed=3)
     assert launched(c0) == [16, 16]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("order", ["cond", "defer"])
+def test_lstm_kernels_in_the_graphs_give_the_cpu_archive(cuda, order):
+    """The LSTM's forward pass and output-layer SGD as csrc/lstm.cu's kernels
+    inside the captured graphs, with the backward pass inside the byte that
+    wraps the window (a chunk that is no multiple of the horizon) or after
+    it: encode and decode on the card give the archive and the state of the
+    eager CPU path, which runs the plain versions; every byte step launches
+    each kernel once, and every generated byte the forward pass alone."""
+    spec = _spec("tiny-lstm")
+    chunk = 48 if order == "cond" else 50
+    data = _corpus(6 * chunk, 16384)
+    per = len(data) // S
+
+    def launched(before):
+        now = obs.launches()
+        return [now.get(k, 0) - before.get(k, 0) for k in ("lstm_forward", "lstm_perceive")]
+
+    p = codec.Predictor(spec, S, device=cuda)
+    c0 = obs.launches()
+    archive = gt.compress_bytes(data, spec, S, chunk, pred=p)
+    assert launched(c0) == [per, per]
+    host = codec.Predictor(spec, S, device="cpu")
+    assert archive == gt.compress_bytes(data, spec, S, chunk, pred=host)
+    card, cpu = _host_state(p.state), _host_state(host.state)
+    for k in {"metrics.ent", "metrics.ema"} & set(card):  # log2f against torch.log2
+        torch.testing.assert_close(card.pop(k), cpu.pop(k), rtol=1e-6, atol=0)
+    _assert_same(card, cpu)
+    c0 = obs.launches()
+    assert gt.decompress_bytes(archive, spec, chunk, pred=codec.Predictor(spec, S, device=cuda)) == data
+    assert launched(c0) == [per, per]
+    c0 = obs.launches()
+    gt.generate_bytes(p, b"", 16, chunk=16, seed=3)
+    assert launched(c0) == [16, 0]
 
 
 @pytest.mark.cuda

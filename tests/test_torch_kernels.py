@@ -4,6 +4,8 @@ plain torch versions, on a GPU.
 Imports torch and gmix_tpu_torch only, so it runs on a GPU machine that has
 no JAX: `python -m pytest tests/test_torch_kernels.py -q`. Without a CUDA
 device every test skips (the kernels have no CPU mode)."""
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -45,10 +47,10 @@ def test_sqrt_det_is_the_same_on_the_card_and_on_the_cpu(cuda):
 @pytest.mark.cuda
 @pytest.mark.parametrize("bptt", [True, False], ids=["cond", "defer"])
 def test_lstm_is_the_same_on_the_card_and_on_the_cpu(cuda, bptt):
-    """core/lstm.py has no kernel, but an archive must be the same bits from
-    either device: 25 byte-model steps (forward pass, byte end, the backward
-    pass with Adam at every window wrap, in either order) from a seeded
-    state, every LSTM leaf bit for bit."""
+    """An archive must be the same bits from either device: 25 byte-model
+    steps (forward pass and byte end, csrc/lstm.cu's kernels on the card,
+    the backward pass with Adam at every window wrap, in either order) from
+    a seeded state, every LSTM leaf bit for bit."""
     import gmix_tpu_torch as gt
     from gmix_tpu_torch.core import lstm
     from gmix_tpu_torch.core.meta import build_meta
@@ -713,3 +715,140 @@ def test_contexts_wrappers_reject_what_the_kernels_do_not_take(cuda):
         contexts.match_kernel({**stm, "match_len": stm["match_len"].to(torch.int64)}, ltm, plan)
     with pytest.raises(ValueError, match="hist is"):
         contexts.match_kernel(stm, {**ltm, "hist": ltm["hist"][:, :8].contiguous()}, plan)
+
+
+# ---------------------------------------------------------------------------
+# the LSTM kernels (csrc/lstm.cu): the forward pass and the output layer's SGD
+# ---------------------------------------------------------------------------
+
+# the benchmark's configurations at their cells' stream counts, one stream,
+# and the tiny spec's LSTM (16 cells, horizon 10)
+LSTM_CASES = {"gmix-ref-x54": ("ref", 54), "gmix-best-x30": ("best", 30), "gmix-ref-x1": ("ref", 1),
+              "tiny-lstm": ("tiny", 3)}
+
+
+def _lstm_meta(name):
+    import gmix_tpu_torch as gt
+    from gmix_tpu_torch.core.meta import build_meta
+
+    return build_meta({"ref": gt.reference_spec, "best": gt.best_spec, "tiny": lambda: gt.tiny_spec(True)}[name]())
+
+
+def _check_lstm_kernels(meta, sample, dev, cluster=None):
+    """The forward kernel, then the perceive kernel on what it left, against
+    the plain versions on the card, every stream, and on the CPU, three
+    streams, bit for bit: every leaf the two read or write, the head's
+    registers, the `lstm_ctx` context; one launch each, counted, and every
+    leaf written in place. The byte that wraps the window (the epoch leaf
+    back at 0) records its symbol op by op and launches the SGD alone."""
+    from gmix_tpu_torch.core import lstm
+    from gmix_tpu_torch.utils.lstm_inputs import to_state
+
+    ls = meta.spec.lstm
+    slot = int(meta.slots["lstm_ctx"])
+    S = len(sample["stm"]["acc"])
+    streams = sorted({0, S // 2, S - 1})
+    wrap = int(sample["stm"]["lstm"]["epoch"]) == ls.horizon - 1
+
+    def step(stm, ltm, lp, kernel):
+        if kernel:
+            regs = lstm.lstm_forward_kernel(stm, ltm, lp, slot, cluster) if cluster else lstm._lstm_forward(
+                stm, ltm, lp, slot)
+        else:
+            regs = lstm.lstm_forward_plain(stm, ltm, lp, slot)
+        after = {"regs": regs, **{f"fwd.{k}": v.clone() for k, v in {**stm["lstm"], **ltm["lstm"]}.items()}}
+        if kernel:
+            lstm._lstm_perceive(stm, ltm, stm["acc"], lp, wrap, bptt=False)
+        else:
+            lstm.lstm_perceive_plain(stm, ltm, stm["acc"], lp, wrap, bptt=False)
+        return {**after, "ctx": stm["ctx"], **stm["lstm"], **{f"ltm.{k}": v for k, v in ltm["lstm"].items()}}
+
+    stm, ltm = to_state(sample, dev)
+    ptrs = {k: v.data_ptr() for k, v in {**stm["lstm"], **ltm["lstm"]}.items() if k != "old_input"}
+    n0 = (_launches("lstm_forward"), _launches("lstm_perceive"))
+    got = step(stm, ltm, lstm.LstmPlan(ls, S, dev), True)
+    torch.cuda.synchronize()
+    if cluster is None:
+        assert (_launches("lstm_forward") - n0[0], _launches("lstm_perceive") - n0[1]) == (1, 1)
+    assert {k: v.data_ptr() for k, v in {**stm["lstm"], **ltm["lstm"]}.items() if k != "old_input"} == ptrs
+    assert int(stm["lstm"]["epoch"]) == (int(sample["stm"]["lstm"]["epoch"]) + 1) % ls.horizon
+    p_stm, p_ltm = to_state(sample, dev)
+    _assert_leaves_equal(got, step(p_stm, p_ltm, lstm.LstmPlan(ls, S, dev), False), "card")
+    del p_stm, p_ltm
+    c_stm, c_ltm = to_state(sample, "cpu", streams)
+    want = step(c_stm, c_ltm, lstm.LstmPlan(ls, len(streams), "cpu"), False)
+    for k, w in want.items():
+        g = got[k] if got[k].dim() == 0 else got[k][streams]
+        assert _bits_equal(g, w), f"{k} differs from the plain version on the cpu"
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("epoch", ["mid", "last"])
+@pytest.mark.parametrize("name", list(LSTM_CASES))
+def test_lstm_kernels_match_plain(cuda, name, epoch):
+    """Seeded states of the size a running model holds, at the benchmark's
+    stream counts, one stream and the tiny spec; mid-window and at the last
+    epoch, whose byte wraps the window."""
+    from gmix_tpu_torch.utils.lstm_inputs import random_state
+
+    meta = _lstm_meta(LSTM_CASES[name][0])
+    S, Hz = LSTM_CASES[name][1], meta.spec.lstm.horizon
+    e = Hz // 2 if epoch == "mid" else Hz - 1
+    _check_lstm_kernels(meta, random_state(meta, S, 7 * S + e, e), cuda)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("epoch", ["first", "last"])
+@pytest.mark.parametrize("name", ["ref", "best", "tiny"])
+def test_lstm_kernels_at_the_edges(cuda, name, epoch):
+    """One stream per corner (`utils/lstm_inputs.py` `edge_state`): two
+    equal largest logits, every logit negative, pre-activations past +-87,
+    -0.0 products in a padded tree, bytes 0 and 255; at epoch 0 and at the
+    last epoch."""
+    from gmix_tpu_torch.utils.lstm_inputs import edge_state
+
+    meta = _lstm_meta(name)
+    e = 0 if epoch == "first" else meta.spec.lstm.horizon - 1
+    _check_lstm_kernels(meta, edge_state(meta, 5, e), cuda)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,cluster", [("ref", 2), ("ref", 4), ("ref", 8), ("tiny", 1), ("tiny", 2)])
+def test_lstm_forward_kernel_gives_the_same_bits_at_every_cluster_size(cuda, name, cluster):
+    """The blocks a stream change which block computes what, not one bit
+    (at 50 cells one block a stream does not fit its shared memory)."""
+    from gmix_tpu_torch.utils.lstm_inputs import random_state
+
+    meta = _lstm_meta(name)
+    _check_lstm_kernels(meta, random_state(meta, 5, 41, 3), cuda, cluster)
+
+
+@pytest.mark.cuda
+def test_lstm_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    from gmix_tpu_torch.core import lstm
+    from gmix_tpu_torch.utils.lstm_inputs import random_state, to_state
+
+    meta = _lstm_meta("tiny")
+    ls, slot = meta.spec.lstm, int(meta.slots["lstm_ctx"])
+    lp = lstm.LstmPlan(ls, 2, cuda)
+    stm, ltm = to_state(random_state(meta, 2, 1, 3), cuda)
+    with pytest.raises(ValueError, match="cell is"):
+        lstm.lstm_forward_kernel({**stm, "lstm": {**stm["lstm"], "cell": stm["lstm"]["cell"].double()}}, ltm, lp, slot)
+    with pytest.raises(ValueError, match="w_in is"):
+        lstm.lstm_forward_kernel(stm, {"lstm": {**ltm["lstm"], "w_in": ltm["lstm"]["w_in"].transpose(1, 2)}}, lp,
+                                 slot)
+    with pytest.raises(ValueError, match="inp is"):
+        lstm.lstm_perceive_kernel(stm, ltm, stm["acc"].to(torch.int32), lp, True)
+    with pytest.raises(ValueError, match="out_w is"):
+        lstm.lstm_perceive_kernel(stm, {"lstm": {**ltm["lstm"], "out_w": ltm["lstm"]["out_w"][:, :, 1:]}}, stm["acc"],
+                                  lp, True)
+    with pytest.raises(ValueError, match="up to 63 cells"):
+        lstm.lstm_forward_kernel(stm, ltm, lstm.LstmPlan(dataclasses.replace(ls, num_cells=64), 2, cuda), slot)
+    with pytest.raises(RuntimeError, match="lstm_forward: CUDA error"):
+        lstm.lstm_forward_kernel(stm, ltm, lp, slot, cluster=3)
+    ref = _lstm_meta("ref")
+    r_stm, r_ltm = to_state(random_state(ref, 1, 2, 3), cuda)
+    with pytest.raises(RuntimeError, match="lstm_forward: CUDA error"):  # 236 KB of shared memory
+        lstm.lstm_forward_kernel(r_stm, r_ltm, lstm.LstmPlan(ref.spec.lstm, 1, cuda), int(ref.slots["lstm_ctx"]),
+                                 cluster=1)

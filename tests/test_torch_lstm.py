@@ -9,8 +9,18 @@ agree within `RTOL` relative with an absolute floor of `ATOL`; integer
 leaves (the symbol history, the epoch, the `lstm_ctx` context) are exact.
 The worst |got - want| / (ATOL + RTOL * |want|) seen over these cases is
 0.214 (forward), 0.027 (backward pass and Adam), 0.016 (both orders).
+
+The plain versions of the per-byte work (`lstm_forward_plain`,
+`lstm_perceive_plain`), which csrc/lstm.cu's kernels equal bit for bit on
+the card, are held here on the states the kernels are tested on
+(`utils/lstm_inputs.py`), with the same tolerance; the kernels' argument
+structures and limits against csrc/lstm.cu's; CPU tensors refused by the
+kernels' wrappers.
 """
+import ctypes
 import dataclasses
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -25,7 +35,9 @@ from gmix_tpu.core import step as j_step
 from gmix_tpu.core.meta import build_meta as j_build_meta
 from gmix_tpu.state import init_state as j_init_state
 from gmix_tpu_torch.core import lstm as t_lstm
+from gmix_tpu_torch.core.meta import build_meta as t_build_meta
 from gmix_tpu_torch.state import state_from_numpy, state_to_numpy
+from gmix_tpu_torch.utils import lstm_inputs
 
 torch.set_num_threads(1)
 
@@ -262,3 +274,176 @@ def test_tree_sum_dim_is_the_fixed_tree():
         assert torch.equal(t_lstm._tree_sum_dim(x, dim), want)
     ints = torch.tensor(rng.integers(-50, 50, (4, 307)).astype(np.float32))
     assert torch.equal(t_lstm._tree_sum_dim(ints, 1), ints.sum(dim=1))
+
+
+# ---------------------------------------------------------------------------
+# the plain versions on the kernels' states, and what the kernels are held to
+# ---------------------------------------------------------------------------
+
+
+def _kernel_sample(cells, kind, epoch):
+    """(gmix_tpu's state tree with the sample's leaves, the sample) of
+    `utils/lstm_inputs.py` at `epoch`: three seeded streams, or one stream
+    per edge."""
+    meta = t_build_meta(_spec(t_cfg, cells))
+    if kind == "edge":
+        sample = lstm_inputs.edge_state(meta, 17 + cells, epoch)
+    else:
+        sample = lstm_inputs.random_state(meta, 3, 29 + cells + epoch, epoch)
+    n = len(sample["stm"]["acc"])
+    tree = jax.tree_util.tree_map(np.array, jax.device_get(j_init_state(j_build_meta(_spec(j_cfg, cells)), n)))
+
+    def overlay(dst, src):
+        for k, v in src.items():
+            if isinstance(v, dict):
+                overlay(dst[k], v)
+            else:
+                assert (dst[k].shape, dst[k].dtype) == (v.shape, v.dtype), k
+                dst[k] = v.copy()
+
+    overlay(tree, sample)
+    return tree, sample
+
+
+def _port_plan(cells, n):
+    return t_lstm.LstmPlan(_spec(t_cfg, cells).lstm, n, "cpu")
+
+
+@pytest.mark.parametrize("epoch", (0, HZ - 1), ids=("epoch0", "last-epoch"))
+@pytest.mark.parametrize("kind", ("random", "edge"))
+@pytest.mark.parametrize("cells", (16, 50))
+def test_plain_forward_on_the_kernel_states_matches_eager_gmix_tpu(cells, kind, epoch):
+    """`lstm_forward_plain` on the kernels' seeded and edge states against
+    gmix_tpu's forward pass, within the tolerance; at the last epoch the
+    epoch leaf wraps to 0. On the tied stream the argmax is the plain
+    version's alone (the first of the two maxima), since gmix_tpu's
+    probabilities differ from the port's in the last bits."""
+    meta = j_build_meta(_spec(j_cfg, cells))
+    slot = int(meta.slots["lstm_ctx"])
+    tree, sample = _kernel_sample(cells, kind, epoch)
+    n = len(sample["stm"]["acc"])
+    with jax.disable_jit():
+        j_stm, j_ltm = j_step._lstm_forward(_jax_tree(tree["stm"]), _jax_tree(tree["ltm"]), meta)
+    want = jax.device_get({"stm": j_stm, "ltm": j_ltm})
+    st = state_from_numpy(tree)
+    regs = t_lstm.lstm_forward_plain(st["stm"], st["ltm"], _port_plan(cells, n), slot)
+    got = state_to_numpy(st)
+    got = {"stm": got["stm"], "ltm": got["ltm"]}
+    if kind == "edge":
+        tie = lstm_inputs.EDGE_STREAMS.index("argmax-tie")
+        probs = got["stm"]["lstm"]["probs"][tie]
+        a, b = lstm_inputs.TIE
+        assert probs[a] == probs[b] == probs.max()
+        assert int(got["stm"]["ctx"][tie, slot]) == a
+        got["stm"]["ctx"][tie, slot] = want["stm"]["ctx"][tie, slot]
+        flat = lstm_inputs.EDGE_STREAMS.index("logits-negative")
+        assert (got["stm"]["lstm"]["probs"][flat] == got["stm"]["lstm"]["probs"][flat, 0]).all()
+        assert int(got["stm"]["ctx"][flat, slot]) == 0
+    _compare(want, got, exact=False)
+    assert int(got["stm"]["lstm"]["epoch"]) == (epoch + 1) % HZ
+    assert regs.dtype == torch.int32 and regs.shape == (n, 4)
+    assert torch.equal(regs[:, 2], st["stm"]["lstm"]["mid"]) and (regs[:, 0] == 255).all() and (regs[:, 1] == 0).all()
+
+
+@pytest.mark.parametrize("kind", ("random", "edge"))
+@pytest.mark.parametrize("cells", (16, 50))
+def test_plain_perceive_on_the_kernel_states_is_bitwise(cells, kind):
+    """`lstm_perceive_plain` on the kernels' states (bytes 0 and 255 at the
+    edges) against gmix_tpu's byte end, every leaf bit for bit, mid-window
+    and at the wrap with the backward pass left to the caller."""
+    meta = j_build_meta(_spec(j_cfg, cells))
+    for e_cur in (HZ - 1, 0):
+        tree, sample = _kernel_sample(cells, kind, e_cur)
+        inp = sample["stm"]["acc"]
+        with jax.disable_jit():
+            j_stm, j_ltm = j_step._lstm_perceive(
+                _jax_tree(tree["stm"]), _jax_tree(tree["ltm"]), jnp.asarray(inp.astype(np.int32)), meta, "defer")
+        st = state_from_numpy(tree)
+        t_lstm.lstm_perceive_plain(st["stm"], st["ltm"], torch.tensor(inp.astype(np.int64)), _port_plan(cells, len(inp)),
+                                   e_cur == 0, bptt=False)
+        got = state_to_numpy(st)
+        _compare(jax.device_get({"stm": j_stm, "ltm": j_ltm}), {"stm": got["stm"], "ltm": got["ltm"]}, exact=True)
+
+
+def test_padded_tree_adds_its_zeros():
+    """The rule the kernels keep: `_tree_sum_dim` pads the axis with +0.0
+    and adds the padding. A row of -0.0 products (the edge state
+    negative-zero-products) sums to +0.0 over a padded axis (307 lanes: the
+    layer input at 50 cells), and to -0.0 over an axis that needs no
+    padding; skipping the padding would leave -0.0 and change the bits of
+    the layer norm's record."""
+    neg = torch.full((2, 307), -0.0)
+    assert torch.equal(t_lstm._tree_sum_dim(neg, 1).view(torch.int32), torch.zeros(2, dtype=torch.int32))
+    unpadded = t_lstm._tree_sum_dim(neg[:, :256], 1)
+    assert torch.equal(unpadded.view(torch.int32), torch.full((2,), -(2**31), dtype=torch.int32))
+    # the same row through the plain forward pass: every gate value +0.0
+    meta = t_build_meta(_spec(t_cfg, 50))
+    sample = lstm_inputs.edge_state(meta, 3, 4)
+    s = lstm_inputs.EDGE_STREAMS.index("negative-zero-products")
+    stm, ltm = lstm_inputs.to_state(sample, "cpu", [s])
+    lst = ltm["lstm"]
+    li = torch.cat([stm["ppm_probs"], stm["lstm"]["hidden"][:, :50], torch.ones((1, 1))], dim=1)
+    prods = lst["w_in"] * li[:, None, None, :]
+    assert (prods == 0).all() and torch.signbit(prods).all()
+    f = lst["w_sym"][0, :, :, int(stm["last_byte"][0])] + t_lstm._tree_sum_dim(prods, 3)[0]
+    assert not torch.signbit(f).any()
+
+
+def _c_fields(struct: str):
+    src = (Path(t_lstm.__file__).parents[1] / "csrc" / "lstm.cu").read_text()
+    body = re.search(rf"struct {struct} \{{(.*?)\}};", src, re.S).group(1)
+    fields = []
+    for line in body.splitlines():
+        decl = line.split("//")[0].strip().rstrip(";")
+        if decl:
+            ctype, names = re.match(r"((?:const )?\w+\*?)\s+(.*)", decl).groups()
+            fields += [(n.strip(), ctype) for n in names.split(",")]
+    return fields
+
+
+@pytest.mark.parametrize("struct,py", [("GmixLstmForwardArgs", t_lstm._ForwardArgs),
+                                       ("GmixLstmPerceiveArgs", t_lstm._PerceiveArgs)])
+def test_lstm_kernel_arguments_are_the_c_structs(struct, py):
+    """`_ForwardArgs` and `_PerceiveArgs` declare csrc/lstm.cu's structures
+    field for field: the names, in order, pointers first, then the int64
+    sizes, then the float."""
+    kinds = {ctypes.c_void_p: "*", ctypes.c_int64: "int64_t", ctypes.c_float: "float"}
+    fields = [(n, kinds[t]) for n, t in py._fields_]
+    c_fields = _c_fields(struct)
+    assert [n for n, _ in c_fields] == [n for n, _ in fields]
+    for (_, ctype), (name, kind) in zip(c_fields, fields):
+        assert ctype.endswith("*") if kind == "*" else ctype == kind, name
+
+
+def test_lstm_kernel_limits_are_the_c_constants():
+    """The wrappers' limits are csrc/lstm.cu's, and the cluster size they
+    choose fills the H100's 132 SMs at the benchmark's stream counts while
+    its blocks' rows of w_in fit shared memory."""
+    src = (Path(t_lstm.__file__).parents[1] / "csrc" / "lstm.cu").read_text()
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = ([^;]*);", src).group(1))
+
+    assert (const("kMaxInput"), const("kMaxHidden"), const("kMaxOut"), const("kMaxDynamicSmem"),
+            const("kMaxCluster")) == (t_lstm.MAX_INPUT, t_lstm.MAX_HIDDEN, t_lstm.MAX_OUT, t_lstm.MAX_DYNAMIC_SMEM,
+                                      t_lstm.MAX_CLUSTER)
+    ls = t_cfg.LstmSpec()
+    # one block a stream would need 184 KB of w_in and 52 KB of out_w
+    assert t_lstm.forward_smem(ls, 1) > t_lstm.MAX_DYNAMIC_SMEM >= t_lstm.forward_smem(ls, 2)
+    assert [t_lstm.forward_cluster(S, ls, 132) for S in (1, 16, 30, 54, 66, 67, 256)] == [8, 8, 4, 2, 2, 2, 2]
+    wide = dataclasses.replace(ls, num_cells=63, input_size=448)  # 189 rows of 512 floats: 387 KB
+    assert t_lstm.forward_cluster(256, wide, 132) == 4
+    tiny = t_cfg.tiny_spec(True).lstm
+    assert [t_lstm.forward_cluster(S, tiny, 132) for S in (1, 100)] == [8, 1]
+
+
+def test_lstm_kernels_refuse_cpu_tensors():
+    """The kernels' wrappers take CUDA tensors only; the byte step sends CPU
+    tensors to the plain versions."""
+    meta = t_build_meta(_spec(t_cfg, 16))
+    stm, ltm = lstm_inputs.to_state(lstm_inputs.random_state(meta, 2, 1, 3), "cpu")
+    lp = _port_plan(16, 2)
+    with pytest.raises(ValueError, match="expected a CUDA device"):
+        t_lstm.lstm_forward_kernel(stm, ltm, lp, int(meta.slots["lstm_ctx"]))
+    with pytest.raises(ValueError, match="expected a CUDA device"):
+        t_lstm.lstm_perceive_kernel(stm, ltm, stm["acc"], lp, True)

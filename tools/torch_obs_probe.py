@@ -3,6 +3,7 @@ one cell of the benchmark (h100_bench, BENCHMARK.json):
 
     python tools/torch_obs_probe.py slow --workload ref-s54 [--seconds 90] [--every 5] [--seed N] [--out FILE]
     python tools/torch_obs_probe.py cost --workload ref-s1 [--jobs 4] [--seed N] [--out FILE]
+    python tools/torch_obs_probe.py split --workload ref-s54 --seconds 30 [--seed N] [--out FILE]
 
 `slow` is one fresh process: `obs.enable()` from its start, then the cell's
 jobs (reset, compress, reset, decompress) back to back until `--seconds`
@@ -22,6 +23,15 @@ passes' wall.
 on in turns (the compress pass's wall a byte step each), then the harness's
 traced window (`Cell.traced`) with the port's spans and with them switched
 off, in turns (its wall a step).
+
+`split` is one traced run of the cell as `python3 -m h100_bench.run --trace
+1` makes it (`harness.run_cell`): its per-layer metrics, read as the
+benchmark reads them, and each part's device us a traced encode step split
+by graph variant (the byte graphs, the wrapping byte's, the backward
+pass's `bptt`), the replays mapped onto the layouts as `h100_bench/parts.py`
+maps them, each variant's aligned replays standing for all of its replays.
+The `lstm` part's share in the byte graphs and in the backward pass's graph
+is what it gives that the metrics do not.
 
 Prints one JSON object a line (also to `--out`). Needs a CUDA device.
 """
@@ -173,9 +183,37 @@ def cost(args, emit) -> None:
           "span_cost": median(traced["spans"]) / median(traced["no_spans"]) - 1})
 
 
+def split(args, emit) -> None:
+    import torch
+
+    from h100_bench import harness, parts, registry
+
+    bench = registry.benchmark(Path.cwd())
+    w = registry.workload(bench, args.workload)
+    config, mix = registry.config(w["config"]), registry.traffic(w["traffic"])
+    out = harness.run_cell(config, mix, args.seed, args.seconds, True, "cuda:0", START)
+    run = out["run"]
+    run.peaks = registry.peaks(torch.cuda.get_device_name(0))
+    metrics = {name: registry.metric_reader(name)(run) for name in registry.per_layer_for(bench, args.workload)}
+    rows, why = parts.replays(run.trace, parts.layouts(), config["kernels"]["fused"])
+    by_graph, replays = {}, {}
+    for v in sorted({r[0] for r in rows or ()}):
+        mine = [r[1] for r in rows if r[0] == v and r[1] is not None]
+        replays[v] = f"{len(mine)} of {sum(r[0] == v for r in rows)} aligned"
+        if mine:
+            scale = sum(r[0] == v for r in rows) / len(mine)
+            by_graph[v] = {p: sum(m.get(p, 0) for m in mine) * scale / 1e3 / run.trace.steps
+                           for p in sorted({p for m in mine for p in m})}
+    jobs = run.jobs
+    emit({"probe": "split", "workload": args.workload, "seed": args.seed, "card": card(), "torch": torch.__version__,
+          "encode_Bps_traced_run": run.file_bytes * len(jobs) / sum(j.encode_s for j in jobs),
+          "metrics": metrics, "steps": run.trace.steps, "part_us_per_step_by_graph": by_graph, "replays": replays,
+          "not_aligned": why})
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("probe", choices=("slow", "cost"))
+    ap.add_argument("probe", choices=("slow", "cost", "split"))
     ap.add_argument("--workload", default="ref-s54")
     ap.add_argument("--seed", type=int, default=271828182845)
     ap.add_argument("--seconds", type=float, default=90.0)
@@ -200,7 +238,7 @@ def main(argv=None) -> int:
             out.flush()
 
     try:
-        (slow if args.probe == "slow" else cost)(args, emit)
+        {"slow": slow, "cost": cost, "split": split}[args.probe](args, emit)
     finally:
         if out is not None:
             out.close()

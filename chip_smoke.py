@@ -8,12 +8,8 @@
     python3 chip_smoke.py --bench-only   # phases 0-1 and 7
     python3 chip_smoke.py --variants-only   # phases 0-1 and 8
     python3 chip_smoke.py --sweeps-only   # phases 0-1 and 9
-    python3 chip_smoke.py --ppm-only   # phases 0-1 and the PPM kernels' part
-                                       # of phase 2 (about a minute)
-    python3 chip_smoke.py --contexts-only   # phases 0-1 and the contexts
-                                            # kernels' part of phase 2
-    python3 chip_smoke.py --lstm-only   # phases 0-1 and the LSTM kernels'
-                                        # part of phase 2
+    python3 chip_smoke.py --kernels ppm,contexts,lstm   # phases 0-1 and
+                            # the named csrc/ files' kernels' part of phase 2
 
 Phases; any failure ends the run with a non-zero exit:
 
@@ -196,11 +192,11 @@ Phases; any failure ends the run with a non-zero exit:
        bound and time;
    (b) compress_bytes then decompress_bytes of 1 KB a stream, 4 streams, at
        the published sizes: the input back, and each byte step and each
-       graph replay launching what the code says (`launches_per_step`:
-       1 + 1 + 1 without PPM, 2 + 2 + 1 + 1 + 1 with PPM, 3 + 2 + 1 + 1 + 1
-       with PPM and the LSTM, then the boundary contexts' 1 and the match
-       pointers' 1, 0 without a match model, then the LSTM's forward pass
-       and SGD, 1 + 1 with the LSTM);
+       graph replay launching what the kernel table says
+       (`kernels.launches_per_step`: 1 + 1 + 1 without PPM, 2 + 2 + 1 + 1 +
+       1 with PPM, 3 + 2 + 1 + 1 + 1 with PPM and the LSTM, then the
+       boundary contexts' 1 and the match pointers' 1, 0 without a match
+       model, then the LSTM's forward pass and SGD, 1 + 1 with the LSTM);
    (c) at scale_tables(spec, 12, history_bits=16), 2 streams of 512 bytes:
        the GPU's archive equal to the CPU's byte for byte (the CPU's encode
        and decode run in a process a variant, started before phase 7), the
@@ -256,7 +252,9 @@ kernel); the last line is
 """
 from __future__ import annotations
 
+import collections
 import contextlib
+import dataclasses
 import functools
 import io
 import json
@@ -270,6 +268,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from typing import Callable
 
 import numpy as np
 import torch
@@ -282,8 +281,8 @@ from gmix_tpu_torch.core import contexts, fused, lstm, ppm
 from gmix_tpu_torch.core import step as step_mod
 from gmix_tpu_torch.core.codec import (Predictor, analysis_columns, compress_bytes, decompress_bytes, entropy_bits,
                                        generate_bytes, run_chunks)
-from gmix_tpu_torch.core.meta import build_meta
-from gmix_tpu_torch.ops import rowmove
+from gmix_tpu_torch.core.meta import PPM_ROW_W, build_meta
+from gmix_tpu_torch.ops import kernels, rowmove
 from gmix_tpu_torch.parallel import distributed
 from gmix_tpu_torch.parallel.mesh import make_mesh, stream_sharding
 from gmix_tpu_torch.roofline import PEAK_BYTES_PER_S, SHARES, TRANSCENDENTAL, bound, fused_bound, tensor_bytes
@@ -312,33 +311,18 @@ GEN_PROMPT, GEN_BYTES, GEN_TEMP, GEN_CHUNK = 256, 256, 0.8, 256
 CROSS_PROMPT, CROSS_GEN, CROSS_CHUNK = 16, 32, 16
 # the sampling mode's 1 / temperature: the default, 0.8, and the floor
 INV_TEMPS = (1.0, 1.25, 1000.0)
-SOURCES = {
-    "gather_rows": "gmix_tpu_torch/csrc/rowmove.cu",
-    "scatter_rows": "gmix_tpu_torch/csrc/rowmove.cu",
-    "fused_substeps": "gmix_tpu_torch/csrc/fused_kernel.cuh",
-    "ppm": "gmix_tpu_torch/csrc/ppm.cu",
-    "contexts": "gmix_tpu_torch/csrc/contexts.cu",
-    "lstm": "gmix_tpu_torch/csrc/lstm.cu",
-}
-REPLACES = {
-    "gather_rows": "gmix_tpu/ops/rowmove.py:85",
-    "scatter_rows": "gmix_tpu/ops/rowmove.py:116",
-    "fused_substeps": "gmix_tpu/core/fused.py:249",
-}
+# the Pallas kernels of gmix_tpu that the first three kernels of the table
+# replace
+REPLACES = ("gmix_tpu/ops/rowmove.py:85", "gmix_tpu/ops/rowmove.py:116", "gmix_tpu/core/fused.py:249")
 # the arenas the byte step moves rows of (indirect models, stable mixers,
 # position-gated mixers, APM stages, PPM orders) by their place in the state;
 # ref-noppm has the first four
 ARENAS = (("ind.st", ("ltm", "ind", "st")), ("mix_w", ("ltm", "mix_w")), ("mix_pos", ("ltm", "mix_pos")),
           ("apm", ("ltm", "apm")), ("ppm_tbl", ("stm", "ppm_tbl")))
-# launches by kernel (obs.launches, by wrapper): each mover kernel has two
-# wrappers (one arena, a group of arenas)
-WRAPPERS = (("gather_rows", "gather_rows_many"), ("scatter_rows", "scatter_rows_many"), ("fused_substeps",),
-            ("ppm_update",), ("ppm_predict",), ("contexts_boundary",), ("match_pointer",), ("lstm_forward",),
-            ("lstm_perceive",))
-# what a tuple of launch counts holds, in WRAPPERS' order
-LAUNCHES = ("(gather, scatter, fused, PPM update, PPM prediction, contexts boundary, match pointers, LSTM forward, "
-            "LSTM perceive)")
-NO_LAUNCHES = (0,) * len(WRAPPERS)
+# what a tuple of launch counts holds: each kernel's launches, in the order
+# of the kernel table (gmix_tpu_torch/ops/kernels.py), by its first wrapper
+LAUNCHES = f"({', '.join(k.wrappers[0] for k in kernels.KERNELS)})"
+NO_LAUNCHES = (0,) * len(kernels.KERNELS)
 _LAUNCHES_AT_RESET = {}
 # archive sizes that must not change: the codec is deterministic, and these
 # specs' archives have been these bytes since the port first produced them
@@ -442,24 +426,9 @@ def rows_per_byte(meta):
     }
 
 
-def launches_per_step(spec):
-    """`LAUNCHES` of an encode or decode byte step, from the code
-    (core/step.py, core/ppm.py, core/contexts.py): one grouped gather and
-    one grouped scatter of the movers' arenas and one fused launch; with PPM
-    its count update's own gather and scatter of `ppm_tbl` rows and one
-    launch each of the count update's and the prediction's kernels; with
-    PPM and the LSTM also the prediction's `ppm_tbl` rows gathered alone
-    before the forward pass; one launch of the boundary contexts' kernel,
-    and one of the match pointers' with match models; with the LSTM one
-    launch of its forward pass and one of its output layer's SGD."""
-    has_ppm, has_lstm = spec.ppm is not None, spec.lstm is not None
-    return (1 + int(has_ppm) + int(has_ppm and has_lstm), 1 + int(has_ppm), 1, int(has_ppm), int(has_ppm), 1,
-            int(bool(spec.matches)), int(has_lstm), int(has_lstm))
-
-
 def profile_launches(profile: str):
-    """`launches_per_step` of a bench profile's spec."""
-    return launches_per_step(bench.parse_profile(profile)[1])
+    """The launches a byte step of a bench profile's spec makes."""
+    return kernels.launches_per_step(bench.parse_profile(profile)[1])
 
 
 def log(msg: str) -> None:
@@ -538,8 +507,8 @@ def reset_launches() -> None:
 
 def read_launches():
     """`LAUNCHES` since the last reset."""
-    now = obs.launches()
-    return tuple(sum(now.get(w, 0) - _LAUNCHES_AT_RESET.get(w, 0) for w in group) for group in WRAPPERS)
+    now, then = kernels.launch_counts(obs.launches()), kernels.launch_counts(_LAUNCHES_AT_RESET)
+    return tuple(a - b for a, b in zip(now, then))
 
 
 # ---------------------------------------------------------------------------
@@ -779,7 +748,7 @@ def phase_rowmovers(pred, dev):
     the groups the byte step launches."""
     rng = np.random.default_rng(SEED)
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    floor_ms = device_ms(lambda i: rowmove.empty_launch(dev))
+    floor_ms = device_ms(lambda i: kernels.empty_launch(dev))
     log(f"phase 2: an empty kernel launched as the movers are: {json.dumps({'launch_floor_ms': floor_ms})}")
     per_arena = []
     tables = []
@@ -924,25 +893,256 @@ def phase_grouped(direction, names, tables, counts, rng, gen, dev):
 
 
 # ---------------------------------------------------------------------------
-# phase 2c: the PPM kernels
+# phase 2c-2e: the kernels of csrc/ppm.cu, contexts.cu and lstm.cu, each
+# family against its plain versions on one driver (`phase_kernels`)
 # ---------------------------------------------------------------------------
 
-# the streams of the benchmark's cells at each spec (h100_bench: ref-s54,
-# best-s30), at which the PPM kernels are timed
-PPM_STREAMS = {"ref": 54, "best": 30}
-PPM_SEEDS = 4
+
+@dataclasses.dataclass(frozen=True)
+class KernelFamily:
+    """The kernels of one csrc/ file as phase 2's driver runs them."""
+
+    name: str  # the file's stem
+    parts: tuple  # its kernels' rows of the table, in order: the keys of `steps`
+    shapes: tuple  # (name, spec maker, streams)
+    samples: Callable  # (meta, S) -> (label, sample) of each sample compared
+    state: Callable  # (meta, sample, device, streams or None for all) -> a fresh state, the family's namedtuple
+    steps: Callable  # meta -> {part: (kernel, plain)}: fn(state) runs it, returns its outputs by name
+    leaves: Callable  # state -> its tensors by name
+    work: Callable  # (meta, S, part) -> one launch's (bytes, float ops)
+    timed_sample: Callable  # (meta, S) -> the sample the kernels are timed on
+    cpu_streams: Callable  # sample -> the streams the CPU compares (None: all)
+    chained: bool  # the parts run in turn on one state; else each on a fresh state of the sample
+    describe: Callable = lambda meta, S, dev: {}
+    sweep: Callable = lambda meta, S, dev, state, row: None  # the family's own measurements
 
 
-def ppm_float_ops(spec, S: int, which: str) -> int:
-    """Float operations of one launch of the PPM kernel `which` ("update" or
-    "predict"), counted as roofline.step_work counts the ppm part: the
-    cascade (totals, the PPM-C prior, the SEE offset, logit and logistic),
-    then the SEE learn, or the escape chain, the terms, their sum and order
-    -1."""
-    NO, NB = len(spec.ppm.orders), spec.ppm.see_buckets
+def ends(sample) -> list:
+    """The first, middle and last stream of a contexts or LSTM sample."""
+    S = len(sample[0]["stm"]["acc"])
+    return sorted({0, S // 2, S - 1})
+
+
+PpmState = collections.namedtuple("PpmState", "inputs plan")  # inputs: a ppm_inputs sample as tensors by name
+
+
+def ppm_state(meta, sample, device, streams) -> PpmState:
+    return PpmState({k: torch.as_tensor(v.view(np.int16) if v.dtype == np.uint16 else v, device=device)
+                     for k, v in sample.items()}, step_mod.StepPlan(meta, len(sample["cv"]), device))
+
+
+def ppm_steps(meta) -> dict:
+    def update(f):
+        return lambda st: dict(zip(("rows", "see"), f(st.inputs["raw"], st.inputs["cv"], st.inputs["completed"],
+                                                      st.inputs["see"], st.plan)))
+
+    def predict(f):
+        return lambda st: dict(zip(("probs", "top", "bot"), f(st.inputs["raw"], st.inputs["cv"], st.inputs["see"],
+                                                              st.plan)))
+
+    return {"update": (update(ppm.ppm_update_rows), update(ppm.ppm_update_plain)),
+            "predict": (predict(ppm.ppm_predict_probs), predict(ppm.ppm_predict_plain))}
+
+
+def ppm_samples(meta, S):
+    sp = meta.spec.ppm
+    NO, NB = len(sp.orders), sp.see_buckets
+    for k in range(PPM_SEEDS):
+        yield f"S={S} seed {k}", ppm_inputs.random_inputs(NO, NB, S, SEED + k)
+    cv = np.random.default_rng(SEED).integers(0, 2**32, (len(ppm_inputs.EDGE_STREAMS), NO), dtype=np.int64)
+    yield "edges", ppm_inputs.edge_inputs(cv, NB, sp.inc, sp.rescale_total)
+
+
+def ppm_timed_sample(meta, S):
+    return ppm_inputs.random_inputs(len(meta.spec.ppm.orders), meta.spec.ppm.see_buckets, S, SEED)
+
+
+def ppm_describe(meta, S: int, dev) -> dict:
+    return {"orders": len(meta.spec.ppm.orders), "buckets": meta.spec.ppm.see_buckets}
+
+
+def ppm_work(meta, S: int, part: str):
+    """(bytes, float ops) of one launch of the PPM kernel `part`: the
+    inputs read once and the outputs written once; the float ops counted
+    as roofline.step_work counts the ppm part: the cascade (totals, the
+    PPM-C prior, the SEE offset, logit and logistic), then the SEE learn, or
+    the escape chain, the terms, their sum and order -1."""
+    NO, NB = len(meta.spec.ppm.orders), meta.spec.ppm.see_buckets
+    raw, cv, see = 2 * S * NO * PPM_ROW_W, 8 * S * NO, 4 * S * NO * NB
     cascade = NO * ((256 - 1) + 3 + (2 * NB - 1) + 2 * TRANSCENDENTAL + 1)
-    tail = NO * (2 + 2 * NB) if which == "update" else NO * (4 + 3 * 256) + (256 - 1) + 1 + 256 + 2 * 256
-    return S * (cascade + tail)
+    if part == "update":  # rows and SEE in and out, the completed byte
+        return 2 * raw + cv + 8 * S + 2 * see, S * (cascade + NO * (2 + 2 * NB))
+    # the (S, 256) float32 distribution and two int32 a stream out
+    tail = NO * (4 + 3 * 256) + (256 - 1) + 1 + 256 + 2 * 256
+    return raw + cv + see + 4 * S * 256 + 2 * 4 * S, S * (cascade + tail)
+
+
+ContextsState = collections.namedtuple("ContextsState", "stm ltm plan t")  # t: the byte's position, on the device
+
+
+def contexts_steps(meta) -> dict:
+    out = {"boundary": (lambda st: contexts.boundary_contexts(st.stm, st.t, st.plan) or {},
+                        lambda st: contexts.boundary_plain(st.stm, st.t, st.plan) or {})}
+    if meta.spec.matches:
+        out["match"] = (lambda st: {"match_ix": contexts.match_pointers(st.stm, st.ltm, st.plan)},
+                        lambda st: {"match_ix": contexts.match_plain(st.stm, st.ltm, st.plan)})
+    return out
+
+
+def contexts_samples(meta, S):
+    for t in (0, 5):
+        for k in range(CONTEXT_SEEDS):
+            yield f"S={S} t={t} seed {k}", (contexts_inputs.random_state(meta, S, SEED + k), t)
+        yield f"edges t={t}", (contexts_inputs.edge_state(meta, SEED), t)
+
+
+def contexts_state(meta, sample, device, streams) -> ContextsState:
+    stm, ltm = contexts_inputs.to_state(meta, sample[0], device, streams)
+    return ContextsState(stm, ltm, step_mod.StepPlan(meta, len(stm["acc"]), device),
+                         torch.full((), sample[1], dtype=torch.int64, device=device))
+
+
+def contexts_leaves(st: ContextsState) -> dict:
+    return {**st.stm, **st.ltm}
+
+
+def contexts_work(meta, S: int, part: str):
+    return contexts_bytes(meta, S, part), 0
+
+
+def contexts_timed_sample(meta, S):
+    return contexts_inputs.random_state(meta, S, SEED), 5
+
+
+def contexts_bytes(meta, S: int, part: str) -> int:
+    """Bytes one launch of the contexts kernel `part` ("boundary" or
+    "match") reads and writes, each once: per stream, the boundary's byte
+    leaves and ring both ways, the context slots it writes (an interval
+    slot read too), the rolling hashes and the indirect-hash registers both
+    ways and three `ih_tbl` words; the match kernel's bit, history length,
+    and per model a context, pointer, byte and length both ways, a
+    `match_tbl` word, a history byte and `match_ix`; and the table entries
+    each reads."""
+    spec = meta.spec
+    if part == "match":
+        NM = len(spec.matches)
+        return S * (2 * 8 + NM * (8 + 2 * 8 + 2 * 8 + 2 * 4 + 4 + 1 + 8)) + 8 * 3 * NM
+    NI, NSK, NR, NIH = len(spec.interval_ctxs), len(spec.skip_ctxs), len(spec.roll_ctxs), len(spec.ihash_ctxs)
+    slots = contexts.BYTE_COLS + 2 * NI + NSK + NR + NIH
+    per = 8 * (2 * 2 + 2 * meta.recent_size + slots + 2 * NR + 4 * NIH) + 4 * 3 * NIH
+    return S * per + 8 * (contexts.BYTE_COLS + 4 * NI + contexts.PER_SKIP * NSK + 3 * NR + 5 * NIH)
+
+
+# cluster: the forward kernel's (None: the wrapper's choice); wrap: whether the byte wraps the window
+LstmState = collections.namedtuple("LstmState", "stm ltm plan cluster wrap")
+
+
+def lstm_steps(meta) -> dict:
+    """The forward pass, then the output layer's SGD on what it left; the
+    byte that wraps the window records its symbol op by op and launches the
+    SGD alone (the backward pass is left to the caller, as the deferred
+    order does)."""
+    slot = int(meta.slots["lstm_ctx"])
+    return {"forward": (lambda st: {"regs": lstm.lstm_forward_kernel(st.stm, st.ltm, st.plan, slot, st.cluster)},
+                        lambda st: {"regs": lstm.lstm_forward_plain(st.stm, st.ltm, st.plan, slot)}),
+            "perceive": (lambda st: lstm._lstm_perceive(st.stm, st.ltm, st.stm["acc"], st.plan, st.wrap, False) or {},
+                         lambda st: lstm.lstm_perceive_plain(st.stm, st.ltm, st.stm["acc"], st.plan, st.wrap,
+                                                             False) or {})}
+
+
+def lstm_samples(meta, S):
+    Hz = meta.spec.lstm.horizon
+    for e in (0, Hz // 2, Hz - 1):
+        for k in range(LSTM_SEEDS):
+            yield f"S={S} epoch {e} seed {k}", (lstm_inputs.random_state(meta, S, SEED + 10 * e + k, e), None)
+    for e in (0, Hz - 1):
+        yield f"edges epoch {e}", (lstm_inputs.edge_state(meta, SEED, e), None)
+    for K in lstm_clusters(meta.spec.lstm):
+        yield f"S={S} cluster {K}", (lstm_inputs.random_state(meta, S, SEED + K, 3), K)
+
+
+def lstm_state(meta, sample, device, streams) -> LstmState:
+    (draw, cluster), ls = sample, meta.spec.lstm
+    stm, ltm = lstm_inputs.to_state(draw, device, streams)
+    return LstmState(stm, ltm, lstm.LstmPlan(ls, len(stm["acc"]), device), cluster,
+                     int(draw["stm"]["lstm"]["epoch"]) == ls.horizon - 1)
+
+
+def lstm_leaves(st: LstmState) -> dict:
+    return {"ctx": st.stm["ctx"], **st.stm["lstm"], **st.ltm["lstm"]}
+
+
+def lstm_timed_sample(meta, S):
+    return lstm_inputs.random_state(meta, S, SEED, meta.spec.lstm.horizon // 2), None
+
+
+def lstm_clusters(ls) -> list:
+    return [K for K in LSTM_CLUSTERS if lstm.forward_smem(ls, K) <= lstm.MAX_DYNAMIC_SMEM]
+
+
+def lstm_work(meta, S: int, part: str):
+    """(bytes, float ops) of one launch of the LSTM kernel `part`, each
+    input read once and each output written once, counted as
+    roofline.step_work counts the lstm_forward part: the forward pass reads
+    the gate rows, gains, the symbol column, the epoch's out_w slice, the
+    aux input and the state, and writes the state and the epoch's records;
+    the SGD reads the last epoch's slice and writes the next one's."""
+    ls = meta.spec.lstm
+    C, IN, OUT = ls.num_cells, ls.input_size, ls.output_size
+    LI, T = IN + C + 1, TRANSCENDENTAL
+    if part == "perceive":
+        floats = 2 * (C + 1) * OUT + OUT + (C + 1) + 1
+        return S * 4 * floats, S * (OUT + (C + 1) + 2 * (C + 1) * OUT)
+    floats = (3 * C * (LI + 1 + 2) + (C + 1) * OUT + IN + 2 * (C + 1) + 2 * C  # reads
+              + LI + 3 * C + 3 + 3 * C + 3 * C + 2 * OUT + 4 + 1)  # the epoch's records, probs, registers, context
+    ops = (3 * C * 2 * LI + 3 * (2 * C + 2 + T) + 3 * C * 3 + 3 * C * T + C * (5 + T) + 2 * (C + 1) * OUT
+           + OUT + OUT * (1 + T) + (OUT - 1) + OUT)
+    return S * 4 * floats, S * ops
+
+
+def lstm_describe(meta, S: int, dev) -> dict:
+    ls, sm = meta.spec.lstm, torch.cuda.get_device_properties(dev).multi_processor_count
+    return {"cells": ls.num_cells, "horizon": ls.horizon, "cluster": lstm.forward_cluster(S, ls, sm)}
+
+
+def lstm_sweep(meta, S: int, dev, st, row: dict) -> None:
+    """The forward kernel at each cluster size whose shared memory fits
+    (`forward.cluster_ms`; `cluster` is the one the wrapper takes)."""
+    slot = int(meta.slots["lstm_ctx"])
+    row["forward"]["cluster_ms"] = {
+        K: device_ms(lambda i, K=K: lstm.lstm_forward_kernel(st.stm, st.ltm, st.plan, slot, K), reps=50)
+        for K in lstm_clusters(meta.spec.lstm)}
+
+
+# the families by csrc/ file stem, the names `--kernels` takes. PPM: seeded
+# rows (PPM_SEEDS draws) at the benchmark's stream counts and the edge
+# streams, every stream compared on the CPU (a few KB). Contexts: seeded
+# states (CONTEXT_SEEDS draws, the tables at full size) at the benchmark's
+# stream counts and the edge streams, at a stream's first byte (t = 0) and
+# after it; integer work, bound by bytes alone. LSTM: seeded states
+# (LSTM_SEEDS draws) at the benchmark's LSTM cells, one stream of ref and the
+# tiny spec's LSTM (16 cells, horizon 10), at epoch 0, mid-window and the
+# last epoch, the edge streams at epoch 0 and the last, and every cluster
+# size of the forward kernel.
+PPM_SEEDS, CONTEXT_SEEDS, LSTM_SEEDS, LSTM_CLUSTERS = 4, 2, 2, (1, 2, 4, 8)
+FAMILIES = {f.name: f for f in (
+    KernelFamily("ppm", ("update", "predict"), (("ref", reference_spec, 54), ("best", best_spec, 30)),
+                 samples=ppm_samples, state=ppm_state, steps=ppm_steps, leaves=lambda st: {}, work=ppm_work,
+                 timed_sample=ppm_timed_sample, cpu_streams=lambda sample: None, chained=True,
+                 describe=ppm_describe),
+    # each on a fresh state: the match pointers read the drawn contexts and
+    # their table entries, not the contexts the boundary writes
+    KernelFamily("contexts", ("boundary", "match"),
+                 (("ref", reference_spec, 54), ("best", best_spec, 30), ("ref-noppm", ref_noppm_spec, 63)),
+                 samples=contexts_samples, state=contexts_state, steps=contexts_steps, leaves=contexts_leaves,
+                 work=contexts_work, timed_sample=contexts_timed_sample, cpu_streams=ends, chained=False),
+    KernelFamily("lstm", ("forward", "perceive"),
+                 (("ref", reference_spec, 54), ("best", best_spec, 30), ("ref-x1", reference_spec, 1),
+                  ("tiny", lambda: gt.tiny_spec(True), 3)),
+                 samples=lstm_samples, state=lstm_state, steps=lstm_steps, leaves=lstm_leaves, work=lstm_work,
+                 timed_sample=lstm_timed_sample, cpu_streams=ends, chained=True, describe=lstm_describe,
+                 sweep=lstm_sweep),
+)}
 
 
 def graphed(fn):
@@ -959,311 +1159,73 @@ def graphed(fn):
     return lambda i: g.replay()
 
 
-def compare_ppm(what: str, spec, inputs: dict, dev) -> None:
-    """Both kernels on `inputs` against the plain versions on the card and
-    on the CPU, bit for bit (rows, `ppm_see`, `ppm_probs`, top, bottom)."""
-    S = inputs["cv"].shape[0]
-    meta = build_meta(spec)
-    got = {}
-    for where, d in (("card", dev), ("cpu", torch.device("cpu"))):
-        plan = step_mod.StepPlan(meta, S, d)
-        t = {k: torch.as_tensor(v.view(np.int16) if v.dtype == np.uint16 else v, device=d) for k, v in inputs.items()}
-        out = {**dict(zip(("rows", "see"), ppm.ppm_update_rows(t["raw"], t["cv"], t["completed"], t["see"], plan))),
-               **dict(zip(("probs", "top", "bot"), ppm.ppm_predict_probs(t["raw"], t["cv"], t["see"], plan)))}
-        if where == "card":
-            got["kernels"] = out
-            got["card"] = {**dict(zip(("rows", "see"), ppm.ppm_update_plain(t["raw"], t["cv"], t["completed"],
-                                                                            t["see"], plan))),
-                           **dict(zip(("probs", "top", "bot"), ppm.ppm_predict_plain(t["raw"], t["cv"], t["see"], plan)))}
-        else:
-            got["cpu"] = out
-    torch.cuda.synchronize()
-    for where in ("card", "cpu"):
-        for k, want in got[where].items():
-            a, b = got["kernels"][k].cpu().contiguous(), want.cpu().contiguous()
-            if a.dtype == torch.float32:
-                a, b = a.view(torch.int32), b.view(torch.int32)
-            if not torch.equal(a, b):
-                raise RuntimeError(f"phase 2 {what}: the PPM kernels' {k} differs from the plain version on the {where}")
+def run_steps(fam: KernelFamily, meta, st, kernel: bool, parts) -> dict:
+    """The family's kernels (or plain versions) `parts` in turn on the state
+    `st`: by part, each one's outputs and the state's leaves after it, as
+    they were then."""
+    out, steps = {}, fam.steps(meta)
+    for i, part in enumerate(parts):
+        out.update({f"{part} {k}": v for k, v in steps[part][0 if kernel else 1](st).items()})
+        last = i == len(parts) - 1
+        out.update({f"{part} {k}": v if last else v.clone() for k, v in fam.leaves(st).items()})
+    return out
 
 
-def phase_ppm(dev) -> dict:
-    """The PPM count update and prediction kernels (csrc/ppm.cu) against
-    their plain versions, bitwise, on seeded rows (`ppm_inputs.random_inputs`,
-    PPM_SEEDS draws) at ref and best with the benchmark's stream counts and
-    on the edge streams (`edge_inputs`); then each kernel timed beside its
-    plain version, called (`plain_ms`) and replayed as a CUDA graph
-    (`plain_graph_ms`: what the byte step's graph spent there before the
-    kernels), and its bound."""
-    rows = {}
-    for name, spec in (("ref", reference_spec()), ("best", best_spec())):
-        S, sp = PPM_STREAMS[name], spec.ppm
-        NO, NB = len(sp.orders), sp.see_buckets
-        for k in range(PPM_SEEDS):
-            compare_ppm(f"{name} S={S} seed {k}", spec, ppm_inputs.random_inputs(NO, NB, S, SEED + k), dev)
-        cv = np.random.default_rng(SEED).integers(0, 2**32, (len(ppm_inputs.EDGE_STREAMS), NO), dtype=np.int64)
-        compare_ppm(f"{name} edges", spec, ppm_inputs.edge_inputs(cv, NB, sp.inc, sp.rescale_total), dev)
-        plan = step_mod.StepPlan(build_meta(spec), S, dev)
-        t = {k: torch.as_tensor(v.view(np.int16) if v.dtype == np.uint16 else v, device=dev)
-             for k, v in ppm_inputs.random_inputs(NO, NB, S, SEED).items()}
-        calls = {
-            "update": (lambda i: ppm.ppm_update_rows(t["raw"], t["cv"], t["completed"], t["see"], plan),
-                       lambda i: ppm.ppm_update_plain(t["raw"], t["cv"], t["completed"], t["see"], plan),
-                       [t["raw"], t["cv"], t["completed"], t["see"], t["raw"], t["see"]]),
-            "predict": (lambda i: ppm.ppm_predict_probs(t["raw"], t["cv"], t["see"], plan),
-                        lambda i: ppm.ppm_predict_plain(t["raw"], t["cv"], t["see"], plan),
-                        [t["raw"], t["cv"], t["see"], torch.empty((S, 256)), torch.empty((2 * S,), dtype=torch.int32)]),
-        }
-        row = {"spec": name, "streams": S, "orders": NO, "buckets": NB, "compared": PPM_SEEDS + 1}
-        for which, (kernel, plain, moved) in calls.items():
-            nbytes, ops = tensor_bytes(moved), ppm_float_ops(spec, S, which)
-            row[which] = {"ms": device_ms(kernel, reps=50), "call_ms": call_ms(kernel, reps=50),
-                          "plain_ms": call_ms(plain, reps=10), "plain_graph_ms": device_ms(graphed(plain), reps=50),
-                          "bytes_moved": nbytes, "float_ops": ops, **bound(nbytes, ops)}
-        rows[name] = row
-        log(f"phase 2: ppm kernels {json.dumps(row)}")
-        del plan, t, calls
-    torch.cuda.empty_cache()
-    return rows
-
-
-# ---------------------------------------------------------------------------
-# phase 2d: the boundary contexts and match pointer kernels
-# ---------------------------------------------------------------------------
-
-# the benchmark's stream counts by spec, and the seeded states drawn at each
-CONTEXT_STREAMS = {"ref": 54, "best": 30, "ref-noppm": 63}
-CONTEXT_SEEDS = 2
-
-
-def contexts_bytes(meta, S: int, which: str) -> int:
-    """Bytes one launch of the contexts kernel `which` ("boundary" or
-    "match") reads and writes, each once: per stream, the boundary's byte
-    leaves and ring both ways, the context slots it writes (an interval
-    slot read too), the rolling hashes and the indirect-hash registers both
-    ways and three `ih_tbl` words; the match kernel's bit, history length,
-    and per model a context, pointer, byte and length both ways, a
-    `match_tbl` word, a history byte and `match_ix`; and the table entries
-    each reads."""
-    spec = meta.spec
-    if which == "match":
-        NM = len(spec.matches)
-        return S * (2 * 8 + NM * (8 + 2 * 8 + 2 * 8 + 2 * 4 + 4 + 1 + 8)) + 8 * 3 * NM
-    NI, NSK, NR, NIH = len(spec.interval_ctxs), len(spec.skip_ctxs), len(spec.roll_ctxs), len(spec.ihash_ctxs)
-    slots = contexts.BYTE_COLS + 2 * NI + NSK + NR + NIH
-    per = 8 * (2 * 2 + 2 * meta.recent_size + slots + 2 * NR + 4 * NIH) + 4 * 3 * NIH
-    return S * per + 8 * (contexts.BYTE_COLS + 4 * NI + contexts.PER_SKIP * NSK + 3 * NR + 5 * NIH)
-
-
-def contexts_parts(meta):
-    """(name, kernel, plain) of each contexts kernel the spec launches:
-    `kernel(stm, ltm, plan, t)` and `plain(...)` update the state and return
-    its other outputs by name."""
-    parts = [("boundary", lambda st, lt, pl, at: contexts.boundary_contexts(st, at, pl) or {},
-              lambda st, lt, pl, at: contexts.boundary_plain(st, at, pl) or {})]
-    if meta.spec.matches:
-        parts.append(("match", lambda st, lt, pl, at: {"match_ix": contexts.match_pointers(st, lt, pl)},
-                      lambda st, lt, pl, at: {"match_ix": contexts.match_plain(st, lt, pl)}))
-    return parts
-
-
-def compare_contexts(what: str, meta, sample: dict, dev, t: int) -> None:
-    """Each contexts kernel on a state of `sample` (`contexts_inputs`, the
-    tables at full size) against its plain version on the card, every
-    stream, and on the CPU, three streams' rows, bit for bit. Each kernel
-    runs on a fresh state."""
-    S = len(sample["stm"]["acc"])
-    streams = sorted({0, S // 2, S - 1})
-    plan, cpu_plan = step_mod.StepPlan(meta, S, dev), step_mod.StepPlan(meta, len(streams), "cpu")
-    t_dev = torch.full((), t, dtype=torch.int64, device=dev)
-    for part, kernel, plain in contexts_parts(meta):
-        stm, ltm = contexts_inputs.to_state(meta, sample, dev)
-        got = {**kernel(stm, ltm, plan, t_dev), **stm, **ltm}
-        for where in ("card", "cpu"):
-            if where == "card":
-                st, lt = contexts_inputs.to_state(meta, sample, dev)
-                want = {**plain(st, lt, plan, t_dev), **st, **lt}
-            else:
-                st, lt = contexts_inputs.to_state(meta, sample, "cpu", streams)
-                want = {**plain(st, lt, cpu_plan, t_dev.cpu()), **st, **lt}
+def compare_kernels(fam: KernelFamily, what: str, meta, sample, dev) -> None:
+    """The family's kernels on a state of `sample` against its plain
+    versions on the card, every stream, and on the CPU (`fam.cpu_streams`),
+    bit for bit, each side on a fresh state: all parts in turn on one, or,
+    where the family is not `chained`, each part on one of its own."""
+    parts, keep = list(fam.steps(meta)), fam.cpu_streams(sample)
+    for group in ([parts] if fam.chained else [[p] for p in parts]):
+        got = run_steps(fam, meta, fam.state(meta, sample, dev, None), True, group)
+        for where, d, rows in (("card", dev, None), ("cpu", torch.device("cpu"), keep)):
+            want = run_steps(fam, meta, fam.state(meta, sample, d, rows), False, group)
             for k, w in want.items():
-                g = got[k] if where == "card" else got[k][streams]
-                if not torch.equal(g.cpu(), w.cpu()):
-                    raise RuntimeError(f"phase 2 {what}: the {part} kernel's {k} differs from the plain version on "
-                                       f"the {where}")
-            del st, lt, want
-        del stm, ltm, got
-    torch.cuda.empty_cache()
-
-
-def phase_contexts(dev) -> dict:
-    """The boundary contexts and match pointer kernels (csrc/contexts.cu)
-    against their plain versions, bitwise, on seeded states
-    (`contexts_inputs.random_state`, CONTEXT_SEEDS draws) at ref, best and
-    ref-noppm with the benchmark's stream counts and on the edge streams
-    (`edge_state`), at a stream's first byte and after it; then each kernel
-    timed beside its plain version, called (`plain_ms`) and replayed as a
-    CUDA graph (`plain_graph_ms`: what the byte step's graph spent there
-    before the kernels), and its bound (integer work: bytes alone)."""
-    rows = {}
-    for name, spec in (("ref", reference_spec()), ("best", best_spec()), ("ref-noppm", ref_noppm_spec())):
-        meta, S = build_meta(spec), CONTEXT_STREAMS[name]
-        for t in (0, 5):
-            for k in range(CONTEXT_SEEDS):
-                compare_contexts(f"{name} S={S} t={t} seed {k}", meta,
-                                 contexts_inputs.random_state(meta, S, SEED + k), dev, t)
-            compare_contexts(f"{name} edges t={t}", meta, contexts_inputs.edge_state(meta, SEED), dev, t)
-        plan = step_mod.StepPlan(meta, S, dev)
-        t_dev = torch.full((), 5, dtype=torch.int64, device=dev)
-        sample = contexts_inputs.random_state(meta, S, SEED)
-        row = {"spec": name, "streams": S, "compared": 2 * (CONTEXT_SEEDS + 1)}
-        for part, kernel, plain in contexts_parts(meta):
-            stm, ltm = contexts_inputs.to_state(meta, sample, dev)
-            nbytes = contexts_bytes(meta, S, part)
-            row[part] = {"ms": device_ms(lambda i: kernel(stm, ltm, plan, t_dev), reps=50),
-                         "call_ms": call_ms(lambda i: kernel(stm, ltm, plan, t_dev), reps=50),
-                         "plain_ms": call_ms(lambda i: plain(stm, ltm, plan, t_dev), reps=10),
-                         "plain_graph_ms": device_ms(graphed(lambda i: plain(stm, ltm, plan, t_dev)), reps=50),
-                         "bytes_moved": nbytes, "float_ops": 0, **bound(nbytes, 0)}
-            del stm, ltm
-        rows[name] = row
-        log(f"phase 2: contexts kernels {json.dumps(row)}")
-        del plan
+                g = got[k] if rows is None or got[k].dim() == 0 else got[k][rows]
+                g, w = g.cpu().contiguous(), w.cpu().contiguous()
+                if g.dtype == torch.float32:
+                    g, w = g.view(torch.int32), w.view(torch.int32)
+                if not torch.equal(g, w):
+                    raise RuntimeError(f"phase 2 {what}: the {fam.name} kernels' {k} differs from the plain version "
+                                       f"on the {where}")
+            del want
+        del got
         torch.cuda.empty_cache()
-    return rows
 
 
-# ---------------------------------------------------------------------------
-# phase 2e: the LSTM's forward pass and output-layer SGD kernels
-# ---------------------------------------------------------------------------
-
-# (name, spec, streams): the benchmark's LSTM cells, one stream of ref, and
-# the tiny spec's LSTM (16 cells, horizon 10)
-LSTM_SHAPES = (("ref", reference_spec, 54), ("best", best_spec, 30), ("ref-x1", reference_spec, 1),
-               ("tiny", lambda: gt.tiny_spec(True), 3))
-LSTM_SEEDS = 2
-LSTM_CLUSTERS = (1, 2, 4, 8)
-
-
-def lstm_work(ls, S: int, which: str):
-    """(bytes, float ops) of one launch of the LSTM kernel `which`
-    ("forward" or "perceive"), each input read once and each output written
-    once, counted as roofline.step_work counts the lstm_forward part: the
-    forward pass reads the gate rows, gains, the symbol column, the epoch's
-    out_w slice, the aux input and the state, and writes the state and the
-    epoch's records; the SGD reads the last epoch's slice and writes the
-    next one's."""
-    C, IN, OUT = ls.num_cells, ls.input_size, ls.output_size
-    LI, T = IN + C + 1, TRANSCENDENTAL
-    if which == "perceive":
-        floats = 2 * (C + 1) * OUT + OUT + (C + 1) + 1
-        return S * 4 * floats, S * (OUT + (C + 1) + 2 * (C + 1) * OUT)
-    floats = (3 * C * (LI + 1 + 2) + (C + 1) * OUT + IN + 2 * (C + 1) + 2 * C  # reads
-              + LI + 3 * C + 3 + 3 * C + 3 * C + 2 * OUT + 4 + 1)  # the epoch's records, probs, registers, context
-    ops = (3 * C * 2 * LI + 3 * (2 * C + 2 + T) + 3 * C * 3 + 3 * C * T + C * (5 + T) + 2 * (C + 1) * OUT
-           + OUT + OUT * (1 + T) + (OUT - 1) + OUT)
-    return S * 4 * floats, S * ops
-
-
-def compare_lstm(what: str, meta, sample: dict, dev, cluster=None) -> None:
-    """The forward kernel and then the perceive kernel on a state of
-    `sample` (`lstm_inputs`) against the plain versions on the card, every
-    stream, and on the CPU, three streams, bit for bit: every LSTM leaf
-    after each, the head's registers and the `lstm_ctx` context. The byte
-    that wraps the window records its symbol op by op and launches the SGD
-    alone (the backward pass is left to the caller, as the deferred order
-    does)."""
-    ls = meta.spec.lstm
-    slot = int(meta.slots["lstm_ctx"])
-    S = len(sample["stm"]["acc"])
-    streams = sorted({0, S // 2, S - 1})
-    wrap = int(sample["stm"]["lstm"]["epoch"]) == ls.horizon - 1
-
-    def step(stm, ltm, lp, kernel):
-        regs = (lstm.lstm_forward_kernel(stm, ltm, lp, slot, cluster) if kernel else
-                lstm.lstm_forward_plain(stm, ltm, lp, slot))
-        out = {"regs": regs, "ctx": stm["ctx"].clone(),
-               **{f"forward {k}": v.clone() for k, v in {**stm["lstm"], **ltm["lstm"]}.items()}}
-        if kernel:
-            lstm._lstm_perceive(stm, ltm, stm["acc"], lp, wrap, False)
-        else:
-            lstm.lstm_perceive_plain(stm, ltm, stm["acc"], lp, wrap, False)
-        return {**out, **{f"perceive {k}": v for k, v in {**stm["lstm"], **ltm["lstm"]}.items()}}
-
-    stm, ltm = lstm_inputs.to_state(sample, dev)
-    got = step(stm, ltm, lstm.LstmPlan(ls, S, dev), True)
-    del stm, ltm
-    for where in ("card", "cpu"):
-        if where == "card":
-            st, lt = lstm_inputs.to_state(sample, dev)
-            want = step(st, lt, lstm.LstmPlan(ls, S, dev), False)
-        else:
-            st, lt = lstm_inputs.to_state(sample, "cpu", streams)
-            want = step(st, lt, lstm.LstmPlan(ls, len(streams), "cpu"), False)
-        for k, w in want.items():
-            g = got[k] if where == "card" or got[k].dim() == 0 else got[k][streams]
-            g, w = g.cpu().contiguous(), w.cpu().contiguous()
-            if g.dtype == torch.float32:
-                g, w = g.view(torch.int32), w.view(torch.int32)
-            if not torch.equal(g, w):
-                raise RuntimeError(f"phase 2 {what}: the LSTM kernels' {k} differs from the plain version on the "
-                                   f"{where}")
-        del st, lt, want
-    del got
-    torch.cuda.empty_cache()
-
-
-def phase_lstm(dev) -> dict:
-    """The LSTM's forward pass and output-layer SGD kernels (csrc/lstm.cu)
-    against their plain versions, bitwise, on seeded states
-    (`lstm_inputs.random_state`, LSTM_SEEDS draws) at LSTM_SHAPES, at epoch
-    0, mid-window and the last epoch (whose byte wraps the window), on the
-    edge streams (`edge_state`) at epoch 0 and the last, and at every
-    cluster size of the forward kernel; then each kernel timed beside its
-    plain version, called (`plain_ms`) and replayed as a CUDA graph
+def phase_kernels(fam: KernelFamily, dev) -> dict:
+    """A family's kernels against their plain versions, bitwise, on every
+    sample at each of its shapes (`compare_kernels`); then at each shape
+    each kernel timed back to back (`ms`) and called (`call_ms`), beside its
+    plain version called (`plain_ms`) and replayed as a CUDA graph
     (`plain_graph_ms`: what the byte step's graph spent there before the
-    kernels), and its bound; the forward kernel at each cluster size
-    (`forward.cluster_ms`, at the sizes whose shared memory fits; `cluster`
-    is the one the wrapper takes)."""
+    kernel), with a launch's bytes, float ops and bound, on states of one
+    sample (fresh for each part where the family is not `chained`); then the
+    family's own measurements."""
     rows = {}
-    for name, make, S in LSTM_SHAPES:
+    for name, make, S in fam.shapes:
         meta = build_meta(make())
-        ls, slot = meta.spec.lstm, int(meta.slots["lstm_ctx"])
-        Hz = ls.horizon
-        for e in (0, Hz // 2, Hz - 1):
-            for k in range(LSTM_SEEDS):
-                compare_lstm(f"lstm {name} S={S} epoch {e} seed {k}", meta,
-                             lstm_inputs.random_state(meta, S, SEED + 10 * e + k, e), dev)
-        for e in (0, Hz - 1):
-            compare_lstm(f"lstm {name} edges epoch {e}", meta, lstm_inputs.edge_state(meta, SEED, e), dev)
-        clusters = [K for K in LSTM_CLUSTERS if lstm.forward_smem(ls, K) <= lstm.MAX_DYNAMIC_SMEM]
-        for K in clusters:
-            compare_lstm(f"lstm {name} S={S} cluster {K}", meta, lstm_inputs.random_state(meta, S, SEED + K, 3), dev,
-                         cluster=K)
-        sample = lstm_inputs.random_state(meta, S, SEED, Hz // 2)
-        stm, ltm = lstm_inputs.to_state(sample, dev)
-        lp = lstm.LstmPlan(ls, S, dev)
-        p_stm, p_ltm = lstm_inputs.to_state(sample, dev)
-        chosen = lstm.forward_cluster(S, ls, torch.cuda.get_device_properties(dev).multi_processor_count)
-        calls = {
-            "forward": (lambda i: lstm.lstm_forward_kernel(stm, ltm, lp, slot),
-                        lambda i: lstm.lstm_forward_plain(p_stm, p_ltm, lp, slot)),
-            "perceive": (lambda i: lstm.lstm_perceive_kernel(stm, ltm, stm["acc"], lp, True),
-                         lambda i: lstm.lstm_perceive_plain(p_stm, p_ltm, p_stm["acc"], lp, False, False)),
-        }
-        row = {"spec": name, "streams": S, "cells": ls.num_cells, "horizon": Hz, "cluster": chosen,
-               "compared": 3 * LSTM_SEEDS + 2 + len(clusters)}
-        for which, (kernel, plain) in calls.items():
-            nbytes, ops = lstm_work(ls, S, which)
-            row[which] = {"ms": device_ms(kernel, reps=50), "call_ms": call_ms(kernel, reps=50),
-                          "plain_ms": call_ms(plain, reps=10), "plain_graph_ms": device_ms(graphed(plain), reps=50),
-                          "bytes_moved": nbytes, "float_ops": ops, **bound(nbytes, ops)}
-        row["forward"]["cluster_ms"] = {
-            K: device_ms(lambda i, K=K: lstm.lstm_forward_kernel(stm, ltm, lp, slot, K), reps=50)
-            for K in clusters}
+        compared = 0
+        for label, sample in fam.samples(meta, S):
+            compare_kernels(fam, f"{fam.name} {name} {label}", meta, sample, dev)
+            compared += 1
+        row = {"spec": name, "streams": S, **fam.describe(meta, S, dev), "compared": compared}
+        sample, on_kernel = fam.timed_sample(meta, S), None
+        for part, (kernel, plain) in fam.steps(meta).items():
+            if on_kernel is None or not fam.chained:
+                on_kernel = on_plain = None
+                on_kernel, on_plain = fam.state(meta, sample, dev, None), fam.state(meta, sample, dev, None)
+            nbytes, ops = fam.work(meta, S, part)
+            row[part] = {"ms": device_ms(lambda i: kernel(on_kernel), reps=50),
+                         "call_ms": call_ms(lambda i: kernel(on_kernel), reps=50),
+                         "plain_ms": call_ms(lambda i: plain(on_plain), reps=10),
+                         "plain_graph_ms": device_ms(graphed(lambda i: plain(on_plain)), reps=50),
+                         "bytes_moved": nbytes, "float_ops": ops, **bound(nbytes, ops)}
+        fam.sweep(meta, S, dev, on_kernel, row)
         rows[name] = row
-        log(f"phase 2: lstm kernels {json.dumps(row)}")
-        del stm, ltm, p_stm, p_ltm, calls
+        log(f"phase 2: {fam.name} kernels {json.dumps(row)}")
+        del sample, on_kernel, on_plain
         torch.cuda.empty_cache()
     return rows
 
@@ -1292,12 +1254,9 @@ def pool_bytes(plan):
 def graph_summary(fn) -> dict:
     """Each graph of a compiled chunk by variant: its capture seconds and the
     launches (`LAUNCHES`) its capture recorded, which each replay adds."""
-    out = {}
-    for key, g in fn.graphs.items():
-        per = g.record.launches
-        out["/".join(map(str, key))] = {"capture_s": g.record.capture_s,
-                                        "launches_per_replay": [sum(per.get(w, 0) for w in group) for group in WRAPPERS]}
-    return out
+    return {"/".join(map(str, key)): {"capture_s": g.record.capture_s,
+                                      "launches_per_replay": list(kernels.launch_counts(g.record.launches))}
+            for key, g in fn.graphs.items()}
 
 
 def eager_against_graphs(name, pred, dev, expect, sample: bool = False):
@@ -1454,7 +1413,7 @@ def phase_main(name, spec, dev):
         raise RuntimeError("phase 3: decompress_bytes did not reproduce the input")
     if not np.isfinite(ent) or ent <= 0:
         raise RuntimeError(f"phase 3: cross-entropy {ent} is not a positive finite number")
-    per_step = launches_per_step(spec)
+    per_step = kernels.launches_per_step(spec)
     expect = tuple(e * per for e in per_step)
     if enc_launches != expect or dec_launches != expect:
         raise RuntimeError(
@@ -1500,7 +1459,7 @@ def phase_generate(name, pred, dev, per_encode_step):
     design); then a profiler window of sampling steps."""
     S = pred.num_streams
     prompt = corpus(MAIN_BYTES + GEN_PROMPT)[MAIN_BYTES:]  # bytes the model has not seen
-    expect = (per_encode_step[0], per_encode_step[1] - 1, *per_encode_step[2:-1], 0)
+    expect = kernels.launches_per_step(pred.spec, sampling=True)
     reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1681,10 +1640,10 @@ def flag(argv, name: str) -> int:
 
 def step_launches(steps: int, sampling: int = 0):
     """`LAUNCHES` of `steps` encode or decode steps and `sampling` sampling
-    steps with PPM, the LSTM and match models: 3 + 2 + 1 + 1 + 1 + 1 + 1 +
-    1 + 1 and 3 + 1 + 1 + 1 + 1 + 1 + 1 + 1 + 0 a step."""
-    n = steps + sampling
-    return (3 * n, 2 * steps + sampling, n, n, n, n, n, n, steps)
+    steps with PPM, the LSTM and match models (reference_spec()'s wiring)."""
+    spec = reference_spec()
+    return tuple(steps * a + sampling * b for a, b in zip(kernels.launches_per_step(spec),
+                                                          kernels.launches_per_step(spec, sampling=True)))
 
 
 def cli_run(argv, what: str, launches=None):
@@ -1933,7 +1892,7 @@ def phase_cli(root: str, cpu_proc, cpu_dir: str, dev, ref_full_bpb: float, ref_f
            "cross": phase_cli_cross(root, cpu_proc, cpu_dir)}
     runs = [out["best"]["launches_encode"], out["best"]["launches_decode"], *out["wiki"]["launches"].values(),
             *out["cross"]["launches"].values()]
-    out["launches"] = [sum(r[i] for r in runs) for i in range(len(WRAPPERS))]
+    out["launches"] = [sum(r[i] for r in runs) for i in range(len(kernels.KERNELS))]
     out["wall_s"] = time.perf_counter() - t0
     log(f"phase 5: the command line in {out['wall_s']:.1f} s, launches {LAUNCHES} {out['launches']}")
     return out
@@ -2066,7 +2025,7 @@ def phase_ranks(d: str, main_full: dict) -> dict:
            "chunk": CHUNK, "archive_bytes": len(main_full["archive"]), "same_archive_as_phase_3": True,
            "aggregate_encode_bytes_per_s": MAIN_BYTES / max(r["encode_s"] for r in rows),
            "one_process_encode_bytes_per_s": main_full["encode_bytes_per_s"], "processes_wall_s": wall,
-           "launches": [sum(r["launches"][i] for r in rows) for i in range(len(WRAPPERS))], "per_rank": rows}
+           "launches": [sum(r["launches"][i] for r in rows) for i in range(len(kernels.KERNELS))], "per_rank": rows}
     log(f"phase 6: {RANKS} ranks on one card {json.dumps(out)}")
     return out
 
@@ -2084,7 +2043,7 @@ def phase_nccl(d: str) -> dict:
         distributed.dist.destroy_process_group()
     if blob != read_bytes(os.path.join(d, f"{NCCL_SPEC}.gxtc")):
         raise RuntimeError(f"phase 6 nccl: the container is not phase 4's {NCCL_SPEC} GPU archive")
-    per, per_step = n_bytes // 2, launches_per_step(spec12)
+    per, per_step = n_bytes // 2, kernels.launches_per_step(spec12)
     if launches != tuple(e * per for e in per_step):
         raise RuntimeError(f"phase 6 nccl: launched {launches} in {per} byte steps, expected {per_step} a step")
     out = {"spec": f"{NCCL_SPEC} scaled-12", "ranks": 1, "backend": backend, "streams": 2, "bytes": n_bytes,
@@ -2230,7 +2189,7 @@ def phase_bench(dev) -> dict:
     runs = [a, a2, b, *profiles.values()]
     cfg, res = b["config"], b["result"]
     out = {"warm_lane": lane, "a": a, "a_read": a2, "checkpoint": checkpoint, "b": b, "profiles": profiles,
-           "launches": [sum(r["launches"][i] for r in runs) for i in range(len(WRAPPERS))],
+           "launches": [sum(r["launches"][i] for r in runs) for i in range(len(kernels.KERNELS))],
            "auto": {"streams": cfg["streams"], "state_estimate_gb": cfg["state_estimate_bytes"] / 1e9,
                     "headroom_gb": cfg["headroom_bytes"] / 1e9, "budget_gb": cfg["budget_bytes"] / 1e9,
                     "peak_gb": res["peak_gb"], "peak_reserved_gb": res["peak_reserved_gb"],
@@ -2306,7 +2265,7 @@ def variant_roundtrip(name: str, spec, dev) -> dict:
     stream at VARIANT_STREAMS streams, each on a fresh predictor: the input
     back, every byte step `launches_per_step(spec)` launches, and every
     captured graph's replay as many."""
-    expect = launches_per_step(spec)
+    expect = kernels.launches_per_step(spec)
     data = corpus(MAIN_BYTES + VARIANT_STREAMS * VARIANT_PER)[MAIN_BYTES:]
     out = {"spec": name, "streams": VARIANT_STREAMS, "bytes": len(data), "chunk": CHUNK,
            "launches_per_step": list(expect)}
@@ -2357,7 +2316,7 @@ def variant_cross(name: str, dev, d: str, proc) -> dict:
         raise RuntimeError(f"phase 8 {name}: the GPU does not decode the CPU archive")
     if read_bytes(variant_file(d, name, "cpu.out")) != data:
         raise RuntimeError(f"phase 8 {name}: the CPU does not decode the GPU archive")
-    expect = launches_per_step(spec)
+    expect = kernels.launches_per_step(spec)
     if enc != dec or enc != tuple(e * per for e in expect):
         raise RuntimeError(f"phase 8 {name}: GPU launches encode {enc}, decode {dec}, expected {expect} a step")
     return {"spec": f"{name} scaled-12", "streams": VARIANT_CROSS_STREAMS, "bytes": len(data),
@@ -2480,7 +2439,7 @@ def sweep_run(argv, what: str) -> dict:
         raise RuntimeError(f"phase 9 {what}: exit code {rc}")
     body = rows[1:]
     steps = sum(r["byte_steps"] for r in body)
-    want = tuple(c * steps for c in launches_per_step(reference_spec()))
+    want = tuple(c * steps for c in kernels.launches_per_step(reference_spec()))
     if not steps or got != want:
         raise RuntimeError(f"phase 9 {what}: launches {LAUNCHES} {got} in {steps} byte steps, "
                            f"expected {want}")
@@ -2519,9 +2478,9 @@ def phase_sweeps(dev) -> dict:
     """Phase 9: the kernels on live inputs at one stream (ref, best) and at
     SWEEP_WIDE streams (scaling's spec at 12 bits), then every sweep of
     SWEEP_RUNS with its launches asserted and its rows checked."""
-    kernels = {f"{name} S={S}": sweep_kernels(name, spec, S, dev)
-               for name, spec, S in (("ref", reference_spec(), 1), ("best", best_spec(), 1),
-                                     ("scaled-12", sweeps.scaling_spec(12), SWEEP_WIDE))}
+    live = {f"{name} S={S}": sweep_kernels(name, spec, S, dev)
+            for name, spec, S in (("ref", reference_spec(), 1), ("best", best_spec(), 1),
+                                  ("scaled-12", sweeps.scaling_spec(12), SWEEP_WIDE))}
     runs, launches = {}, list(NO_LAUNCHES)
     for what, argv in SWEEP_RUNS:
         t0 = time.perf_counter()
@@ -2530,7 +2489,7 @@ def phase_sweeps(dev) -> dict:
                       "byte_steps": run["byte_steps"], "wall_s": time.perf_counter() - t0}
         launches = [a + b for a, b in zip(launches, run["launches"])]
         log(f"phase 9: {what} done in {runs[what]['wall_s']:.1f} s")
-    return {"kernels": kernels, "runs": runs, "launches": launches}
+    return {"kernels": live, "runs": runs, "launches": launches}
 
 
 def code_sizes(lib_path) -> dict:
@@ -2560,13 +2519,11 @@ def main() -> int:
     bench_only = sys.argv[1:] == ["--bench-only"]
     variants_only = sys.argv[1:] == ["--variants-only"]
     sweeps_only = sys.argv[1:] == ["--sweeps-only"]
-    ppm_only = sys.argv[1:] == ["--ppm-only"]
-    contexts_only = sys.argv[1:] == ["--contexts-only"]
-    lstm_only = sys.argv[1:] == ["--lstm-only"]
-    if sys.argv[1:] and not (fused_only or bench_only or variants_only or sweeps_only or ppm_only or contexts_only
-                             or lstm_only):
-        print("usage: chip_smoke.py [--fused-only | --bench-only | --variants-only | --sweeps-only | --ppm-only | "
-              "--contexts-only]", file=sys.stderr)
+    only_kernels = sys.argv[2].split(",") if len(sys.argv) == 3 and sys.argv[1] == "--kernels" else None
+    if (sys.argv[1:] and not (fused_only or bench_only or variants_only or sweeps_only or only_kernels)
+            or not set(only_kernels or ()) <= set(FAMILIES)):
+        print(f"usage: chip_smoke.py [--fused-only | --bench-only | --variants-only | --sweeps-only | "
+              f"--kernels NAME[,NAME]], NAME one of {', '.join(FAMILIES)}", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's GPU path cannot run here", file=sys.stderr)
@@ -2594,22 +2551,11 @@ def main() -> int:
         if "Compiling entry" in line or "registers" in line or "spill" in line or "smem" in line:
             log(f"  ptxas: {line.strip()}")
 
-    if ppm_only:
-        ppm_out = phase_ppm(dev)
+    if only_kernels:
+        out = {name: phase_kernels(FAMILIES[name], dev) for name in only_kernels}
+        elapsed("phase 2 done")
         print(smi, flush=True)
-        print(json.dumps({"ok": True, "partial": "the PPM kernels only", "ppm": ppm_out}), flush=True)
-        return 0
-    if contexts_only:
-        contexts_out = phase_contexts(dev)
-        elapsed("phase 2d done")
-        print(smi, flush=True)
-        print(json.dumps({"ok": True, "partial": "the contexts kernels only", "contexts": contexts_out}), flush=True)
-        return 0
-    if lstm_only:
-        lstm_out = phase_lstm(dev)
-        elapsed("phase 2e done")
-        print(smi, flush=True)
-        print(json.dumps({"ok": True, "partial": "the LSTM kernels only", "lstm": lstm_out}), flush=True)
+        print(json.dumps({"ok": True, "partial": f"the {', '.join(only_kernels)} kernels only", **out}), flush=True)
         return 0
     if bench_only:
         bench_out = phase_bench(dev)
@@ -2656,9 +2602,7 @@ def main() -> int:
     fused_full_row = phase_fused_heads("ref-full", pred, dev)
     del pred
     torch.cuda.empty_cache()
-    ppm_out = phase_ppm(dev)
-    contexts_out = phase_contexts(dev)
-    lstm_out = phase_lstm(dev)
+    family_out = {name: phase_kernels(fam, dev) for name, fam in FAMILIES.items()}
     elapsed("phase 2 done")
     main_out = {name: phase_main(name, spec, dev) for name, spec in specs.items()}
     elapsed("phase 3 done")
@@ -2720,20 +2664,21 @@ def main() -> int:
         by_path["sweeps"] = sweeps_out["launches"][i]
         return by_path
 
-    def mover(direction, replaces_key):
-        """A mover's entry: the ref-ppm byte step's grouped launch of five
-        arenas, the four-arena group of ref-noppm and the single launches."""
+    def mover(i, direction):
+        """Kernel i's entry, a mover: the ref-ppm byte step's grouped launch
+        of five arenas, the four-arena group of ref-noppm and the single
+        launches."""
         five, four = grouped[direction, 5], grouped[direction, 4]
-        by_path = launches(0 if direction == "gather" else 1)
+        by_path = launches(i)
         keys = ("ms", "call_ms", "plain_ms", "bound_ms", "library_ms", "single_launches_ms", "single_launches_call_ms")
         return {
             "name": f"{direction}_rows",
             "route": "cuda",
-            "source": SOURCES[replaces_key],
-            "replaces": REPLACES[replaces_key],
+            "source": f"gmix_tpu_torch/csrc/{kernels.KERNELS[i].source}",
+            "replaces": REPLACES[i],
             "launches": sum(by_path.values()),
             "launches_by_path": by_path,
-            "launches_per_replay": per_replay(0 if direction == "gather" else 1),
+            "launches_per_replay": per_replay(i),
             "max_abs_err": max(five["max_abs_err"], four["max_abs_err"], max(r[f"{direction}_err"] for r in per_arena)),
             **{k: five[k] for k in keys},
             "bound_by": "bytes",
@@ -2760,11 +2705,11 @@ def main() -> int:
         return rows
 
     fused_by_path = launches(2)
-    kernels = [mover("gather", "gather_rows"), mover("scatter", "scatter_rows"), {
+    rows = [mover(0, "gather"), mover(1, "scatter"), {
         "name": "fused_substeps",
         "route": "cuda",
-        "source": SOURCES["fused_substeps"],
-        "replaces": REPLACES["fused_substeps"],
+        "source": f"gmix_tpu_torch/csrc/{kernels.KERNELS[2].source}",
+        "replaces": REPLACES[2],
         "launches": sum(fused_by_path.values()),
         "launches_by_path": fused_by_path,
         "launches_per_replay": per_replay(2),
@@ -2803,67 +2748,29 @@ def main() -> int:
                                                  "max_abs_err", "instantiation")}
                    for k, v in sweeps_out["kernels"].items()},
     }]
-    for i, which in ((3, "update"), (4, "predict")):
-        by_path = launches(i)
-        ref = ppm_out["ref"][which]
-        kernels.append({
-            "name": f"ppm_{which}",
-            "route": "cuda",
-            "source": SOURCES["ppm"],
-            # gmix_tpu computes the PPM cascade in plain jnp, outside any kernel
-            "replaces": None,
-            "launches": sum(by_path.values()),
-            "launches_by_path": by_path,
-            "launches_per_replay": per_replay(i),
-            "max_abs_err": 0.0,
-            **{k: ref[k] for k in ("ms", "call_ms", "plain_ms", "plain_graph_ms", "bound_ms", "bound_by",
-                                   "bytes_moved", "float_ops")},
-            "streams": ppm_out["ref"]["streams"],
-            "best": {k: ppm_out["best"][which][k] for k in ("ms", "plain_graph_ms", "bound_ms")},
-        })
-    for i, which in ((5, "boundary"), (6, "match")):
-        by_path = launches(i)
-        ref = contexts_out["ref"][which]
-        kernels.append({
-            "name": "contexts_boundary" if which == "boundary" else "match_pointer",
-            "route": "cuda",
-            "source": SOURCES["contexts"],
-            # gmix_tpu computes the contexts and the match pointers in plain
-            # jnp, outside any kernel
-            "replaces": None,
-            "launches": sum(by_path.values()),
-            "launches_by_path": by_path,
-            "launches_per_replay": per_replay(i),
-            "max_abs_err": 0.0,
-            **{k: ref[k] for k in ("ms", "call_ms", "plain_ms", "plain_graph_ms", "bound_ms", "bound_by",
-                                   "bytes_moved")},
-            "streams": contexts_out["ref"]["streams"],
-            **{other: {k: contexts_out[other][which][k] for k in ("ms", "plain_graph_ms", "bound_ms")}
-               for other in ("best", "ref-noppm")},
-        })
-    for i, which in ((7, "forward"), (8, "perceive")):
-        by_path = launches(i)
-        ref = lstm_out["ref"][which]
-        kernels.append({
-            "name": f"lstm_{which}",
-            "route": "cuda",
-            "source": SOURCES["lstm"],
-            # gmix_tpu computes the LSTM's forward pass and SGD in plain jnp,
-            # outside any kernel
-            "replaces": None,
-            "launches": sum(by_path.values()),
-            "launches_by_path": by_path,
-            "launches_per_replay": per_replay(i),
-            "max_abs_err": 0.0,
-            **{k: ref[k] for k in ("ms", "call_ms", "plain_ms", "plain_graph_ms", "bound_ms", "bound_by",
-                                   "bytes_moved", "float_ops")},
-            "streams": lstm_out["ref"]["streams"],
-            **({"cluster": lstm_out["ref"]["cluster"], "cluster_ms": ref["cluster_ms"]} if which == "forward" else {}),
-            **{other: {k: lstm_out[other][which][k] for k in ("ms", "plain_graph_ms", "bound_ms")}
-               for other in ("best", "ref-x1", "tiny")},
-        })
+    for fam in FAMILIES.values():
+        out = family_out[fam.name]
+        for which, k in zip(fam.parts, [k for k in kernels.KERNELS if k.source == f"{fam.name}.cu"]):
+            i = kernels.KERNELS.index(k)
+            by_path, ref = launches(i), out["ref"][which]
+            rows.append({
+                "name": k.wrappers[0],
+                "route": "cuda",
+                "source": f"gmix_tpu_torch/csrc/{k.source}",
+                # gmix_tpu computes it in plain jnp, outside any kernel
+                "replaces": None,
+                "launches": sum(by_path.values()),
+                "launches_by_path": by_path,
+                "launches_per_replay": per_replay(i),
+                "max_abs_err": 0.0,
+                **ref,
+                "streams": out["ref"]["streams"],
+                **({"cluster": out["ref"]["cluster"]} if "cluster_ms" in ref else {}),
+                **{other: {f: out[other][which][f] for f in ("ms", "plain_graph_ms", "bound_ms")}
+                   for other in out if other != "ref"},
+            })
     print(smi, flush=True)
-    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)
     return 0

@@ -124,6 +124,7 @@ import numpy as np
 import torch
 
 from . import obs, variants
+from .ops import kernels
 from .config import ApmStage, EnsembleSpec, best_spec, reference_spec, scale_tables
 from .core.codec import (_WORST_PER_BYTE, Predictor, _pad_streams, analysis_columns, analysis_snapshot, compress_bytes,
                          decompress_bytes, default_device, entropy_bits, run_chunks)
@@ -134,7 +135,7 @@ from .utils.serialization import load_state, save_state
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CORPUS = os.path.join(ROOT, "data", "corpus_1m.bin")
-# the reference binary's encode+decode rate on one CPU core (read, never written)
+# the reference binary's bpb on the corpus (read, never written)
 BASELINE = os.path.join(ROOT, "data", "baseline_measured.json")
 # the pretraining's chunk is min(chunk, WARM_CHUNK), as in bench.py
 WARM_CHUNK = 1000
@@ -451,21 +452,8 @@ def release_device(device) -> None:
         torch.cuda.empty_cache()
 
 
-def _launch_counts() -> Tuple[int, ...]:
-    """The hand-written kernels' launches so far (obs.launches): (gather,
-    scatter, fused, PPM update, PPM prediction, contexts boundary, match
-    pointers, LSTM forward pass, LSTM perceive)."""
-    n = obs.launches()
-    return (n.get("gather_rows", 0) + n.get("gather_rows_many", 0),
-            n.get("scatter_rows", 0) + n.get("scatter_rows_many", 0), n.get("fused_substeps", 0),
-            n.get("ppm_update", 0), n.get("ppm_predict", 0), n.get("contexts_boundary", 0), n.get("match_pointer", 0),
-            n.get("lstm_forward", 0), n.get("lstm_perceive", 0))
-
-
 # the hand-written kernels, by a part of their name in a trace
-OWN_KERNELS = ("fused_substeps_kernel", "gather_rows_many_kernel", "scatter_rows_many_kernel", "ppm_update_kernel",
-               "ppm_predict_kernel", "contexts_boundary_kernel", "match_pointer_kernel", "lstm_forward_kernel",
-               "lstm_perceive_kernel")
+OWN_KERNELS = tuple(k.name for k in kernels.KERNELS)
 TOP_KERNELS, KERNEL_NAME_CHARS = 10, 120
 
 
@@ -563,9 +551,9 @@ def _trace_run(pred: Predictor, warm: Dict, data: bytes, chunk: int, n: int, enc
     encode()  # captures the window's graphs
     reset_to_warm(pred, warm)
     sync(dev)
-    before = _launch_counts()
+    before = kernels.launch_counts(obs.launches())
     row = trace_window(encode, n, dev)
-    launches = [b - a for a, b in zip(before, _launch_counts())]
+    launches = [b - a for a, b in zip(before, kernels.launch_counts(obs.launches()))]
     row.update(byte_steps=n, backward_passes=n // pred.spec.lstm.horizon if pred.spec.lstm is not None else 0,
                encode_pass_ms_per_step=encode_step_ms, graphs_released_gb=released)
     if dev.type == "cuda":
@@ -748,11 +736,6 @@ def baseline() -> dict:
         return json.load(f)
 
 
-def _vs_baseline(mbps: float) -> Optional[float]:
-    ref = baseline().get("ref_encdec_mbps", 0.0)
-    return mbps / ref if ref > 0 else None
-
-
 def _checkpoint_path(template: Optional[str], name: str) -> Optional[str]:
     """The warm checkpoint of the profile `name`: `template` with
     `{profile}` filled with the name (`:` as `_`)."""
@@ -840,9 +823,7 @@ def main(argv=None) -> int:
         emit(lines, "config", **config, allocated_bytes=held, **device_info(dev))
         res = run_once(spec, S, args.chunk, data, warm, args.passes, dev, lines, config["warm_checkpoint"],
                        args.trace, args.encode_only, args.analysis)
-        emit(lines, "result", spec=config["spec"], **res,
-              vs_baseline=None if res["encdec_mbps"] is None else _vs_baseline(res["encdec_mbps"]),
-              ref_bpb=baseline().get("ref_1m", {}).get("bpb"))
+        emit(lines, "result", spec=config["spec"], **res, ref_bpb=baseline().get("ref_1m", {}).get("bpb"))
     if args.out:
         with open(args.out, "w") as f:
             json.dump(lines, f, indent=1)

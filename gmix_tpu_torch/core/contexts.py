@@ -17,15 +17,13 @@ program serves every byte and no host reads the device.
 """
 from __future__ import annotations
 
-import ctypes
-from typing import Dict, Tuple
+from typing import Dict
 
 import numpy as np
 import torch
 
-from .. import obs
+from ..ops import kernels
 from ..ops.murmur import MASK32, mul32, murmur3_u32, murmur3_u64
-from ..utils.build import check_launch, load_kernels
 from .meta import MAX_SKIP, ROLL_BASE, Meta
 
 I32 = torch.int32
@@ -161,43 +159,6 @@ def match_table(meta: Meta) -> np.ndarray:
     return np.stack([meta.match_ctx_slots, meta.match_masks, meta.match_offsets], axis=1).astype(np.int64).reshape(-1)
 
 
-class _ContextsArgs(ctypes.Structure):
-    """GmixContextsArgs of csrc/contexts.cu."""
-
-    _fields_ = [(n, ctypes.c_void_p) for n in ("t", "acc", "last_byte", "recent", "ctx", "roll_h", "ih_tbl",
-                                               "ih_outer_ctx", "ih_outer_hash", "consts")] + \
-               [(n, ctypes.c_int64) for n in ("S", "R", "n_ctx", "NI", "NSK", "NR", "NIH", "ih_total")]
-
-
-class _MatchArgs(ctypes.Structure):
-    """GmixMatchArgs of csrc/contexts.cu."""
-
-    _fields_ = [(n, ctypes.c_void_p) for n in ("new_bit", "hist_n", "ctx", "match_ptr", "match_byte", "match_len",
-                                               "match_tbl", "hist", "match_ix", "consts")] + \
-               [(n, ctypes.c_int64) for n in ("S", "NM", "n_ctx", "match_total", "history_size")]
-
-
-def _fill(what: str, args: ctypes.Structure, tensors: Dict[str, Tuple[torch.Tensor, tuple, torch.dtype]]) -> torch.device:
-    """Check `tensors` (name: (tensor, shape, dtype)) and set their pointers
-    in `args`: every one a contiguous CUDA tensor on one device."""
-    dev = next(iter(tensors.values()))[0].device
-    if dev.type != "cuda":
-        raise ValueError(f"{what}: the state is on {dev}, expected a CUDA device (the plain version runs on the CPU)")
-    for name, (t, shape, dtype) in tensors.items():
-        if t.device != dev or t.dtype != dtype or tuple(t.shape) != shape or not t.is_contiguous():
-            raise ValueError(f"{what}: {name} is {tuple(t.shape)} {t.dtype} on {t.device} (contiguous: "
-                             f"{t.is_contiguous()}), expected {shape} {dtype} on {dev}, contiguous")
-        setattr(args, name, t.data_ptr())
-    return dev
-
-
-def _launch(what: str, entry: str, args: ctypes.Structure, dev: torch.device) -> None:
-    lib = load_kernels()
-    with torch.cuda.device(dev):
-        rc = getattr(lib, entry)(ctypes.byref(args), torch.cuda.current_stream(dev).cuda_stream)
-    check_launch(lib, rc, what)
-
-
 def boundary_kernel(stm: Dict, t: torch.Tensor, plan) -> None:
     """`boundary_plain` as one launch of csrc/contexts.cu's boundary kernel,
     on CUDA tensors: the leaves are written in place."""
@@ -207,7 +168,6 @@ def boundary_kernel(stm: Dict, t: torch.Tensor, plan) -> None:
     NI, NSK, NR, NIH = len(spec.interval_ctxs), len(spec.skip_ctxs), len(spec.roll_ctxs), len(spec.ihash_ctxs)
     if not BYTE_COLS <= R <= MAX_RECENT:
         raise ValueError(f"contexts_boundary: a ring of {R} bytes, the kernel takes {BYTE_COLS} to {MAX_RECENT}")
-    args = _ContextsArgs(S=S, R=R, n_ctx=meta.n_ctx, NI=NI, NSK=NSK, NR=NR, NIH=NIH, ih_total=meta.ih_total)
     tensors = {"ctx": (stm["ctx"], (S, meta.n_ctx), I64), "t": (t, (), I64), "acc": (stm["acc"], (S,), I64),
                "last_byte": (stm["last_byte"], (S,), I64), "recent": (stm["recent"], (S, R), I64),
                "consts": (plan.boundary_consts, tuple(plan.boundary_consts.shape), I64)}
@@ -216,7 +176,8 @@ def boundary_kernel(stm: Dict, t: torch.Tensor, plan) -> None:
     if NIH:
         tensors.update(ih_tbl=(stm["ih_tbl"], (S, meta.ih_total), I32), ih_outer_ctx=(stm["ih_outer_ctx"], (S, NIH), I64),
                        ih_outer_hash=(stm["ih_outer_hash"], (S, NIH), I64))
-    _launch("contexts_boundary", "gmix_contexts_boundary", args, _fill("contexts_boundary", args, tensors))
+    kernels.launch("contexts_boundary", dict(S=S, R=R, n_ctx=meta.n_ctx, NI=NI, NSK=NSK, NR=NR, NIH=NIH,
+                                             ih_total=meta.ih_total), tensors)
 
 
 def match_kernel(stm: Dict, ltm: Dict, plan) -> torch.Tensor:
@@ -227,22 +188,14 @@ def match_kernel(stm: Dict, ltm: Dict, plan) -> torch.Tensor:
     S, NM = stm["match_ptr"].shape
     H = meta.history_size
     match_ix = torch.empty((S, NM), dtype=I64, device=stm["match_ptr"].device)
-    args = _MatchArgs(S=S, NM=NM, n_ctx=meta.n_ctx, match_total=meta.match_total, history_size=H)
     tensors = {"match_ptr": (stm["match_ptr"], (S, NM), I64), "new_bit": (stm["new_bit"], (S,), I64),
                "hist_n": (stm["hist_n"], (S,), I64), "ctx": (stm["ctx"], (S, meta.n_ctx), I64),
                "match_byte": (stm["match_byte"], (S, NM), I64), "match_len": (stm["match_len"], (S, NM), I32),
                "match_tbl": (ltm["match_tbl"], (S, meta.match_total), I32), "hist": (ltm["hist"], (S, H), torch.uint8),
                "match_ix": (match_ix, (S, NM), I64), "consts": (plan.match_consts, (3 * NM,), I64)}
-    _launch("match_pointer", "gmix_match_pointer", args, _fill("match_pointer", args, tensors))
+    kernels.launch("match_pointer", dict(S=S, NM=NM, n_ctx=meta.n_ctx, match_total=meta.match_total, history_size=H),
+                   tensors)
     return match_ix
-
-
-def prepare(device) -> None:
-    """Load both kernels on `device` (a CUDA device), as their first launch
-    would, before a CUDA graph capture records a launch."""
-    lib = load_kernels()
-    with torch.cuda.device(torch.device(device)):
-        check_launch(lib, lib.gmix_contexts_prepare(), "contexts prepare")
 
 
 def boundary_contexts(stm: Dict, t: torch.Tensor, plan) -> None:
@@ -253,7 +206,6 @@ def boundary_contexts(stm: Dict, t: torch.Tensor, plan) -> None:
         boundary_plain(stm, t, plan)
         return
     boundary_kernel(stm, t, plan)
-    obs.launched("contexts_boundary")
 
 
 def match_pointers(stm: Dict, ltm: Dict, plan) -> torch.Tensor:
@@ -261,6 +213,4 @@ def match_pointers(stm: Dict, ltm: Dict, plan) -> torch.Tensor:
     version on CPU tensors; returns `match_ix`."""
     if stm["ctx"].device.type == "cpu":
         return match_plain(stm, ltm, plan)
-    out = match_kernel(stm, ltm, plan)
-    obs.launched("match_pointer")
-    return out
+    return match_kernel(stm, ltm, plan)

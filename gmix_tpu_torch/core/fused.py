@@ -49,10 +49,10 @@ import torch
 
 from .. import obs
 from ..ops import coder as coder_ops
+from ..ops import kernels
 from ..ops.murmur import MASK32
 from ..ops.sigmoid import clamp_prob, logistic, logit, pow_det, rdiv
 from ..ops.tables import nonstationary_table, run_map_table
-from ..utils.build import check_launch, load_kernels
 from .meta import APM_BINS, APM_SPAN, Meta, analysis_names
 
 F32 = torch.float32
@@ -839,19 +839,6 @@ CLOCK_SIDE = ("prep_rows", "prep_done", "learn_models_done", "learn_rows_done")
 CLOCK_COLS = CLOCK_SUBSTEP + CLOCK_LAUNCH + CLOCK_SIDE
 
 
-def _check_tensor(name: str, t: torch.Tensor, shape, dtype, dev) -> None:
-    if t.device != dev:
-        raise ValueError(f"fused_substeps: {name} on {t.device}, expected {dev}")
-    if t.dtype != dtype:
-        raise ValueError(f"fused_substeps: {name} is {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"fused_substeps: {name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"fused_substeps: {name} must be contiguous")
-    if t.data_ptr() % 16:
-        raise ValueError(f"fused_substeps: {name} must be 16-byte aligned")
-
-
 class _LaunchPlan:
     """What a launch needs that does not change from byte to byte, for one
     (consts, learn, analysis, sample, S, device): the sizes, the io struct
@@ -867,32 +854,29 @@ class _LaunchPlan:
         ins, outs = io_layout(meta, learn, analysis, sample)
         self.io = _FusedIO()
         self.stream_ins = []  # (slot, name, shape, dtype)
+        fixed = {}  # the constants: (tensor, shape, dtype) by name
         for name, tail, dtype, kind in ins:
             if kind == "s" or name in CALL_INPUTS:
                 full = (S,) + tail if kind == "s" else tail
                 self.stream_ins.append((_IN_AT[name], name, torch.Size(full), dtype))
             else:
-                _check_tensor(name, consts[name], tail, dtype, dev)
-                self.io[_IN_AT[name]] = consts[name].data_ptr()
+                fixed[name] = (consts[name], tail, dtype)
         for name, dtype in (("desc_i", I32), ("desc_f", F32)):
-            t = consts[name]
-            _check_tensor(name, t, t.shape, dtype, dev)
+            fixed[name] = (consts[name], consts[name].shape, dtype)
+        kernels.check("fused_substeps", fixed, aligned=tuple(fixed), dev=dev)
+        for name, (t, _, _) in fixed.items():
             self.io[_IN_AT[name]] = t.data_ptr()
         self.outs = [(_OUT_AT[name], name, (S,) + tail, dtype) for name, tail, dtype, _ in outs]
         self.dims = _FusedDims(S=S, learn=int(learn), analysis=int(analysis), sample=int(sample),
                                **{n: d[n] for n in _DIM_SLOTS if n in d})
         self.dims_ref, self.io_ref = ctypes.byref(self.dims), ctypes.byref(self.io)
-        self.dev = dev
-        self.lib = load_kernels()
         # which of the kernel's instantiations these sizes take
-        picked = (ctypes.c_int64 * 3)()
-        check_launch(self.lib, self.lib.gmix_fused_substeps_plan(self.dims_ref, picked), "fused_substeps")
-        self.instantiation = {"lane_groups": int(picked[0]), "tables_in_shared_memory": bool(picked[1]),
-                              "shared_bytes": int(picked[2])}
+        groups, shared_tables, shared_bytes = kernels.fused_plan(self.dims_ref)
+        self.instantiation = {"lane_groups": groups, "tables_in_shared_memory": bool(shared_tables),
+                              "shared_bytes": shared_bytes}
         # the shared-memory opt-in on this device now, not at the first
         # launch: a CUDA graph capture records the launch and runs nothing
-        with torch.cuda.device(dev):
-            check_launch(self.lib, self.lib.gmix_fused_substeps_prepare(self.dims_ref), "fused_substeps")
+        kernels.fused_prepare(dev, self.dims_ref)
 
 
 def _launch_plan(meta, consts, learn: bool, analysis: bool, sample: bool, S: int, dev) -> _LaunchPlan:
@@ -904,30 +888,29 @@ def _launch_plan(meta, consts, learn: bool, analysis: bool, sample: bool, S: int
 
 
 def _launch(meta, consts, fin, learn: bool, analysis: bool, sample: bool, clocks: bool):
-    dev = fin["sc"].device
-    if dev.type != "cuda":
-        raise ValueError(f"fused_substeps: inputs on {dev}, expected a CUDA or CPU tensor")
+    """The launch's plan and io filled with this call's inputs (checked) and
+    fresh outputs; the kernel (or with `clocks` its clocks instantiation)
+    launched. Returns (outputs, clocks or None)."""
+    dev = kernels.cuda_device("fused_substeps", "sc", fin["sc"])
     plan = _launch_plan(meta, consts, learn, analysis, sample, fin["sc"].shape[0], dev)
     io = plan.io
-    for slot, name, shape, dtype in plan.stream_ins:
-        t = fin[name]
-        ptr = t.data_ptr()
-        if t.device != dev or t.dtype != dtype or t.shape != shape or ptr % 16 or not t.is_contiguous():
-            _check_tensor(name, t, shape, dtype, dev)  # names what is wrong
-        io[slot] = ptr
+    ins = {name: (fin[name], shape, dtype) for _, name, shape, dtype in plan.stream_ins}
+    kernels.check("fused_substeps", ins, aligned=tuple(ins), dev=dev)
+    for slot, name, _, _ in plan.stream_ins:
+        io[slot] = fin[name].data_ptr()
     fo: Dict[str, torch.Tensor] = {}
     for slot, name, shape, dtype in plan.outs:
         fo[name] = t = torch.empty(shape, dtype=dtype, device=dev)
         io[slot] = t.data_ptr()
-    clk = None
-    if clocks:
-        clk = torch.zeros((fin["sc"].shape[0], 8, len(CLOCK_COLS)), dtype=I64, device=dev)
-        io[_OUT_AT["clocks"]] = clk.data_ptr()
-    fn = plan.lib.gmix_fused_substeps_clocks if clocks else plan.lib.gmix_fused_substeps
-    with torch.cuda.device(dev):
-        rc = fn(plan.dims_ref, plan.io_ref, torch.cuda.current_stream(dev).cuda_stream)
-    io[_OUT_AT["clocks"]] = None
-    check_launch(plan.lib, rc, "fused_substeps")
+    if not clocks:
+        kernels.call("fused_substeps", dev, plan.dims_ref, plan.io_ref)
+        return fo, None
+    clk = torch.zeros((fin["sc"].shape[0], 8, len(CLOCK_COLS)), dtype=I64, device=dev)
+    io[_OUT_AT["clocks"]] = clk.data_ptr()
+    try:
+        kernels.fused_clocks(dev, plan.dims_ref, plan.io_ref)
+    finally:
+        io[_OUT_AT["clocks"]] = None
     return fo, clk
 
 
@@ -944,9 +927,7 @@ def fused_substeps(meta: Meta, consts: Dict[str, torch.Tensor], fin: Dict[str, t
     kept on `consts`."""
     if fin["sc"].device.type == "cpu":
         return fused_substeps_plain(meta, consts, fin, learn, analysis, sample)
-    fo, _ = _launch(meta, consts, fin, learn, analysis, sample, clocks=False)
-    obs.launched("fused_substeps")
-    return fo
+    return _launch(meta, consts, fin, learn, analysis, sample, clocks=False)[0]
 
 
 def fused_substeps_clocks(meta: Meta, consts: Dict[str, torch.Tensor], fin: Dict[str, torch.Tensor],

@@ -46,15 +46,14 @@ no kernel.
 """
 from __future__ import annotations
 
-import ctypes
 from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from .. import obs
+from ..ops import kernels
 from ..ops.sigmoid import exp_det, logistic, powc_det, rdiv, sqrt_det, tanh_det
-from ..utils.build import check_launch, load_kernels
 
 F32 = torch.float32
 I32 = torch.int32
@@ -312,26 +311,6 @@ def lstm_perceive_plain(stm: Dict, ltm: Dict, inp: torch.Tensor, lp: LstmPlan, w
 # kMaxCluster
 MAX_INPUT, MAX_HIDDEN, MAX_OUT, MAX_DYNAMIC_SMEM, MAX_CLUSTER = 512, 64, 256, 204800, 8
 
-_FORWARD_PTRS = ("epoch", "aux", "sym", "w_sym", "w_in", "gamma", "beta", "out_w", "mid", "cell", "hidden", "probs",
-                 "top", "bot", "regs", "layer_input", "norm", "ivar", "gate_state", "tanh_state", "in_gate",
-                 "last_state", "outputs", "ctx", "done")
-_PERCEIVE_PTRS = ("epoch", "inp", "outputs", "hidden", "out_w", "in_hist")
-
-
-class _ForwardArgs(ctypes.Structure):
-    """GmixLstmForwardArgs of csrc/lstm.cu."""
-
-    _fields_ = [(n, ctypes.c_void_p) for n in _FORWARD_PTRS] + \
-               [(n, ctypes.c_int64) for n in ("S", "C", "Hz", "IN", "OUT", "n_ctx", "ctx_slot", "cluster")]
-
-
-class _PerceiveArgs(ctypes.Structure):
-    """GmixLstmPerceiveArgs of csrc/lstm.cu."""
-
-    _fields_ = [(n, ctypes.c_void_p) for n in _PERCEIVE_PTRS] + \
-               [(n, ctypes.c_int64) for n in ("S", "C", "Hz", "OUT", "record", "inp_stride")] + \
-               [("lr", ctypes.c_float)]
-
 
 def forward_cluster(S: int, ls, sm_count: int) -> int:
     """The blocks a stream of the forward kernel: the most (a power of two,
@@ -359,30 +338,6 @@ def _check_shapes(what: str, ls) -> None:
                          f"and up to {MAX_OUT} outputs, a multiple of 4; got {C}, {LI} and {OUT}")
 
 
-def _fill(what: str, args: ctypes.Structure, tensors: Dict[str, Tuple[torch.Tensor, tuple, torch.dtype]]) -> torch.device:
-    """Check `tensors` (name: (tensor, shape, dtype)) and set their pointers
-    in `args`: every one a contiguous CUDA tensor on one device; w_in and
-    out_w, which the kernels read 16 bytes at a time, 16-byte aligned."""
-    dev = next(iter(tensors.values()))[0].device
-    if dev.type != "cuda":
-        raise ValueError(f"{what}: the state is on {dev}, expected a CUDA device (the plain version runs on the CPU)")
-    for name, (t, shape, dtype) in tensors.items():
-        if t.device != dev or t.dtype != dtype or tuple(t.shape) != shape or not t.is_contiguous():
-            raise ValueError(f"{what}: {name} is {tuple(t.shape)} {t.dtype} on {t.device} (contiguous: "
-                             f"{t.is_contiguous()}), expected {shape} {dtype} on {dev}, contiguous")
-        if name in ("w_in", "out_w") and t.data_ptr() % 16:
-            raise ValueError(f"{what}: {name} is not 16-byte aligned")
-        setattr(args, name, t.data_ptr())
-    return dev
-
-
-def _launch(what: str, entry: str, args: ctypes.Structure, dev: torch.device) -> None:
-    lib = load_kernels()
-    with torch.cuda.device(dev):
-        rc = getattr(lib, entry)(ctypes.byref(args), torch.cuda.current_stream(dev).cuda_stream)
-    check_launch(lib, rc, what)
-
-
 def lstm_forward_kernel(stm: Dict, ltm: Dict, lp: LstmPlan, lstm_ctx_slot: int,
                         cluster: Optional[int] = None) -> torch.Tensor:
     """`lstm_forward_plain` as one launch of csrc/lstm.cu's forward kernel,
@@ -394,7 +349,7 @@ def lstm_forward_kernel(stm: Dict, ltm: Dict, lp: LstmPlan, lstm_ctx_slot: int,
     C, Hz, IN, OUT = ls.num_cells, ls.horizon, ls.input_size, ls.output_size
     LI, S = IN + C + 1, lp.S
     lst, lw = stm["lstm"], ltm["lstm"]
-    dev = lst["cell"].device
+    dev = kernels.cuda_device("lstm_forward", "cell", lst["cell"])
     n_ctx = stm["ctx"].shape[1]
     regs = torch.empty((S, 4), dtype=I32, device=dev)
     tensors = {
@@ -410,12 +365,10 @@ def lstm_forward_kernel(stm: Dict, ltm: Dict, lp: LstmPlan, lstm_ctx_slot: int,
         "in_gate": (lst["in_gate"], (S, Hz, C), F32), "last_state": (lst["last_state"], (S, Hz, C), F32),
         "outputs": (lst["outputs"], (S, Hz, OUT), F32), "ctx": (stm["ctx"], (S, n_ctx), I64),
         "done": (lp.done, (), I32)}
-    args = _ForwardArgs(S=S, C=C, Hz=Hz, IN=IN, OUT=OUT, n_ctx=n_ctx, ctx_slot=lstm_ctx_slot)
-    dev = _fill("lstm_forward", args, tensors)
     if cluster is None:
         cluster = forward_cluster(S, ls, torch.cuda.get_device_properties(dev).multi_processor_count)
-    args.cluster = cluster
-    _launch("lstm_forward", "gmix_lstm_forward", args, dev)
+    kernels.launch("lstm_forward", dict(S=S, C=C, Hz=Hz, IN=IN, OUT=OUT, n_ctx=n_ctx, ctx_slot=lstm_ctx_slot,
+                                        cluster=cluster), tensors, aligned=("w_in", "out_w"))
     return regs
 
 
@@ -429,24 +382,11 @@ def lstm_perceive_kernel(stm: Dict, ltm: Dict, inp: torch.Tensor, lp: LstmPlan, 
     lst, lw = stm["lstm"], ltm["lstm"]
     tensors = {"epoch": (lst["epoch"], (), I32), "outputs": (lst["outputs"], (S, Hz, OUT), F32),
                "hidden": (lst["hidden"], (S, C + 1), F32), "out_w": (lw["out_w"], (S, Hz, C + 1, OUT), F32),
-               "in_hist": (lst["in_hist"], (S, Hz), I32)}
-    args = _PerceiveArgs(S=S, C=C, Hz=Hz, OUT=OUT, record=int(record), lr=lp.lr)
-    dev = _fill("lstm_perceive", args, tensors)
-    # the byte end's completed byte is a column of the sub-steps' outputs
-    if inp.device != dev or inp.dtype != I64 or tuple(inp.shape) != (S,):
-        raise ValueError(f"lstm_perceive: inp is {tuple(inp.shape)} {inp.dtype} on {inp.device}, expected {(S,)} "
-                         f"{I64} on {dev}")
-    args.inp, args.inp_stride = inp.data_ptr(), inp.stride(0)
-    _launch("lstm_perceive", "gmix_lstm_perceive", args, dev)
-
-
-def prepare(device) -> None:
-    """Load both kernels on `device` (a CUDA device) and raise the forward
-    kernel's shared-memory limit there, as their first launch would, before
-    a CUDA graph capture records a launch."""
-    lib = load_kernels()
-    with torch.cuda.device(torch.device(device)):
-        check_launch(lib, lib.gmix_lstm_prepare(), "lstm prepare")
+               "in_hist": (lst["in_hist"], (S, Hz), I32),
+               # the byte end's completed byte: a column of the sub-steps' outputs
+               "inp": (inp, (S,), I64)}
+    kernels.launch("lstm_perceive", dict(S=S, C=C, Hz=Hz, OUT=OUT, record=int(record), inp_stride=inp.stride(0),
+                                         lr=lp.lr), tensors, aligned=("out_w",), strided=("inp",))
 
 
 @obs.in_part("lstm")
@@ -456,9 +396,7 @@ def _lstm_forward(stm: Dict, ltm: Dict, lp: LstmPlan, lstm_ctx_slot: int) -> tor
     registers (S, 4) int32."""
     if stm["ctx"].device.type == "cpu":
         return lstm_forward_plain(stm, ltm, lp, lstm_ctx_slot)
-    regs = lstm_forward_kernel(stm, ltm, lp, lstm_ctx_slot)
-    obs.launched("lstm_forward")
-    return regs
+    return lstm_forward_kernel(stm, ltm, lp, lstm_ctx_slot)
 
 
 @obs.in_part("lstm")
@@ -475,4 +413,3 @@ def _lstm_perceive(stm: Dict, ltm: Dict, inp: torch.Tensor, lp: LstmPlan, wrap: 
         if bptt:
             _lstm_bptt(stm["lstm"], ltm["lstm"], lp)
     lstm_perceive_kernel(stm, ltm, inp, lp, record=not wrap)
-    obs.launched("lstm_perceive")

@@ -34,16 +34,15 @@ does differently changes no bit:
 """
 from __future__ import annotations
 
-import ctypes
 from typing import Dict, Tuple
 
 import numpy as np
 import torch
 
 from .. import obs
+from ..ops import kernels
 from ..ops.rowmove import gather_rows, scatter_rows
 from ..ops.sigmoid import logistic, logit
-from ..utils.build import check_launch, load_kernels
 from .fused import _FLT_MIN, _tree_sum
 from .meta import PPM_ROW_W, PPM_TAG_LANE
 
@@ -197,38 +196,18 @@ def ppm_predict_plain(raw_rows: torch.Tensor, cv: torch.Tensor, see: torch.Tenso
 # the most orders and escape buckets the kernels take (csrc/ppm.cu:
 # kMaxOrders, kMaxBuckets)
 MAX_ORDERS, MAX_BUCKETS = 16, 64
-_PTRS = ("raw", "cv", "completed", "see", "rows_out", "see_out", "probs", "top", "bot")
-_INTS = ("S", "NO", "NB", "inc", "rescale_total", "exclusion", "update_exclusion")
 
 
-class _PpmArgs(ctypes.Structure):
-    """GmixPpmArgs of csrc/ppm.cu."""
-
-    _fields_ = [(n, ctypes.c_void_p) for n in _PTRS] + [(n, ctypes.c_int64) for n in _INTS] + [("see_lr", ctypes.c_float)]
-
-
-def _launch(what: str, entry: str, plan, tensors: Dict[str, Tuple[torch.Tensor, tuple, torch.dtype]]) -> None:
-    """One launch of the kernel `entry` (its C function) on the CUDA tensors
-    `tensors` (name: (tensor, shape, dtype)), checked first."""
+def _args(what: str, plan) -> Dict:
+    """The kernels' scalar arguments, the spec's orders and escape buckets
+    checked against their limits."""
     sp = plan.meta.spec.ppm
-    dev = tensors["raw"][0].device
-    if dev.type != "cuda":
-        raise ValueError(f"{what}: rows on {dev}, expected a CUDA or CPU tensor")
     if not (1 <= len(sp.orders) <= MAX_ORDERS and 1 <= sp.see_buckets <= MAX_BUCKETS):
         raise ValueError(f"{what}: the kernel takes 1 to {MAX_ORDERS} orders and 1 to {MAX_BUCKETS} escape buckets, "
                          f"got {len(sp.orders)} and {sp.see_buckets}")
-    args = _PpmArgs(S=tensors["raw"][0].shape[0], NO=len(sp.orders), NB=sp.see_buckets, inc=sp.inc,
-                    rescale_total=sp.rescale_total, exclusion=int(sp.exclusion),
-                    update_exclusion=int(sp.update_exclusion), see_lr=float(np.float32(sp.see_lr)))
-    for name, (t, shape, dtype) in tensors.items():
-        if t.device != dev or t.dtype != dtype or tuple(t.shape) != shape or not t.is_contiguous():
-            raise ValueError(f"{what}: {name} is {tuple(t.shape)} {t.dtype} on {t.device} (contiguous: "
-                             f"{t.is_contiguous()}), expected {shape} {dtype} on {dev}, contiguous")
-        setattr(args, name, t.data_ptr())
-    lib = load_kernels()
-    with torch.cuda.device(dev):
-        rc = getattr(lib, entry)(ctypes.byref(args), torch.cuda.current_stream(dev).cuda_stream)
-    check_launch(lib, rc, what)
+    return dict(NO=len(sp.orders), NB=sp.see_buckets, inc=sp.inc, rescale_total=sp.rescale_total,
+                exclusion=int(sp.exclusion), update_exclusion=int(sp.update_exclusion),
+                see_lr=float(np.float32(sp.see_lr)))
 
 
 def ppm_update_kernel(raw_rows: torch.Tensor, cv: torch.Tensor, completed: torch.Tensor, see: torch.Tensor,
@@ -237,7 +216,7 @@ def ppm_update_kernel(raw_rows: torch.Tensor, cv: torch.Tensor, completed: torch
     CUDA tensors."""
     S, NO = cv.shape
     rows_out, see_out = torch.empty_like(raw_rows), torch.empty_like(see)
-    _launch("ppm_update", "gmix_ppm_update", plan, {
+    kernels.launch("ppm_update", dict(S=S, **_args("ppm_update", plan)), {
         "raw": (raw_rows, (S, NO, PPM_ROW_W), I16), "cv": (cv, (S, NO), I64), "completed": (completed, (S,), I64),
         "see": (see, (S, NO, plan.meta.spec.ppm.see_buckets), F32), "rows_out": (rows_out, (S, NO, PPM_ROW_W), I16),
         "see_out": (see_out, tuple(see.shape), F32)})
@@ -252,19 +231,11 @@ def ppm_predict_kernel(raw_rows: torch.Tensor, cv: torch.Tensor, see: torch.Tens
     dev = raw_rows.device
     p = torch.empty((S, 256), dtype=F32, device=dev)
     top, bot = torch.empty((S,), dtype=I32, device=dev), torch.empty((S,), dtype=I32, device=dev)
-    _launch("ppm_predict", "gmix_ppm_predict", plan, {
+    kernels.launch("ppm_predict", dict(S=S, **_args("ppm_predict", plan)), {
         "raw": (raw_rows, (S, NO, PPM_ROW_W), I16), "cv": (cv, (S, NO), I64),
         "see": (see, (S, NO, plan.meta.spec.ppm.see_buckets), F32), "probs": (p, (S, 256), F32),
         "top": (top, (S,), I32), "bot": (bot, (S,), I32)})
     return p, top, bot
-
-
-def prepare(device) -> None:
-    """Load both kernels on `device` (a CUDA device), as their first launch
-    would, before a CUDA graph capture records a launch."""
-    lib = load_kernels()
-    with torch.cuda.device(torch.device(device)):
-        check_launch(lib, lib.gmix_ppm_prepare(), "ppm prepare")
 
 
 def ppm_update_rows(raw_rows: torch.Tensor, cv: torch.Tensor, completed: torch.Tensor, see: torch.Tensor,
@@ -274,9 +245,7 @@ def ppm_update_rows(raw_rows: torch.Tensor, cv: torch.Tensor, completed: torch.T
     version on CPU tensors."""
     if raw_rows.device.type == "cpu":
         return ppm_update_plain(raw_rows, cv, completed, see, plan)
-    out = ppm_update_kernel(raw_rows, cv, completed, see, plan)
-    obs.launched("ppm_update")
-    return out
+    return ppm_update_kernel(raw_rows, cv, completed, see, plan)
 
 
 def ppm_predict_probs(raw_rows: torch.Tensor, cv: torch.Tensor, see: torch.Tensor,
@@ -286,9 +255,7 @@ def ppm_predict_probs(raw_rows: torch.Tensor, cv: torch.Tensor, see: torch.Tenso
     tensors."""
     if raw_rows.device.type == "cpu":
         return ppm_predict_plain(raw_rows, cv, see, plan)
-    out = ppm_predict_kernel(raw_rows, cv, see, plan)
-    obs.launched("ppm_predict")
-    return out
+    return ppm_predict_kernel(raw_rows, cv, see, plan)
 
 
 @obs.in_part("ppm")

@@ -60,7 +60,7 @@ import numpy as np
 import torch
 
 from .. import obs
-from ..ops import rowmove as _rowmove
+from ..ops import kernels
 from ..ops.murmur import MASK32
 from ..ops.rowmove import gather_rows, gather_rows_many, scatter_rows_many
 from . import fused as _fused
@@ -76,9 +76,6 @@ from .fused import (  # noqa: F401  (_tri_solve: held against gmix_tpu's by the 
 from .lstm import LstmPlan, _lstm_bptt, _lstm_forward, _lstm_perceive
 from .contexts import boundary_contexts, boundary_table, match_pointers, match_table
 from .meta import Meta
-from . import contexts as _contexts
-from . import lstm as _lstm
-from . import ppm as _ppm
 from .ppm import _ppm_index, _ppm_predict, _ppm_update
 
 I32 = torch.int32
@@ -584,12 +581,7 @@ class CapturedStep:
     the capture's seconds and the replays so far."""
 
     def __init__(self, plan: StepPlan, body: Callable[[], None], variant: str):
-        _rowmove.prepare(plan.device)
-        _contexts.prepare(plan.device)
-        if plan.meta.spec.ppm is not None:
-            _ppm.prepare(plan.device)
-        if plan.meta.spec.lstm is not None:
-            _lstm.prepare(plan.device)
+        kernels.prepare(plan.device)
         pool, stream = plan.graph_pool()
         self.graph = torch.cuda.CUDAGraph()
         t0 = time.perf_counter()

@@ -3,8 +3,8 @@
 Port of `gmix_tpu.ops.rowmove`. The byte step moves a few dozen rows per
 stream per byte between the arenas and its working sets (indirect blocks,
 mixer rows, position blocks, APM rows; see core/step.py). On a CUDA tensor
-each mover launches its hand-written kernel (csrc/rowmove.cu, built by
-utils/build.py) or raises; on a CPU tensor it runs the plain torch version
+each mover launches its hand-written kernel (csrc/rowmove.cu, called
+through ops/kernels.py) or raises; on a CPU tensor it runs the plain torch version
 beside it. The kernels only move bytes, so both give the same bits.
 
 A launch costs more than the bytes it moves (csrc/rowmove.cu), so each mover
@@ -23,8 +23,7 @@ from typing import List, Sequence, Tuple
 
 import torch
 
-from .. import obs
-from ..utils.build import check_launch, load_kernels
+from . import kernels
 
 # the most arenas one grouped launch takes (csrc/rowmove.cu: kMaxArenas)
 MAX_ARENAS = 8
@@ -57,49 +56,29 @@ def scatter_rows_many_plain(triples: Sequence[Tuple[torch.Tensor, torch.Tensor, 
     return [scatter_rows_plain(tbl, idx, upd) for tbl, idx, upd in triples]
 
 
-def _check_cuda(what: str, tbl: torch.Tensor, idx: torch.Tensor, rows: torch.Tensor) -> None:
-    """Validate what the kernel takes; raise on anything else."""
-    if tbl.device.type != "cuda":
-        raise ValueError(f"{what}: table on {tbl.device}, expected a CUDA or CPU tensor")
-    if idx.device != tbl.device or rows.device != tbl.device:
-        raise ValueError(f"{what}: table, indices and rows must share one device")
-    if idx.dtype != torch.int32:
-        raise ValueError(f"{what}: indices must be int32, got {idx.dtype}")
-    if rows.dtype != tbl.dtype:
-        raise ValueError(f"{what}: rows are {rows.dtype}, table is {tbl.dtype}")
-    if tbl.dim() != 3 or idx.dim() != 2 or idx.shape[0] != tbl.shape[0]:
-        raise ValueError(f"{what}: expected tbl (S, N, W) and idx (S, M), got {tuple(tbl.shape)} / {tuple(idx.shape)}")
-    S, M, W = tbl.shape[0], idx.shape[1], tbl.shape[2]
-    if tuple(rows.shape) != (S, M, W):
-        raise ValueError(f"{what}: rows {tuple(rows.shape)} != {(S, M, W)}")
-    for name, t in (("table", tbl), ("indices", idx), ("rows", rows)):
-        if not t.is_contiguous():
-            raise ValueError(f"{what}: {name} must be contiguous")
-        if t.data_ptr() % 16:
-            raise ValueError(f"{what}: {name} must be 16-byte aligned")
-    if (W * tbl.element_size()) % 16:
-        raise ValueError(f"{what}: row width {W * tbl.element_size()} B is not a multiple of 16")
-
-
-def _launch(what: str, entry: str, arenas) -> None:
-    """One launch of a grouped mover (`entry`: the C function) on CUDA
-    tensors: `arenas` is a list of (table, indices, packed rows)."""
+def _launch(wrapper: str, arenas) -> None:
+    """One launch of a grouped mover on CUDA tensors: `arenas` is a list of
+    (table, indices, packed rows), each checked (ops/kernels.py `check`)."""
     if not 1 <= len(arenas) <= MAX_ARENAS:
-        raise ValueError(f"{what}: one launch takes 1 to {MAX_ARENAS} arenas, got {len(arenas)}")
+        raise ValueError(f"{wrapper}: one launch takes 1 to {MAX_ARENAS} arenas, got {len(arenas)}")
     dev = arenas[0][0].device
     for tbl, _, _ in arenas:
         if tbl.device != dev:
-            raise ValueError(f"{what}: every arena must lie on one device, got {tbl.device} and {dev}")
+            raise ValueError(f"{wrapper}: every arena must lie on one device, got {tbl.device} and {dev}")
     desc = (ctypes.c_int64 * (_ARENA_FIELDS * len(arenas)))()
     for a, (tbl, idx, rows) in enumerate(arenas):
-        _check_cuda(what, tbl, idx, rows)
+        if tbl.dim() != 3 or idx.dim() != 2 or idx.shape[0] != tbl.shape[0]:
+            raise ValueError(f"{wrapper}: expected tbl (S, N, W) and idx (S, M), got {tuple(tbl.shape)} / "
+                             f"{tuple(idx.shape)}")
         S, N, W = tbl.shape
+        M = idx.shape[1]
+        kernels.check(wrapper, {"table": (tbl, (S, N, W), tbl.dtype), "indices": (idx, (S, M), torch.int32),
+                                "rows": (rows, (S, M, W), tbl.dtype)}, aligned=("table", "indices", "rows"))
+        if (W * tbl.element_size()) % 16:
+            raise ValueError(f"{wrapper}: row width {W * tbl.element_size()} B is not a multiple of 16")
         desc[a * _ARENA_FIELDS : (a + 1) * _ARENA_FIELDS] = (
-            tbl.data_ptr(), idx.data_ptr(), rows.data_ptr(), S, N, idx.shape[1], W * tbl.element_size())
-    lib = load_kernels()
-    with torch.cuda.device(dev):
-        rc = getattr(lib, entry)(desc, len(arenas), torch.cuda.current_stream(dev).cuda_stream)
-    check_launch(lib, rc, what)
+            tbl.data_ptr(), idx.data_ptr(), rows.data_ptr(), S, N, M, W * tbl.element_size())
+    kernels.call(wrapper, dev, desc, len(arenas))
 
 
 def _gather_launch(what: str, pairs) -> List[torch.Tensor]:
@@ -110,7 +89,7 @@ def _gather_launch(what: str, pairs) -> List[torch.Tensor]:
             raise ValueError(f"{what}: expected tbl (S, N, W) and idx (S, M), got {tuple(tbl.shape)} / {tuple(idx.shape)}")
         out = torch.empty((tbl.shape[0], idx.shape[1], tbl.shape[2]), dtype=tbl.dtype, device=pairs[0][0].device)
         arenas.append((tbl, idx, out))
-    _launch(what, "gmix_gather_rows_many", arenas)
+    _launch(what, arenas)
     return [out for _, _, out in arenas]
 
 
@@ -122,9 +101,7 @@ def gather_rows_many(pairs: Sequence[Tuple[torch.Tensor, torch.Tensor]]) -> List
         return []
     if all(tbl.device.type == "cpu" for tbl, _ in pairs):
         return gather_rows_many_plain(pairs)
-    outs = _gather_launch("gather_rows_many", pairs)
-    obs.launched("gather_rows_many")
-    return outs
+    return _gather_launch("gather_rows_many", pairs)
 
 
 def gather_rows(tbl: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -132,9 +109,7 @@ def gather_rows(tbl: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     one arena), plain on CPU."""
     if tbl.device.type == "cpu":
         return gather_rows_plain(tbl, idx)
-    out = _gather_launch("gather_rows", [(tbl, idx)])[0]
-    obs.launched("gather_rows")
-    return out
+    return _gather_launch("gather_rows", [(tbl, idx)])[0]
 
 
 def scatter_rows_many(triples: Sequence[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]) -> List[torch.Tensor]:
@@ -148,8 +123,7 @@ def scatter_rows_many(triples: Sequence[Tuple[torch.Tensor, torch.Tensor, torch.
         return []
     if all(tbl.device.type == "cpu" for tbl, _, _ in triples):
         return scatter_rows_many_plain(triples)
-    _launch("scatter_rows_many", "gmix_scatter_rows_many", triples)
-    obs.launched("scatter_rows_many")
+    _launch("scatter_rows_many", triples)
     return [tbl for tbl, _, _ in triples]
 
 
@@ -158,25 +132,5 @@ def scatter_rows(tbl: torch.Tensor, idx: torch.Tensor, upd: torch.Tensor) -> tor
     tbl. The kernel on CUDA (a group of one arena), plain on CPU."""
     if tbl.device.type == "cpu":
         return scatter_rows_plain(tbl, idx, upd)
-    _launch("scatter_rows", "gmix_scatter_rows_many", [(tbl, idx, upd)])
-    obs.launched("scatter_rows")
+    _launch("scatter_rows", [(tbl, idx, upd)])
     return tbl
-
-
-def prepare(device) -> None:
-    """Load the movers' kernels on `device` (a CUDA device), as their first
-    launch would, before a CUDA graph capture records a launch."""
-    lib = load_kernels()
-    with torch.cuda.device(torch.device(device)):
-        check_launch(lib, lib.gmix_rowmove_prepare(), "rowmove prepare")
-
-
-def empty_launch(device) -> None:
-    """Launch the library's empty kernel on `device`'s current stream: the
-    device-side cost of a launch, for measurement beside the movers' times."""
-    dev = torch.device(device)
-    lib = load_kernels()
-    with torch.cuda.device(dev):
-        rc = lib.gmix_empty_launch(torch.cuda.current_stream(dev).cuda_stream)
-    check_launch(lib, rc, "empty_launch")
-

@@ -1,5 +1,5 @@
-"""Build the port's CUDA kernels and load them through ctypes; build the
-preprocessors' host libraries (`build_host_library`).
+"""Build the port's CUDA kernels (ops/kernels.py loads them through ctypes);
+build the preprocessors' host libraries (`build_host_library`).
 
 `gmix_tpu_torch/csrc/*.cu` compile with `nvcc` for `sm_90a`, one process per
 object and all at once, and link into one shared library with a plain C
@@ -12,14 +12,12 @@ is built on first use, never at import.
 """
 from __future__ import annotations
 
-import ctypes
 import hashlib
 import os
 import subprocess
 import time
 from dataclasses import dataclass
 from pathlib import Path
-from typing import Optional
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC_DIR = _PKG / "csrc"
@@ -132,70 +130,3 @@ def build_host_library(src: Path, name: str) -> Path:
     finally:
         tmp.unlink(missing_ok=True)
     return lib
-
-
-_lib: Optional[ctypes.CDLL] = None
-
-
-def load_kernels() -> ctypes.CDLL:
-    """Build if needed, load once per process, and declare the C signatures."""
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build().path))
-        ptr = ctypes.c_void_p
-        # (GmixRowArena* of 7 8-byte fields per arena, arenas, stream);
-        # ops/rowmove.py fills the array
-        for name in ("gmix_gather_rows_many", "gmix_scatter_rows_many"):
-            fn = getattr(lib, name)
-            fn.argtypes = [ptr, ctypes.c_int, ptr]
-            fn.restype = ctypes.c_int
-        lib.gmix_empty_launch.argtypes = [ptr]
-        lib.gmix_empty_launch.restype = ctypes.c_int
-        lib.gmix_rowmove_prepare.argtypes = []
-        lib.gmix_rowmove_prepare.restype = ctypes.c_int
-        # (FusedDims* of int64 sizes, FusedIO* of device pointers, stream);
-        # core/fused.py declares the two structures
-        for name in ("gmix_fused_substeps", "gmix_fused_substeps_clocks"):
-            fn = getattr(lib, name)
-            fn.argtypes = [ptr, ptr, ptr]
-            fn.restype = ctypes.c_int
-        # (FusedDims*, int64[3] out: Q, tables in shared memory, shared bytes)
-        lib.gmix_fused_substeps_plan.argtypes = [ptr, ptr]
-        lib.gmix_fused_substeps_plan.restype = ctypes.c_int
-        # (FusedDims*): the instantiation's shared-memory opt-in on the
-        # current device, before a CUDA graph capture
-        lib.gmix_fused_substeps_prepare.argtypes = [ptr]
-        lib.gmix_fused_substeps_prepare.restype = ctypes.c_int
-        # (GmixPpmArgs*, stream); core/ppm.py declares the structure
-        for name in ("gmix_ppm_update", "gmix_ppm_predict"):
-            fn = getattr(lib, name)
-            fn.argtypes = [ptr, ptr]
-            fn.restype = ctypes.c_int
-        lib.gmix_ppm_prepare.argtypes = []
-        lib.gmix_ppm_prepare.restype = ctypes.c_int
-        # (GmixContextsArgs* / GmixMatchArgs*, stream); core/contexts.py
-        # declares the structures
-        for name in ("gmix_contexts_boundary", "gmix_match_pointer"):
-            fn = getattr(lib, name)
-            fn.argtypes = [ptr, ptr]
-            fn.restype = ctypes.c_int
-        lib.gmix_contexts_prepare.argtypes = []
-        lib.gmix_contexts_prepare.restype = ctypes.c_int
-        # (GmixLstmForwardArgs* / GmixLstmPerceiveArgs*, stream);
-        # core/lstm.py declares the structures
-        for name in ("gmix_lstm_forward", "gmix_lstm_perceive"):
-            fn = getattr(lib, name)
-            fn.argtypes = [ptr, ptr]
-            fn.restype = ctypes.c_int
-        lib.gmix_lstm_prepare.argtypes = []
-        lib.gmix_lstm_prepare.restype = ctypes.c_int
-        lib.gmix_cuda_error_string.argtypes = [ctypes.c_int]
-        lib.gmix_cuda_error_string.restype = ctypes.c_char_p
-        _lib = lib
-    return _lib
-
-
-def check_launch(lib: ctypes.CDLL, rc: int, what: str) -> None:
-    if rc != 0:
-        msg = lib.gmix_cuda_error_string(rc).decode()
-        raise RuntimeError(f"{what}: CUDA error {rc} ({msg})")

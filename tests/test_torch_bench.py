@@ -269,5 +269,5 @@ def test_main_on_the_cpu_prints_and_writes_every_row(monkeypatch, capsys, tmp_pa
     assert (config["spec"], config["streams"], config["chunk"], config["bytes"], config["offset"]) == (
         "scaled-8", 2, 40, 80, 1000)
     assert [r["direction"] for r in rows[1:-1]] == ["encode", "encode", "decode", "decode"]
-    assert result["exact"] and result["warm_bytes"] == 40 and result["vs_baseline"] > 0
+    assert result["exact"] and result["warm_bytes"] == 40 and "vs_baseline" not in result
     assert sorted((f, os.path.getmtime(os.path.join("data", f))) for f in os.listdir("data")) == data_dir

@@ -323,7 +323,7 @@ def test_encode_only_decodes_nothing(variant_rows):
             assert r["direction"] == "encode"
         if r["bench"] == "result":
             assert r["decoded"] is False and r["decode_s"] == [] and r["decode_bytes_per_s"] is None
-            assert r["encdec_mbps"] is None and r["vs_baseline"] is None
+            assert r["encdec_mbps"] is None
 
 
 def test_analysis_gives_the_ema_of_every_column(variant_rows):

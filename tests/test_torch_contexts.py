@@ -4,15 +4,12 @@ against gmix_tpu's, run eagerly, bitwise: `boundary_plain` against
 contexts alone), `match_plain` against the match block of
 `gmix_tpu.core.step._byte_step`, on seeded states and on the corners that
 the kernels of csrc/contexts.cu are held to on the card
-(`utils/contexts_inputs.py`), at the first byte of a stream and after it; the
-kernels' argument structures against csrc/contexts.cu's; CPU tensors refused
-by the kernels' wrappers."""
-import ctypes
+(`utils/contexts_inputs.py`), at the first byte of a stream and after it.
+The kernels' argument structures and their refusal of CPU tensors are
+tests/test_torch_kernel_table.py's."""
 import dataclasses
 import inspect
-import re
 import textwrap
-from pathlib import Path
 
 import numpy as np
 import pytest
@@ -151,40 +148,3 @@ def test_boundary_table_holds_each_context_once(spec_name):
     assert len(table) == t_ctx.BYTE_COLS + NI * (3 + 256) + NSK * t_ctx.PER_SKIP + NR * 3 + NIH * 5
     assert len(t_ctx.match_table(meta)) == 3 * len(spec.matches)
     assert t_ctx.BYTE_COLS <= meta.recent_size <= t_ctx.MAX_RECENT
-
-
-def _c_fields(struct: str):
-    src = (Path(t_ctx.__file__).parents[1] / "csrc" / "contexts.cu").read_text()
-    body = re.search(rf"struct {struct} \{{(.*?)\}};", src, re.S).group(1)
-    fields = []
-    for line in body.splitlines():
-        decl = line.split("//")[0].strip().rstrip(";")
-        if decl:
-            ctype, names = re.match(r"((?:const )?\w+\*?)\s+(.*)", decl).groups()
-            fields += [(n.strip(), ctype) for n in names.split(",")]
-    return fields
-
-
-@pytest.mark.parametrize("struct,py", [("GmixContextsArgs", t_ctx._ContextsArgs), ("GmixMatchArgs", t_ctx._MatchArgs)])
-def test_contexts_kernel_arguments_are_the_c_structs(struct, py):
-    """`_ContextsArgs` and `_MatchArgs` declare csrc/contexts.cu's structures
-    field for field: the names, in order, pointers first, then the int64
-    sizes."""
-    c_fields = _c_fields(struct)
-    kinds = {ctypes.c_void_p: "*", ctypes.c_int64: "int64_t"}
-    fields = [(n, kinds[t]) for n, t in py._fields_]
-    assert [n for n, _ in c_fields] == [n for n, _ in fields]
-    for (_, ctype), (name, kind) in zip(c_fields, fields):
-        assert ctype.endswith("*") if kind == "*" else ctype == kind, name
-
-
-def test_contexts_kernels_refuse_cpu_tensors():
-    """The kernels' wrappers take CUDA tensors only; the byte step sends CPU
-    tensors to the plain versions."""
-    _, meta = _metas("tiny")
-    stm, ltm = to_state(meta, random_state(meta, 2, 3), "cpu")
-    plan = t_step.StepPlan(meta, 2, "cpu")
-    with pytest.raises(ValueError, match="expected a CUDA device"):
-        t_ctx.boundary_kernel(stm, torch.tensor(1), plan)
-    with pytest.raises(ValueError, match="expected a CUDA device"):
-        t_ctx.match_kernel(stm, ltm, plan)

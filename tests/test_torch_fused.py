@@ -170,7 +170,7 @@ def test_cuda_tensors_never_take_the_plain_path():
     own test is tests/test_torch_kernels.py)."""
     meta = t_build_meta(gt.tiny_spec(False))
     fin = {"sc": torch.zeros((S, 8), dtype=torch.int64, device="meta")}
-    with pytest.raises(ValueError, match="CUDA or CPU"):
+    with pytest.raises(ValueError, match="the kernel takes CUDA tensors"):
         t_fused.fused_substeps(meta, {}, fin, True, True)
 
 

@@ -203,9 +203,9 @@ def test_grouped_scatter_rejects_what_the_kernel_does_not_take(cuda):
         rowmove.scatter_rows_many([(tbl, idx, upd), (tbl.cpu(), idx.cpu(), upd.cpu())])
     with pytest.raises(ValueError, match="int32"):
         rowmove.scatter_rows_many([(tbl, idx.long(), upd)])
-    with pytest.raises(ValueError, match="rows are"):
+    with pytest.raises(ValueError, match="rows is .* torch.float64"):
         rowmove.scatter_rows_many([(tbl, idx, upd.double())])
-    with pytest.raises(ValueError, match="rows .* !="):
+    with pytest.raises(ValueError, match=r"rows is \(5, 1, 128\)"):
         rowmove.scatter_rows_many([(tbl, idx, upd[:, :1])])
     with pytest.raises(ValueError, match="contiguous"):
         rowmove.scatter_rows_many([(tbl, idx, upd.transpose(0, 1).contiguous().transpose(0, 1))])
@@ -233,7 +233,7 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
         rowmove.gather_rows(tbl, idx.long())
     with pytest.raises(ValueError, match="contiguous"):
         rowmove.gather_rows(tbl[:, :, :64], idx)
-    with pytest.raises(ValueError, match="share one device"):
+    with pytest.raises(ValueError, match="indices is .* on cpu"):
         rowmove.scatter_rows(tbl, idx.cpu(), upd)
     with pytest.raises(ValueError, match="multiple of 16"):
         rowmove.gather_rows(torch.zeros((S, N, 6), device=cuda), idx)
@@ -475,9 +475,9 @@ def test_fused_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     fin = {n: torch.as_tensor(v, device=cuda) for n, v in random_inputs(meta, 2, 1).items()}
     with pytest.raises(ValueError, match="p_tbl is"):
         fused.fused_substeps(meta, consts, {**fin, "p_tbl": fin["p_tbl"].double()}, True, True)
-    with pytest.raises(ValueError, match="rows_st has shape"):
+    with pytest.raises(ValueError, match="rows_st is"):
         fused.fused_substeps(meta, consts, {**fin, "rows_st": fin["rows_st"][:, :1]}, True, True)
-    with pytest.raises(ValueError, match="mt_pred on cpu"):
+    with pytest.raises(ValueError, match="mt_pred is .* on cpu"):
         fused.fused_substeps(meta, consts, {**fin, "mt_pred": fin["mt_pred"].cpu()}, True, True)
     with pytest.raises(ValueError, match="contiguous"):
         fused.fused_substeps(meta, consts, {**fin, "sc": fin["sc"].T.contiguous().T}, True, True)

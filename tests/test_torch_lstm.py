@@ -13,11 +13,10 @@ The worst |got - want| / (ATOL + RTOL * |want|) seen over these cases is
 The plain versions of the per-byte work (`lstm_forward_plain`,
 `lstm_perceive_plain`), which csrc/lstm.cu's kernels equal bit for bit on
 the card, are held here on the states the kernels are tested on
-(`utils/lstm_inputs.py`), with the same tolerance; the kernels' argument
-structures and limits against csrc/lstm.cu's; CPU tensors refused by the
-kernels' wrappers.
+(`utils/lstm_inputs.py`), with the same tolerance; the kernels' limits
+against csrc/lstm.cu's (their argument structures and their refusal of CPU
+tensors are tests/test_torch_kernel_table.py's).
 """
-import ctypes
 import dataclasses
 import re
 from pathlib import Path
@@ -389,32 +388,6 @@ def test_padded_tree_adds_its_zeros():
     assert not torch.signbit(f).any()
 
 
-def _c_fields(struct: str):
-    src = (Path(t_lstm.__file__).parents[1] / "csrc" / "lstm.cu").read_text()
-    body = re.search(rf"struct {struct} \{{(.*?)\}};", src, re.S).group(1)
-    fields = []
-    for line in body.splitlines():
-        decl = line.split("//")[0].strip().rstrip(";")
-        if decl:
-            ctype, names = re.match(r"((?:const )?\w+\*?)\s+(.*)", decl).groups()
-            fields += [(n.strip(), ctype) for n in names.split(",")]
-    return fields
-
-
-@pytest.mark.parametrize("struct,py", [("GmixLstmForwardArgs", t_lstm._ForwardArgs),
-                                       ("GmixLstmPerceiveArgs", t_lstm._PerceiveArgs)])
-def test_lstm_kernel_arguments_are_the_c_structs(struct, py):
-    """`_ForwardArgs` and `_PerceiveArgs` declare csrc/lstm.cu's structures
-    field for field: the names, in order, pointers first, then the int64
-    sizes, then the float."""
-    kinds = {ctypes.c_void_p: "*", ctypes.c_int64: "int64_t", ctypes.c_float: "float"}
-    fields = [(n, kinds[t]) for n, t in py._fields_]
-    c_fields = _c_fields(struct)
-    assert [n for n, _ in c_fields] == [n for n, _ in fields]
-    for (_, ctype), (name, kind) in zip(c_fields, fields):
-        assert ctype.endswith("*") if kind == "*" else ctype == kind, name
-
-
 def test_lstm_kernel_limits_are_the_c_constants():
     """The wrappers' limits are csrc/lstm.cu's, and the cluster size they
     choose fills the H100's 132 SMs at the benchmark's stream counts while
@@ -435,15 +408,3 @@ def test_lstm_kernel_limits_are_the_c_constants():
     assert t_lstm.forward_cluster(256, wide, 132) == 4
     tiny = t_cfg.tiny_spec(True).lstm
     assert [t_lstm.forward_cluster(S, tiny, 132) for S in (1, 100)] == [8, 1]
-
-
-def test_lstm_kernels_refuse_cpu_tensors():
-    """The kernels' wrappers take CUDA tensors only; the byte step sends CPU
-    tensors to the plain versions."""
-    meta = t_build_meta(_spec(t_cfg, 16))
-    stm, ltm = lstm_inputs.to_state(lstm_inputs.random_state(meta, 2, 1, 3), "cpu")
-    lp = _port_plan(16, 2)
-    with pytest.raises(ValueError, match="expected a CUDA device"):
-        t_lstm.lstm_forward_kernel(stm, ltm, lp, int(meta.slots["lstm_ctx"]))
-    with pytest.raises(ValueError, match="expected a CUDA device"):
-        t_lstm.lstm_perceive_kernel(stm, ltm, stm["acc"], lp, True)

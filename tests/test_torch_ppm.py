@@ -330,39 +330,3 @@ def test_integer_row_sums_equal_the_float_tree(rows):
     assert torch.equal((ints + distinct.to(torch.int64)).to(torch.float32), tree + distinct)
     if rows == "all-at-u16-max":
         assert int(ints.max()) == 16_776_960
-
-
-def test_ppm_kernel_arguments_are_the_c_struct():
-    """`_PpmArgs` declares csrc/ppm.cu's GmixPpmArgs field for field: the
-    names, in order, pointers first, then the int64 sizes and switches,
-    then the float."""
-    import ctypes
-    import re
-    from pathlib import Path
-
-    src = (Path(t_ppm.__file__).parents[1] / "csrc" / "ppm.cu").read_text()
-    body = re.search(r"struct GmixPpmArgs \{(.*?)\};", src, re.S).group(1)
-    c_fields = []
-    for line in body.splitlines():
-        decl = line.split("//")[0].strip().rstrip(";")
-        if decl:
-            ctype, names = re.match(r"((?:const )?\w+\*?)\s+(.*)", decl).groups()
-            c_fields += [(n.strip(), ctype) for n in names.split(",")]
-    kinds = {ctypes.c_void_p: "*", ctypes.c_int64: "int64_t", ctypes.c_float: "float"}
-    py = [(n, kinds[t]) for n, t in t_ppm._PpmArgs._fields_]
-    assert [n for n, _ in c_fields] == [n for n, _ in py]
-    for (_, ctype), (name, kind) in zip(c_fields, py):
-        assert ctype.endswith("*") if kind == "*" else ctype == kind, name
-
-
-def test_ppm_kernels_refuse_cpu_tensors():
-    """The kernels' wrappers take CUDA tensors only; the byte step sends CPU
-    tensors to the plain versions."""
-    meta, stm_np, completed = _state(9)
-    plan, stm = _port(stm_np)
-    cv, h = t_ppm._ppm_index(stm["ctx"], plan)
-    raw = gather_rows(stm["ppm_tbl"], h)
-    with pytest.raises(ValueError, match="expected a CUDA or CPU tensor"):
-        t_ppm.ppm_update_kernel(raw, cv, torch.tensor(completed.astype(np.int64)), stm["ppm_see"], plan)
-    with pytest.raises(ValueError, match="expected a CUDA or CPU tensor"):
-        t_ppm.ppm_predict_kernel(raw, cv, stm["ppm_see"], plan)

@@ -7,7 +7,8 @@ their bytes at chip_smoke.py's 16 streams.
 
     python3 tools/torch_step_ops.py
 
-The specs are chip_smoke.py's, at scale_tables(spec, 12, history_bits=16)
+The specs are the bench's profiles ref-noppm, ref-ppm and ref (chip_smoke.py's
+ref-noppm, ref-ppm and ref-full), at scale_tables(spec, 12, history_bits=16)
 and 2 streams: a step's op count depends on the wiring, not on table sizes.
 The 8 sub-steps are replayed from a cache (on a GPU they are one kernel
 launch, on the CPU thousands of plain ops), so the counts are those of the
@@ -26,6 +27,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import chip_smoke as cs  # noqa: E402
 import gmix_tpu_torch as gt  # noqa: E402
+from gmix_tpu_torch import bench  # noqa: E402
 from gmix_tpu_torch.config import scale_tables  # noqa: E402
 from gmix_tpu_torch.core import step as st  # noqa: E402
 
@@ -84,8 +86,8 @@ def main() -> None:
     data = np.frombuffer(cs.corpus(S * (WARM + 16)), np.uint8).reshape(S, WARM + 16).copy()
     u = torch.rand((8, S), generator=torch.Generator().manual_seed(cs.SEED))
     inv_temp = torch.tensor([np.float32(1.0 / cs.GEN_TEMP)])
-    for name, spec in (("ref-noppm", cs.ref_noppm_spec()), ("ref-ppm", cs.ref_ppm_spec()),
-                       ("ref-full", cs.ref_full_spec())):
+    for name, spec in (("ref-noppm", bench.ref_noppm_spec()), ("ref-ppm", bench.ref_ppm_spec()),
+                       ("ref-full", bench.spec_for(None))):
         spec = scale_tables(spec, 12, history_bits=16)
         pred = cs.Predictor(spec, S, device="cpu")
         gt.compress_bytes(cs.corpus(S * WARM), spec, S, WARM, pred=pred)

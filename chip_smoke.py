@@ -8,8 +8,9 @@
     python3 chip_smoke.py --bench-only   # phases 0-1 and 7
     python3 chip_smoke.py --variants-only   # phases 0-1 and 8
     python3 chip_smoke.py --sweeps-only   # phases 0-1 and 9
-    python3 chip_smoke.py --kernels ppm,contexts,lstm   # phases 0-1 and
-                            # the named csrc/ files' kernels' part of phase 2
+    python3 chip_smoke.py --kernels ppm,contexts,lstm,inputs   # phases 0-1
+                            # and the named csrc/ files' kernels' part of
+                            # phase 2
 
 Phases; any failure ends the run with a non-zero exit:
 
@@ -65,16 +66,25 @@ Phases; any failure ends the run with a non-zero exit:
      version, called and replayed as a CUDA graph, and its bound, and the
      forward kernel at each cluster size (1, 2, 4, 8 blocks a stream, where
      its shared memory fits);
+   - the inputs kernel (csrc/inputs.cu: the row indices, dense rows and
+     packed registers before the grouped gather) bitwise against its plain
+     version on the card (every stream) and on the CPU (three streams), on
+     seeded steps at reference_spec() x 54, best_spec() x 30, ref-noppm
+     x 63, reference_spec() x 1 and ref-ppm x 4 (the PPM rows in the grouped
+     gather), in encode, decode, decode with the window past the code
+     stream's end and sampling, and on hand-made dense values (-0.0,
+     denormals, FLT_MIN; utils/inputs_inputs.py); timed beside its plain
+     version, called and replayed as a CUDA graph, and its bound;
 3. the main path at full width, at ref-noppm, ref-ppm and ref-full:
    compress_bytes then decompress_bytes of the first 16 KB of
    data/corpus_1m.bin on the GPU (16 streams, 1 KB per stream), which replay
    CUDA graphs of the byte step (the compiled chunk, core/step.py); the
    output must equal the input, and per byte step and direction the fused
-   kernel, the boundary contexts' and the match pointers' must have launched
-   exactly once and each mover once (ref-noppm: 5 launches a byte step) or
-   twice (ref-ppm: 9; the PPM count update moves its own rows first, and its
-   update and prediction are a kernel each); at ref-full the gather launches
-   three times (12: the prediction's `ppm_tbl`
+   kernel, the boundary contexts', the match pointers' and the inputs
+   kernel must have launched exactly once and each mover once (ref-noppm: 6
+   launches a byte step) or twice (ref-ppm: 10; the PPM count update moves
+   its own rows first, and its update and prediction are a kernel each); at
+   ref-full the gather launches three times (13: the prediction's `ppm_tbl`
    rows come before the LSTM's forward pass, the other arenas after it; the
    forward pass and the output layer's SGD are a kernel each) and
    the LSTM must have made its 10 backward passes per
@@ -92,8 +102,8 @@ Phases; any failure ends the run with a non-zero exit:
    Then generate_bytes on the warm predictor: a 256-byte prompt (replayed
    with learning), 256 sampled bytes a stream at temperature 0.8 in one
    chunk of 256; a sampling byte step must launch the kernels of an encode
-   step less the byte-end scatter and the LSTM's SGD (ref-noppm 4, ref-ppm
-   8, ref-full 10).
+   step less the byte-end scatter and the LSTM's SGD (ref-noppm 5, ref-ppm
+   9, ref-full 11).
    Then 256 bytes more without a prompt, timed, after which every
    long-term-memory leaf must be as it was; the sampling step eager against
    graphs as above;
@@ -114,7 +124,7 @@ Phases; any failure ends the run with a non-zero exit:
    before a command and read just after):
    (a) `--profile best --streams 8 --chunk 512`: compress with `--analysis`
        4 KB of data/corpus_1m.bin that no other phase codes, then
-       decompress; the round trip exact, 12 launches a byte step each way,
+       decompress; the round trip exact, 13 launches a byte step each way,
        entropy.tsv's header `analysis_columns` and a finite row, memory.tsv's
        TOTAL equal to the state's size in gmix_tpu's layout (a u32 leaf at
        4 bytes an element) and to its rows' sum; bpb, model bpb, state and peak GB,
@@ -129,7 +139,7 @@ Phases; any failure ends the run with a non-zero exit:
        generated bytes must be the same files; entropy.tsv the same bits
        and its values within 1e-6 relative or one unit of the fifth decimal
        it prints; each device decodes the other's archive; a sampling step
-       launches 10 kernels;
+       launches 11 kernels;
    (c) wiki-encode -> dict-encode -> compress (scaled-12, 8 streams) of a
        small generated MediaWiki dump, and back: the same bytes.
 6. stream sharding (gmix_tpu_torch.parallel), after the rest:
@@ -137,11 +147,11 @@ Phases; any failure ends the run with a non-zero exit:
        card, in this process, beside the unsharded predictor: 2 KB of the
        corpus that no other phase codes, chunk 128. The archives must be the
        same bytes, each predictor must decode the other's, their checkpoints
-       must be the same file, and each shard must launch 12 kernels a byte
+       must be the same file, and each shard must launch 13 kernels a byte
        step; the wall times of both, a reading;
    (b) two processes over gloo on this card, 8 streams each, code phase 3's
        16 KB at ref-full with compress_bytes_multihost: each must return
-       phase 3's archive byte for byte and launch 12 kernels a byte step;
+       phase 3's archive byte for byte and launch 13 kernels a byte step;
        each prints its launches, encode bytes/s and peak memory, and the
        aggregate bytes/s is printed beside phase 3's one process (a reading);
    (c) a world of one rank over nccl: phase 4's ref-noppm run through
@@ -168,9 +178,10 @@ Phases; any failure ends the run with a non-zero exit:
    raises otherwise), its cross-entropy finite at every chunk, every byte
    step (warm start, graph capture, passes and traced window) must launch
    the profile's kernels (gather, scatter, fused, PPM update, PPM prediction,
-   contexts boundary, match pointers, LSTM forward, LSTM perceive: 3 + 2 +
-   1 + 1 + 1 + 1 + 1 + 1 + 1 at ref-full and best, 2 + 2 + 1 + 1 + 1 + 1 +
-   1 + 0 + 0 at ref-ppm, 1 + 1 + 1 + 0 + 0 + 1 + 1 + 0 + 0 at ref-noppm),
+   contexts boundary, match pointers, LSTM forward, LSTM perceive, inputs:
+   3 + 2 + 1 + 1 + 1 + 1 + 1 + 1 + 1 + 1 at ref-full and best, 2 + 2 + 1 +
+   1 + 1 + 1 + 1 + 0 + 0 + 1 at ref-ppm, 1 + 1 + 1 + 0 + 0 + 1 + 1 + 0 + 0 +
+   1 at ref-noppm),
    and the state must
    be the bytes the bench estimated. The step's roofline of each run is
    logged (the bench's count of a byte step from the spec, its bound, and
@@ -196,7 +207,8 @@ Phases; any failure ends the run with a non-zero exit:
        (`kernels.launches_per_step`: 1 + 1 + 1 without PPM, 2 + 2 + 1 + 1 +
        1 with PPM, 3 + 2 + 1 + 1 + 1 with PPM and the LSTM, then the
        boundary contexts' 1 and the match pointers' 1, 0 without a match
-       model, then the LSTM's forward pass and SGD, 1 + 1 with the LSTM);
+       model, then the LSTM's forward pass and SGD, 1 + 1 with the LSTM,
+       then the inputs kernel's 1);
    (c) at scale_tables(spec, 12, history_bits=16), 2 streams of 512 bytes:
        the GPU's archive equal to the CPU's byte for byte (the CPU's encode
        and decode run in a process a variant, started before phase 7), the
@@ -224,7 +236,7 @@ Phases; any failure ends the run with a non-zero exit:
    ring that wraps and one that does not; scaling at 1, 16 and 256
    streams; the wiki chain on 1 MB of dump, byte-identical. Every run must
    exit 0, and every byte step it ran launch 3 + 2 + 1 + 1 + 1 + 1 + 1 + 1 + 1
-   kernels.
+   + 1 kernels.
 
 ref-full is gmix_tpu's reference wiring (`reference_spec()`: PPM, the LSTM
 byte model of 50 cells with a horizon of 100) at its published table sizes
@@ -277,7 +289,7 @@ import gmix_tpu_torch as gt
 from gmix_tpu_torch import bench, cli, obs, sweeps
 from gmix_tpu_torch.bench import padded_per, ref_noppm_spec, ref_ppm_spec, spec_for, trace_window
 from gmix_tpu_torch.config import best_spec, reference_spec, scale_tables
-from gmix_tpu_torch.core import contexts, fused, lstm, ppm
+from gmix_tpu_torch.core import contexts, fused, inputs, lstm, ppm
 from gmix_tpu_torch.core import step as step_mod
 from gmix_tpu_torch.core.codec import (Predictor, analysis_columns, compress_bytes, decompress_bytes, entropy_bits,
                                        generate_bytes, run_chunks)
@@ -288,7 +300,7 @@ from gmix_tpu_torch.parallel.mesh import make_mesh, stream_sharding
 from gmix_tpu_torch.roofline import PEAK_BYTES_PER_S, SHARES, TRANSCENDENTAL, bound, fused_bound, tensor_bytes
 from gmix_tpu_torch.state import init_state, numpy_layout, state_bytes
 from gmix_tpu_torch.utils.build import build
-from gmix_tpu_torch.utils import contexts_inputs, lstm_inputs, ppm_inputs
+from gmix_tpu_torch.utils import contexts_inputs, inputs_inputs, lstm_inputs, ppm_inputs
 from gmix_tpu_torch.utils.fused_inputs import random_inputs, with_sampling
 from gmix_tpu_torch.utils.serialization import copy_state
 
@@ -1114,6 +1126,41 @@ def lstm_sweep(meta, S: int, dev, st, row: dict) -> None:
         for K in lstm_clusters(meta.spec.lstm)}
 
 
+InputsState = collections.namedtuple("InputsState", "state args plan")  # args: byte_inputs' other arguments
+
+
+def inputs_state(meta, sample, device, streams) -> InputsState:
+    state, args = inputs_inputs.to_state(sample, device, streams)
+    return InputsState(state, args, step_mod.StepPlan(meta, len(state["stm"]["acc"]), device))
+
+
+def inputs_steps(meta) -> dict:
+    return {"pack": (lambda st: inputs.byte_inputs(st.state, plan=st.plan, **st.args),
+                     lambda st: inputs.inputs_plain(st.state, plan=st.plan, **st.args))}
+
+
+def inputs_samples(meta, S):
+    for mode in inputs_inputs.MODES:
+        for k in range(INPUTS_SEEDS):
+            yield f"S={S} {mode} seed {k}", inputs_inputs.random_sample(meta, S, SEED + k, mode, t=5 * k)
+    yield "edges", inputs_inputs.edge_sample(meta, SEED)
+
+
+def inputs_work(meta, S: int, part: str):
+    """(bytes, float ops) of one encode launch of the inputs kernel, each
+    input read once and each output written once: per stream a context slot
+    for each index and each ctx-dense table, the dense rows, the data byte
+    and 12 registers (`last_byte`, `recent[1]`, the coder's 8, the PPM
+    head's 3 where they go through), then every output of `out_layout`;
+    the constant table once. No float op."""
+    reads = sum(n * 8 for n in (len(meta.spec.indirects), len(meta.mix_st_ix), len(meta.mix_pos_ix),
+                                len(meta.spec.apm), len(meta.mix_cd_ix)))
+    reads += 4 * meta.mix_width_pad * (len(meta.mix_cd_ix) + 8 * len(meta.mix_pd_ix) + int(sum(meta.mix_lm_sizes)))
+    reads += 1 + 8 * 10 + (4 * 3 if meta.spec.ppm is not None else 0)
+    writes = sum(int(np.prod(tail)) * torch.empty(0, dtype=dt).element_size() for _, tail, dt in inputs.out_layout(meta))
+    return S * (reads + writes) + 8 * len(inputs.inputs_table(meta)), 0
+
+
 # the families by csrc/ file stem, the names `--kernels` takes. PPM: seeded
 # rows (PPM_SEEDS draws) at the benchmark's stream counts and the edge
 # streams, every stream compared on the CPU (a few KB). Contexts: seeded
@@ -1123,8 +1170,12 @@ def lstm_sweep(meta, S: int, dev, st, row: dict) -> None:
 # (LSTM_SEEDS draws) at the benchmark's LSTM cells, one stream of ref and the
 # tiny spec's LSTM (16 cells, horizon 10), at epoch 0, mid-window and the
 # last epoch, the edge streams at epoch 0 and the last, and every cluster
-# size of the forward kernel.
-PPM_SEEDS, CONTEXT_SEEDS, LSTM_SEEDS, LSTM_CLUSTERS = 4, 2, 2, (1, 2, 4, 8)
+# size of the forward kernel. Inputs: seeded steps (INPUTS_SEEDS draws, at a
+# stream's first byte and after it) in each mode (encode, decode, the
+# decoder's window past its stream's end, sampling) and the edge streams'
+# dense values, at the benchmark's cells, one stream of ref and the
+# grouped-PPM profile.
+PPM_SEEDS, CONTEXT_SEEDS, LSTM_SEEDS, INPUTS_SEEDS, LSTM_CLUSTERS = 4, 2, 2, 2, (1, 2, 4, 8)
 FAMILIES = {f.name: f for f in (
     KernelFamily("ppm", ("update", "predict"), (("ref", reference_spec, 54), ("best", best_spec, 30)),
                  samples=ppm_samples, state=ppm_state, steps=ppm_steps, leaves=lambda st: {}, work=ppm_work,
@@ -1142,6 +1193,12 @@ FAMILIES = {f.name: f for f in (
                  samples=lstm_samples, state=lstm_state, steps=lstm_steps, leaves=lstm_leaves, work=lstm_work,
                  timed_sample=lstm_timed_sample, cpu_streams=ends, chained=True, describe=lstm_describe,
                  sweep=lstm_sweep),
+    KernelFamily("inputs", ("pack",),
+                 (("ref", reference_spec, 54), ("best", best_spec, 30), ("ref-noppm", ref_noppm_spec, 63),
+                  ("ref-x1", reference_spec, 1), ("ref-ppm", ref_ppm_spec, 4)),
+                 samples=inputs_samples, state=inputs_state, steps=inputs_steps, leaves=lambda st: {},
+                 work=inputs_work, timed_sample=lambda meta, S: inputs_inputs.random_sample(meta, S, SEED),
+                 cpu_streams=lambda sample: ends(({"stm": sample["stm"]},)), chained=True),
 )}
 
 

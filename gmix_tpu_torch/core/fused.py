@@ -246,43 +246,30 @@ def const_inputs(meta: Meta, learn: bool, device="cpu") -> FusedConsts:
     return out
 
 
-@obs.in_part("inputs")
-def pack_inputs(meta: Meta, stm: Dict, coder: Dict, metrics: Dict, work: Dict, data_byte: torch.Tensor,
-                win_r: torch.Tensor, decode: bool, not_first, analysis: bool,
-                sample_u: Optional[torch.Tensor] = None, inv_temp: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
-    """The per-stream kernel inputs of one byte (gmix_tpu step.py, the fused
-    branch of `_byte_step`). `work` holds the gathered working sets under
-    their layout names, `rows_pos` / `blocks_pd` as (S, Kp, 8, WP) and
-    `lm_tbl` as the list of per-mixer tables. `win_r` is (S, CODER_WIN).
-    A sampling step passes `sample_u` (8, S) and `inv_temp` (a one-element
-    float32 tensor on the device), which go in as `io_layout(..., sample=True)`
-    names them, with `sc[:, SC_SAMPLE]` set. `not_first` (the byte is not
-    the stream's first) is a host bool or a 0-d bool tensor on the device."""
-    S = data_byte.shape[0]
-    zero = torch.zeros((S,), dtype=I64, device=data_byte.device)
-    sample = sample_u is not None
-    fin = {
-        "sc": torch.stack([data_byte, stm["last_byte"], stm["recent"][:, 1], zero + int(decode),
-                           zero + not_first, zero + int(sample), zero, zero], dim=1),
-        "coder": torch.stack([coder["x1"], coder["x2"], coder["x"], coder["wpos"], coder["rpos"],
-                              stm["acc"], stm["bits_seen"], stm["new_bit"]], dim=1),
-        "win_r": torch.nn.functional.pad(win_r, (0, WIN_PAD - CODER_WIN)),
-        "ent": metrics["ent"][:, None].contiguous(),
-    }
-    for name, tail, _, kind in io_layout(meta, False, analysis)[0]:
-        if kind != "s" or name in fin:
-            continue
-        if name == "ema":
+def pack_inputs(meta: Meta, stm: Dict, metrics: Dict, work: Dict, packed: Dict, analysis: bool,
+                inv_temp: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+    """The kernel inputs of one byte by name, in `io_layout`'s shapes
+    (gmix_tpu step.py, the fused branch of `_byte_step`), as views: `packed`
+    holds what core/inputs.py computes (`sc`, `coder`, `win_r`, the dense
+    rows, ...), `work` the gathered working sets and the other leaves under
+    their layout names, `rows_pos` and `blocks_pd` as (S, K, 8, WP). A
+    sampling step passes `inv_temp` (a one-element float32 tensor on the
+    device) and `packed["sample_u"]`, which go in as `io_layout(...,
+    sample=True)` names them."""
+    S = packed["sc"].shape[0]
+    fin = {}
+    for name, tail, _, kind in io_layout(meta, False, analysis, inv_temp is not None)[0]:
+        if kind != "s":
+            if name in CALL_INPUTS:
+                fin[name] = inv_temp.reshape(1, 1)
+        elif name == "ent":
+            fin[name] = metrics["ent"][:, None].contiguous()
+        elif name == "ema":
             fin[name] = metrics["ema"]
         elif name in ("match_len", "match_byte"):
             fin[name] = stm[name]
-        elif name == "lm_tbl":
-            fin[name] = torch.cat(work[name], dim=1)
         else:  # rows_pos and blocks_pd fold their (K, 8) axes, kp-major
-            fin[name] = work[name].reshape((S,) + tail)
-    if sample:
-        fin["sample_u"] = sample_u.t().contiguous()
-        fin["inv_temp"] = inv_temp.reshape(1, 1)
+            fin[name] = (packed[name] if name in packed else work[name]).reshape((S,) + tail)
     return fin
 
 

@@ -6,20 +6,21 @@ Port of `gmix_tpu.core.step._byte_step`. The 8 sub-steps and the deferred
 per-bit writes are one function, `core/fused.py:fused_substeps`: one
 hand-written CUDA kernel on a CUDA device, the eager torch loop on the CPU.
 The PPM byte model's boundary work is `core/ppm.py`, the LSTM byte model is
-`core/lstm.py`. This module keeps what surrounds them, in eager torch, with
-the arena rows moved by the kernels of `ops/rowmove.py`. On a GPU a byte
-step is therefore 5 hand-written launches (the boundary contexts and the
-match pointers of `core/contexts.py`, one gather of every arena, the
-sub-steps, one scatter of every arena), and 9 with PPM, whose count update
+`core/lstm.py`, the boundary contexts and match pointers `core/contexts.py`,
+and the row indices, dense rows and packed registers before the gather
+`core/inputs.py`. This module keeps what surrounds them, in eager torch,
+with the arena rows moved by the kernels of `ops/rowmove.py`. On a GPU a
+byte step is therefore 6 hand-written launches (the boundary contexts and
+the match pointers, the inputs kernel, one gather of every arena, the
+sub-steps, one scatter of every arena), and 10 with PPM, whose count update
 gathers and scatters its own rows first, with its update kernel between
-them, and whose prediction is a kernel too; plus the eager packing and
-byte-end ops. With PPM and an LSTM it is 12: the LSTM's forward pass (one
-kernel) reads the PPM prediction and sets the `lstm_ctx` context, which an
-indirect model may be keyed on, so the rows of `ppm_tbl` are gathered on
-their own before the prediction, and the other arenas after the forward
-pass; the byte end's SGD of its output layer is one kernel more. A sampling
-step (generation: learn off) makes no byte-end scatter and no SGD: 4, 8 and
-10 launches.
+them, and whose prediction is a kernel too; plus the eager byte-end ops.
+With PPM and an LSTM it is 13: the LSTM's forward pass (one kernel) reads
+the PPM prediction and sets the `lstm_ctx` context, which an indirect model
+may be keyed on, so the rows of `ppm_tbl` are gathered on their own before
+the prediction, and the other arenas after the forward pass; the byte end's
+SGD of its output layer is one kernel more. A sampling step (generation:
+learn off) makes no byte-end scatter and no SGD: 5, 9 and 11 launches.
 
 The JAX function is the reference; the port keeps its expression order op
 for op, because the decoder must replay the encoder's float updates bit for
@@ -66,7 +67,6 @@ from ..ops.rowmove import gather_rows, gather_rows_many, scatter_rows_many
 from . import fused as _fused
 from .fused import (  # noqa: F401  (_tri_solve: held against gmix_tpu's by the step tests)
     CODER_WIN,
-    _onehot_rows,
     _tri_solve,
     const_inputs,
     fused_substeps,
@@ -75,6 +75,7 @@ from .fused import (  # noqa: F401  (_tri_solve: held against gmix_tpu's by the 
 )
 from .lstm import LstmPlan, _lstm_bptt, _lstm_forward, _lstm_perceive
 from .contexts import boundary_contexts, boundary_table, match_pointers, match_table
+from .inputs import byte_inputs, inputs_table, ppm_grouped, ppm_regs
 from .meta import Meta
 from .ppm import _ppm_index, _ppm_predict, _ppm_update
 
@@ -133,6 +134,8 @@ class StepPlan:
         # the contexts kernels' constant tables (core/contexts.py)
         self.boundary_consts = t(boundary_table(meta))
         self.match_consts = t(match_table(meta))
+        # the inputs kernel's constant table (core/inputs.py)
+        self.inputs_consts = t(inputs_table(meta))
         # mixers
         self.mix_st_slots = t(meta.mix_st_slots)
         self.mix_st_masks = t(meta.mix_st_masks)[None, :]
@@ -263,13 +266,10 @@ def _byte_inputs(state: Dict, data_buf: torch.Tensor, code_buf: torch.Tensor, t,
     t = _as_index(t, plan.device)
     col = t if col is None else col
     _boundary(stm, t, plan)
-    with obs.part("inputs"):
-        data_byte = data_buf.index_select(1, col.reshape(1))[:, 0].to(I64)
     work: Dict = {"max_steps": ltm["mix_max_steps"]}
 
     # ---- with an LSTM: the PPM prediction from rows gathered on their own,
     # then the forward pass, which reads it and sets the lstm_ctx context ----
-    ppm_grouped = spec.ppm is not None and spec.lstm is None
     if spec.lstm is not None:
         with obs.part("lstm"):
             if spec.ppm is not None:
@@ -284,108 +284,61 @@ def _byte_inputs(state: Dict, data_buf: torch.Tensor, code_buf: torch.Tensor, t,
         with obs.part("contexts"):
             match_ix = match_pointers(stm, ltm, plan)
 
-    fin, ix = _gathered_inputs(state, work, data_byte, code_buf, t, decode, plan, analysis, sample_u, inv_temp,
-                               ppm_grouped)
+    fin, ix = _gathered_inputs(state, work, data_buf, code_buf, t, col, decode, plan, analysis, sample_u, inv_temp)
     if NM:
         ix["match_ix"] = match_ix
     return fin, work, ix
 
 
+# the grouped gather's arenas in its order: (working set, index name, table)
+_ARENAS = (("ind_blk", "blk_ix", lambda stm, ltm: ltm["ind"]["st"]),  # (S, M, 256) int16 bits
+           ("rows_st", "rowix_st", lambda stm, ltm: ltm["mix_w"]),  # (S, Kst, WP)
+           ("rows_pos", "posix", lambda stm, ltm: ltm["mix_pos"]),  # (S, Kp, 8 * WP)
+           ("apm_rows", "apm_ix", lambda stm, ltm: ltm["apm"]),  # (S, NA, 8 * APM_BINS)
+           ("ppm_rows", "ppm_ix", lambda stm, ltm: stm["ppm_tbl"]))  # (S, NO, PPM_ROW_W) int16 bits
+
+
 @obs.in_part("inputs")
-def _gathered_inputs(state: Dict, work: Dict, data_byte: torch.Tensor, code_buf: torch.Tensor, t: torch.Tensor,
-                     decode: bool, plan: StepPlan, analysis: bool, sample_u: Optional[torch.Tensor],
-                     inv_temp: Optional[torch.Tensor], ppm_grouped: bool):
-    """The gathers of the per-byte working sets into `work`, the coder byte
-    window and the packed inputs of the sub-steps: (fin, ix) of
-    `_byte_inputs`."""
+def _gathered_inputs(state: Dict, work: Dict, data_buf: torch.Tensor, code_buf: torch.Tensor, t: torch.Tensor,
+                     col: torch.Tensor, decode: bool, plan: StepPlan, analysis: bool,
+                     sample_u: Optional[torch.Tensor], inv_temp: Optional[torch.Tensor]):
+    """The row indices, dense rows and packed registers of the byte
+    (core/inputs.py: one kernel launch on a CUDA device), then the gathers
+    of the per-byte working sets into `work`, every arena's rows in one
+    launch: (fin, ix) of `_byte_inputs`."""
     meta = plan.meta
     spec = meta.spec
-    stm, ltm, coder, metrics = state["stm"], state["ltm"], state["coder"], state["metrics"]
-    S, s_ix = plan.S, plan.s_ix
-    M = len(spec.indirects)
-    WP = meta.mix_width_pad
-    NM = len(spec.matches)
-    NA = len(spec.apm)
+    stm, ltm, metrics = state["stm"], state["ltm"], state["metrics"]
+    S, WP = plan.S, meta.mix_width_pad
+    packed = byte_inputs(state, data_buf, code_buf, t, col, decode, plan, sample_u)
 
-    # ---- gather the per-byte working sets (byte-stable gating contexts):
-    # all row indices first, then every arena's rows in one launch ----
-    ctx_byte = stm["ctx"]
-    Kst, Kp = len(meta.mix_st_ix), len(meta.mix_pos_ix)
-    Kcd, Kpd, Klm = len(meta.mix_cd_ix), len(meta.mix_pd_ix), len(meta.mix_lm_ix)
-    arenas = []  # (working-set name, table, row indices)
-    if M:
-        ind_ctx_vals = ctx_byte[:, plan.ind_ctx_slots]  # (S, M)
-        blk_ix = ((ind_ctx_vals & plan.ind_blk_masks) + plan.ind_blk_offsets).to(I32)
-        # hash-derived lane rotation (gmix_tpu step.py:709-716)
-        work["ind_rot"] = ((ind_ctx_vals >> 16) & 255) * plan.ind_rotate  # (S, M)
-        work["p_tbl"] = ltm["ind"]["p"]  # (S, 2M, 256)
-        arenas.append(("ind_blk", ltm["ind"]["st"], blk_ix))  # (S, M, 256) int16 bits
-    if Kst:
-        rowix_st = ((ctx_byte[:, plan.mix_st_slots] & plan.mix_st_masks) + plan.mix_st_offsets).to(I32)
-        arenas.append(("rows_st", ltm["mix_w"], rowix_st))  # (S, Kst, WP)
-    if Kp:
-        posix = ((ctx_byte[:, plan.mix_pos_slots] & plan.mix_pos_masks) + plan.mix_pos_offsets).to(I32)
-        arenas.append(("rows_pos", ltm["mix_pos"], posix))  # (S, Kp, 8 * WP)
-    if NA:
-        apm_ix = ((ctx_byte[:, plan.apm_ctx_slots] & plan.apm_masks) + plan.apm_offsets).to(I32)
-        arenas.append(("apm_rows", ltm["apm"], apm_ix))  # (S, NA, 8*APM_BINS)
-    if ppm_grouped:
-        ppm_cv, ppm_ix = _ppm_index(ctx_byte, plan)
-        arenas.append(("ppm_rows", stm["ppm_tbl"], ppm_ix))  # (S, NO, PPM_ROW_W) int16 bits
+    # ---- gather the per-byte working sets (byte-stable gating contexts) ----
+    arenas = [(name, table(stm, ltm), packed[ix]) for name, ix, table in _ARENAS if ix in packed]
     for (name, _, _), rows in zip(arenas, gather_rows_many([(tbl, idx) for _, tbl, idx in arenas])):
         work[name] = rows
-    if Kp:
-        work["rows_pos"] = work["rows_pos"].view(S, Kp, 8, WP)
-    if ppm_grouped:
-        # next-byte distribution from the new contexts' rows
-        _ppm_predict(stm, work.pop("ppm_rows"), ppm_cv, plan)
+    if spec.indirects:
+        work["p_tbl"] = ltm["ind"]["p"]  # (S, 2M, 256)
+    if "rows_pos" in work:
+        work["rows_pos"] = work["rows_pos"].view(S, len(meta.mix_pos_ix), 8, WP)
     if spec.ppm is not None:
+        if ppm_grouped(spec):
+            # next-byte distribution from the new contexts' rows
+            _ppm_predict(stm, work.pop("ppm_rows"), packed["ppm_cv"], plan)
+            packed["ppm_regs"] = ppm_regs(stm)
         # the head's interval registers go through the sub-steps
-        work["ppm_probs"] = stm["ppm_probs"]
-        work["ppm_regs"] = torch.stack(
-            [stm["ppm_top"], stm["ppm_bot"], stm["ppm_mid"], torch.zeros_like(stm["ppm_top"])], dim=1)
-    dense0 = ltm.get("mix_dense")
-    cd_oh = []
-    if Kcd:
-        rows_cd = []
-        for i in range(Kcd):
-            off, T = int(meta.mix_cd_offsets[i]), int(meta.mix_cd_sizes[i])
-            val = ctx_byte[:, int(meta.mix_cd_slots[i])] & (T - 1)
-            oh = plan.cd_aranges[i] == val[:, None]  # (S, T)
-            cd_oh.append(oh)
-            rows_cd.append(_onehot_rows(oh, dense0[:, off : off + T]))
-        work["rows_cd"] = torch.stack(rows_cd, dim=1)
-    if Kpd:
-        work["blocks_pd"] = torch.stack([dense0[:, int(o) : int(o) + 8] for o in meta.mix_pd_offsets], dim=1)
-    if Klm:
-        work["lm_tbl"] = [
-            dense0[:, int(meta.mix_lm_offsets[i]) : int(meta.mix_lm_offsets[i]) + int(meta.mix_lm_sizes[i])]
-            for i in range(Klm)
-        ]
-    if NM:
+        work["ppm_probs"], work["ppm_regs"] = stm["ppm_probs"], packed["ppm_regs"]
+    for name in ("ind_rot", "rows_cd", "lm_tbl"):
+        if name in packed:
+            work[name] = packed[name]
+    if "blocks_pd" in packed:
+        work["blocks_pd"] = packed["blocks_pd"].view(S, len(meta.mix_pd_ix), 8, WP)
+    if spec.matches:
         work["mt_pred"], work["mt_cnt"] = ltm["match_pred"], ltm["match_cnt"]
 
-    # ---- coder byte window: the decoder's input bytes, read once per byte ----
-    wpos0 = coder["wpos"]
-    if decode:
-        cap_total = code_buf.shape[1]
-        look = coder["rpos"][:, None] + plan.win_lanes[None, :]
-        win_r = torch.where(
-            look < cap_total, code_buf[s_ix, torch.clamp(look, max=cap_total - 1)].to(I64), 0
-        )
-    else:
-        win_r = torch.zeros((S, CODER_WIN), dtype=I64, device=plan.device)
-
-    fin = pack_inputs(meta, stm, coder, metrics, work, data_byte, win_r, decode, t > 0, analysis, sample_u, inv_temp)
-    ix = dict(wpos0=wpos0, cd_oh=cd_oh)
-    if M:
-        ix["blk_ix"] = blk_ix
-    if Kst:
-        ix["rowix_st"] = rowix_st
-    if Kp:
-        ix["posix"] = posix
-    if NA:
-        ix["apm_ix"] = apm_ix
+    fin = pack_inputs(meta, stm, metrics, work, packed, analysis, inv_temp)
+    cd_oh = list(torch.split(packed["cd_oh"], [int(T) for T in meta.mix_cd_sizes], dim=1)) if "cd_oh" in packed else []
+    ix = dict(wpos0=state["coder"]["wpos"], cd_oh=cd_oh)
+    ix.update({name: packed[name] for _, name, _ in _ARENAS[:4] if name in packed})
     return fin, ix
 
 

@@ -52,6 +52,10 @@ GmixMatchArgs = _struct("GmixMatchArgs", "new_bit hist_n ctx match_ptr match_byt
 GmixLstmForwardArgs = _struct("GmixLstmForwardArgs", "epoch aux sym w_sym w_in gamma beta out_w mid cell hidden probs "
                               "top bot regs layer_input norm ivar gate_state tanh_state in_gate last_state outputs ctx "
                               "done", "S C Hz IN OUT n_ctx ctx_slot cluster")
+GmixInputsArgs = _struct("GmixInputsArgs", "t col ctx dense data code last_byte recent acc bits_seen new_bit x1 x2 x wpos "
+                         "rpos ppm_top ppm_bot ppm_mid sample_u consts blk_ix rowix_st posix apm_ix ppm_ix ppm_cv "
+                         "ind_rot rows_cd cd_oh blocks_pd lm_tbl sc coder win_r ppm_regs sample_out",
+                         "S n_ctx D WP R n_data cap M Kst Kp NA NO Kcd Tcd NPD NLM decode sample regs")
 GmixLstmPerceiveArgs = _struct("GmixLstmPerceiveArgs", "epoch inp outputs hidden out_w in_hist",
                                "S C Hz OUT record inp_stride", "lr")
 
@@ -80,7 +84,8 @@ def _lstm(spec) -> int:
 # one at its end (none in a sampling step); with PPM its count update moves
 # its own `ppm_tbl` rows first, and with PPM and the LSTM the prediction's
 # rows are gathered alone before the forward pass (core/step.py). A
-# sampling step has no output-layer SGD.
+# sampling step has no output-layer SGD. Every step packs its inputs, the
+# grouped gather's indices among them, in one launch before that gather.
 KERNELS = (
     Kernel("gather_rows_many_kernel", "gmix_gather_rows_many", (P, I32), "gmix_rowmove_prepare", "rowmove.cu",
            ("gather_rows", "gather_rows_many"), lambda spec, sampling: 1 + _ppm(spec) + _ppm(spec) * _lstm(spec)),
@@ -100,6 +105,8 @@ KERNELS = (
            lambda spec, sampling: _lstm(spec), GmixLstmForwardArgs),
     Kernel("lstm_perceive_kernel", "gmix_lstm_perceive", (P,), "gmix_lstm_prepare", "lstm.cu", ("lstm_perceive",),
            lambda spec, sampling: _lstm(spec) * int(not sampling), GmixLstmPerceiveArgs),
+    Kernel("inputs_pack_kernel", "gmix_inputs_pack", (P,), "gmix_inputs_prepare", "inputs.cu", ("inputs_pack",),
+           lambda spec, sampling: 1, GmixInputsArgs),
 )
 BY_WRAPPER = {w: k for k in KERNELS for w in k.wrappers}
 

@@ -14,11 +14,11 @@ import torch
 
 import gmix_tpu_torch as gt
 from gmix_tpu_torch import bench, obs
-from gmix_tpu_torch.core import contexts, lstm, ppm
+from gmix_tpu_torch.core import contexts, inputs, lstm, ppm
 from gmix_tpu_torch.core.meta import build_meta
 from gmix_tpu_torch.core.step import StepPlan
 from gmix_tpu_torch.ops import kernels
-from gmix_tpu_torch.utils import contexts_inputs, lstm_inputs, ppm_inputs
+from gmix_tpu_torch.utils import contexts_inputs, inputs_inputs, lstm_inputs, ppm_inputs
 
 PKG = Path(gt.__file__).parent
 CSRC = PKG / "csrc"
@@ -66,7 +66,7 @@ def test_every_c_entry_has_a_row():
     """The library's C entries are the table's: each kernel's entry and
     prepare entry, and `OTHER_ENTRIES`; none more, none fewer."""
     table = {k.entry for k in kernels.KERNELS} | {k.prepare for k in kernels.KERNELS if k.prepare}
-    assert len(_c_entries()) == 18
+    assert len(_c_entries()) == 20
     assert set(_c_entries()) == table | set(kernels.OTHER_ENTRIES)
 
 
@@ -119,16 +119,18 @@ SPECS = {"ref-full": lambda: bench.spec_for(None), "best": gt.best_spec, "ref-pp
 
 
 @pytest.mark.parametrize("name,sampling,total,want", [
-    ("ref-full", False, 12, (3, 2, 1, 1, 1, 1, 1, 1, 1)), ("best", False, 12, (3, 2, 1, 1, 1, 1, 1, 1, 1)),
-    ("ref-ppm", False, 9, (2, 2, 1, 1, 1, 1, 1, 0, 0)), ("ref-noppm", False, 5, (1, 1, 1, 0, 0, 1, 1, 0, 0)),
-    ("ref-full", True, 10, (3, 1, 1, 1, 1, 1, 1, 1, 0)), ("ref-ppm", True, 8, (2, 1, 1, 1, 1, 1, 1, 0, 0)),
-    ("ref-noppm", True, 4, (1, 0, 1, 0, 0, 1, 1, 0, 0)), ("ref:ablate-nomatch", False, 11, (3, 2, 1, 1, 1, 1, 0, 1, 1)),
+    ("ref-full", False, 13, (3, 2, 1, 1, 1, 1, 1, 1, 1, 1)), ("best", False, 13, (3, 2, 1, 1, 1, 1, 1, 1, 1, 1)),
+    ("ref-ppm", False, 10, (2, 2, 1, 1, 1, 1, 1, 0, 0, 1)), ("ref-noppm", False, 6, (1, 1, 1, 0, 0, 1, 1, 0, 0, 1)),
+    ("ref-full", True, 11, (3, 1, 1, 1, 1, 1, 1, 1, 0, 1)), ("ref-ppm", True, 9, (2, 1, 1, 1, 1, 1, 1, 0, 0, 1)),
+    ("ref-noppm", True, 5, (1, 0, 1, 0, 0, 1, 1, 0, 0, 1)),
+    ("ref:ablate-nomatch", False, 12, (3, 2, 1, 1, 1, 1, 0, 1, 1, 1)),
 ])
 def test_launches_per_step(name, sampling, total, want):
-    """A byte step launches 12 / 12 / 9 / 5 kernels at ref-full / best /
-    ref-ppm / ref-noppm, a sampling step 10 / 8 / 4 (no byte-end scatter, no
-    output-layer SGD), and a spec without match models no match kernel: by
-    kernel in the table's order, and counted by wrapper the same way."""
+    """A byte step launches 13 / 13 / 10 / 6 kernels at ref-full / best /
+    ref-ppm / ref-noppm, a sampling step 11 / 9 / 5 (no byte-end scatter, no
+    output-layer SGD), a spec without match models no match kernel, and every
+    step one inputs kernel: by kernel in the table's order, and counted by
+    wrapper the same way."""
     got = kernels.launches_per_step(SPECS[name](), sampling)
     assert got == want and sum(got) == total
     assert kernels.launch_counts({k.wrappers[-1]: n for k, n in zip(kernels.KERNELS, got)}) == got
@@ -146,6 +148,9 @@ def _cpu_call(wrapper):
         if wrapper == "ppm_update":
             return lambda: ppm.ppm_update_kernel(t["raw"], t["cv"], t["completed"], t["see"], plan)
         return lambda: ppm.ppm_predict_kernel(t["raw"], t["cv"], t["see"], plan)
+    if wrapper == "inputs_pack":
+        state, args = inputs_inputs.to_state(inputs_inputs.random_sample(meta, 2, 1, "decode"), "cpu")
+        return lambda: inputs.inputs_kernel(state, plan=plan, **args)
     if wrapper in ("contexts_boundary", "match_pointer"):
         stm, ltm = contexts_inputs.to_state(meta, contexts_inputs.random_state(meta, 2, 3), "cpu")
         if wrapper == "contexts_boundary":

@@ -852,3 +852,104 @@ def test_lstm_wrappers_reject_what_the_kernels_do_not_take(cuda):
     with pytest.raises(RuntimeError, match="lstm_forward: CUDA error"):  # 236 KB of shared memory
         lstm.lstm_forward_kernel(r_stm, r_ltm, lstm.LstmPlan(ref.spec.lstm, 1, cuda), int(ref.slots["lstm_ctx"]),
                                  cluster=1)
+
+
+# ---------------------------------------------------------------------------
+# the inputs kernel (csrc/inputs.cu): row indices, dense rows, packing
+# ---------------------------------------------------------------------------
+
+# the benchmark's configurations at their cells' stream counts, one stream of
+# ref, the grouped-PPM profile, and variants with empty classes
+INPUTS_CASES = {"gmix-ref-x54": ("gmix-ref", 54), "gmix-best-x30": ("gmix-best", 30),
+                "ref-noppm-x63": ("ref-noppm", 63), "gmix-ref-x1": ("gmix-ref", 1), "ref-ppm-x4": ("ref-ppm", 4),
+                "ablate-indonly-x3": ("ref:ablate-indonly", 3), "ablate-mixtb0-x3": ("ref:ablate-mixtb0", 3)}
+
+
+def _inputs_meta(name):
+    import gmix_tpu_torch as gt
+    from gmix_tpu_torch import bench
+    from gmix_tpu_torch.core.meta import build_meta
+
+    makers = {"gmix-ref": gt.reference_spec, "gmix-best": gt.best_spec, "ref-noppm": bench.ref_noppm_spec,
+              "ref-ppm": bench.ref_ppm_spec}
+    return build_meta(makers[name]() if name in makers else bench.parse_profile(name)[1])
+
+
+def _check_inputs_kernel(meta, sample, dev):
+    """The kernel on `sample` against the plain version on the card, every
+    stream, and on the CPU, on three streams' rows, bit for bit: every output
+    of `out_layout`; one launch, counted; no input written."""
+    from gmix_tpu_torch.core import inputs
+    from gmix_tpu_torch.core.step import StepPlan
+    from gmix_tpu_torch.utils.inputs_inputs import to_state
+
+    S = len(sample["stm"]["acc"])
+    streams = sorted({0, S // 2, S - 1})
+    state, args = to_state(sample, dev)
+    before = {k: v.clone() for k, v in {**state["stm"], **state["coder"], **state["ltm"]}.items()}
+    n0 = _launches("inputs_pack")
+    got = inputs.byte_inputs(state, plan=StepPlan(meta, S, dev), **args)
+    torch.cuda.synchronize()
+    assert _launches("inputs_pack") - n0 == 1
+    for k, v in {**state["stm"], **state["coder"], **state["ltm"]}.items():
+        assert _bits_equal(v, before[k]), f"the kernel wrote {k}"
+    layout = inputs.out_layout(meta, args["sample_u"] is not None)
+    assert [(k, tuple(got[k].shape), got[k].dtype) for k, _, _ in layout] == [(k, (S,) + t, d) for k, t, d in layout]
+    want = inputs.inputs_plain(state, plan=StepPlan(meta, S, dev), **args)
+    assert sorted(want) == sorted(got)
+    for k in want:
+        assert _bits_equal(got[k], want[k]), f"{k} differs from the plain version on the card"
+    c_state, c_args = to_state(sample, "cpu", streams)
+    want = inputs.inputs_plain(c_state, plan=StepPlan(meta, len(streams), "cpu"), **c_args)
+    for k in want:
+        assert _bits_equal(got[k][streams], want[k]), f"{k} differs from the plain version on the cpu"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["encode", "decode", "decode-past-end", "sample"])
+@pytest.mark.parametrize("name", list(INPUTS_CASES))
+def test_inputs_kernel_matches_plain(cuda, name, mode):
+    """Seeded steps as the codec runs them (u32 contexts, -0.0 and
+    denormals in one-row and wider ctx-dense tables, contexts at 2^32 - 1),
+    encode and decode, the decoder's window past its code stream's end, a
+    sampling step; at the benchmark's cells, one stream, the grouped-PPM
+    profile and variants with empty classes."""
+    from gmix_tpu_torch.utils.inputs_inputs import random_sample
+
+    spec_name, S = INPUTS_CASES[name]
+    meta = _inputs_meta(spec_name)
+    _check_inputs_kernel(meta, random_sample(meta, S, 17 * S + len(mode), mode, t=5 * (mode in ("decode", "sample"))), cuda)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["gmix-ref", "ref:ablate-mixtb0"])
+def test_inputs_kernel_flushes_as_the_plain_version(cuda, name):
+    """Each stream's dense arena -0.0, +0.0, a denormal or FLT_MIN of either
+    sign (`edge_sample`): a T > 1 ctx-dense row reads +0.0 where the plain
+    version does, a one-row table keeps every bit, the copies keep every
+    bit."""
+    from gmix_tpu_torch.utils.inputs_inputs import edge_sample
+
+    _check_inputs_kernel(_inputs_meta(name), edge_sample(_inputs_meta(name), 5), cuda)
+
+
+@pytest.mark.cuda
+def test_inputs_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    from gmix_tpu_torch.core import inputs
+    from gmix_tpu_torch.core.step import StepPlan
+    from gmix_tpu_torch.utils.inputs_inputs import random_sample, to_state
+
+    meta = _inputs_meta("gmix-ref")
+    plan = StepPlan(meta, 2, cuda)
+    state, args = to_state(random_sample(meta, 2, 1, "decode"), cuda)
+    stm = state["stm"]
+    with pytest.raises(ValueError, match="ctx is"):
+        inputs.inputs_kernel({**state, "stm": {**stm, "ctx": stm["ctx"].to(torch.int32)}}, plan=plan, **args)
+    with pytest.raises(ValueError, match="data is"):
+        inputs.inputs_kernel(state, plan=plan, **{**args, "data_buf": args["data_buf"].to(torch.int64)})
+    with pytest.raises(ValueError, match="code is"):
+        inputs.inputs_kernel(state, plan=plan, **{**args, "code_buf": args["code_buf"].T.contiguous().T})
+    with pytest.raises(ValueError, match="col is"):
+        inputs.inputs_kernel(state, plan=plan, **{**args, "col": args["col"].cpu()})
+    with pytest.raises(ValueError, match="dense is"):
+        inputs.inputs_kernel({**state, "ltm": {"mix_dense": state["ltm"]["mix_dense"][:, 1:]}}, plan=plan, **args)
